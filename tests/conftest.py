@@ -30,6 +30,10 @@ def pytest_configure(config):
         "slow: multi-process/subprocess tests excluded from the "
         "tier-1 `-m 'not slow'` sweep (covered by the NET_SMOKE "
         "gate instead)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch/CUDA port's kernels); "
+        "skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (``csrc/``) with their plain PyTorch
+versions and launch counters."""
