@@ -7,19 +7,28 @@ Phases (each prints its own lines; any failure raises and exits
 non-zero):
 
 1. device: name, count, compute capability, power limit; requires sm_90;
-2. build: compiles every CUDA kernel of the main path from
-   ``triton_distributed_tpu_torch/kernels/csrc`` with nvcc;
+2. build: compiles every CUDA kernel of the main paths from
+   ``triton_distributed_tpu_torch/kernels/csrc`` with nvcc, one process
+   per source, all started together;
 3. kernels vs plain: each kernel against its plain PyTorch version, in
-   f32 from the same bf16 inputs, at the main path's shapes and edge
-   cases;
-4. main path: Qwen3-8B at full width and depth with seeded random bf16
+   f32 from the same bf16 inputs, at the main paths' shapes and edge
+   cases; the paged decode kernel also bit for bit against the dense one
+   over the same logical K/V;
+4. Engine path: Qwen3-8B at full width and depth with seeded random bf16
    weights; ``Engine.serve`` answers 4 requests of 512 prompt tokens with
    32 greedy tokens each, with the kernel launch counts checked, then a
    teacher-forcing check of decode against prefill;
-5. times: each kernel, its bound, its plain version and the PyTorch
+5. scheduler path: the same model behind ``ContinuousBatchingScheduler``
+   (8 slots, 2048 positions, pages of 16), 16 requests (6 sharing a
+   512-token prefix) served three ways: dense slots, paged with the
+   prefix cache, and paged with a 200-page pool that forces preemption;
+   tokens, prefix hits, launch counts and preemption checked; wall time,
+   generated and prompt tokens/s, decode ms per step;
+6. times: each kernel, its bound, its plain version and the PyTorch
    library call for the same function, then prefill and decode times;
-6. profile: one traced prefill and eight traced decode steps, with the
-   device's busy share and the kernels that take its time.
+7. profile: one traced prefill and eight traced decode steps of the
+   Engine path, and eight traced scheduler steps of the paged run, with
+   the device's busy share and the kernels that take its time.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -48,9 +57,27 @@ KERNEL_SOURCES = {
     "flash_decode": (
         "triton_distributed_tpu_torch/kernels/csrc/flash_decode.cu",
         "triton_distributed_tpu/kernels/flash_decode.py:195"),
+    "flash_decode_paged": (
+        "triton_distributed_tpu_torch/kernels/csrc/flash_decode_paged.cu",
+        "triton_distributed_tpu/kernels/flash_decode.py:310"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
+
+#: Scheduler path: 8 slots of 2048 positions, pages of 16.  Traffic: 6
+#: requests share a 512-token system prefix (totals all in bucket 1024,
+#: so the donor's and the consumers' prefix K/V are computed at the same
+#: shape), 10 have unique prompts; max_new_tokens cycles 16..64.
+SLOTS, MAX_SEQ, PAGE = 8, 2048, 16
+SYS_PREFIX = 512
+SHARED_TOTALS = (612, 672, 732, 792, 852, 912)
+UNIQUE_LENS = (40, 100, 200, 300, 450, 700, 1000, 1100, 1500, 1800)
+MAX_NEW_CYCLE = (16, 32, 48, 64)
+TIGHT_PAGES = 200
+
+#: K3's main-path decode state: 8 rows at these lengths (1 position, a
+#: page less one, a page, a page plus one, ..., the full 2048).
+K3_KV_LEN = (1, 15, 16, 17, 513, 1000, 1928, 2048)
 
 #: Device cycles (about 50 ms at the H100's 1.98 GHz boost clock) that the
 #: stream spins before a timed run.  Every timed run below is queued by the
@@ -150,6 +177,87 @@ def check_close(name, got, want, atol, rtol):
     return worst
 
 
+def shuffled_table(gen, kv_len, ps: int, t: int, device):
+    """A (B, T) int32 page table mapping each row's pages below its
+    length to distinct physical pages in shuffled order (page 0, the null
+    page, everywhere else), and the pool size it needs (null included)."""
+    need = [-(-int(n) // ps) for n in kv_len]
+    perm = 1 + torch.randperm(sum(need), generator=gen, device=device)
+    table = torch.zeros((len(need), t), dtype=torch.int32, device=device)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+    return table, 1 + sum(need)
+
+
+def scatter_to_pool(cache, table, num_pages: int, ps: int, fill: float):
+    """The pool holding a dense (B, Hkv, S, D) cache's pages where
+    ``table`` maps them; unmapped pages (the null page among them) hold
+    ``fill``."""
+    b, hkv, s, d = cache.shape
+    t = table.shape[1]
+    padded = torch.full((b, hkv, t * ps, d), fill, dtype=cache.dtype,
+                        device=cache.device)
+    padded[:, :, :s] = cache
+    blocks = padded.reshape(b, hkv, t, ps, d).transpose(1, 2)
+    pool = torch.full((num_pages, hkv, ps, d), fill, dtype=cache.dtype,
+                      device=cache.device)
+    mapped = table != 0
+    pool[table[mapped].long()] = blocks[mapped]
+    return pool
+
+
+def scheduler_traffic(vocab: int, seed: int):
+    """The 16 requests of the scheduler path as (prompt, max_new_tokens),
+    shared-prefix and unique prompts interleaved; token ids avoid the pad
+    id 0."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def ids(n):
+        return torch.randint(1, vocab, (n,), generator=gen).tolist()
+
+    prefix = ids(SYS_PREFIX)
+    shared = [prefix + ids(n - SYS_PREFIX) for n in SHARED_TOTALS]
+    unique = [ids(n) for n in UNIQUE_LENS]
+    order = [p for pair in zip(shared, unique) for p in pair]
+    order += unique[len(shared):]
+    return [(p, MAX_NEW_CYCLE[i % len(MAX_NEW_CYCLE)])
+            for i, p in enumerate(order)]
+
+
+def drive_scheduler(sched, traffic, request_cls, queued_state):
+    """Submit the traffic and step the scheduler until it drains (what
+    ``run()`` does), timing each step on the host (a step ends in the
+    host sync of its tokens).  Returns the requests and the run's record:
+    wall ms, per-step (ms, admitted, decoded), prompt tokens prefilled
+    (resumes included), and each preempted request's token count at its
+    first preemption."""
+    reqs = [request_cls(prompt=p, max_new_tokens=n) for p, n in traffic]
+    steps, prompt_tokens, first_preempt = [], 0, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not sched.submit(r):
+            raise AssertionError(f"request rejected: {r.reject_reason}")
+    while sched.has_work():
+        waiting = {i: len(r.resume_tokens or r.prompt)
+                   for i, r in enumerate(reqs) if r.state is queued_state}
+        ts = time.perf_counter()
+        info = sched.step()
+        steps.append(((time.perf_counter() - ts) * 1e3, info["admitted"],
+                      info["active"] > 0))
+        for i, r in enumerate(reqs):
+            if i in waiting and r.state is not queued_state:
+                prompt_tokens += waiting[i]
+            if r.preemptions and i not in first_preempt:
+                first_preempt[i] = len(r.generated)
+    torch.cuda.synchronize()
+    return reqs, {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                  "steps": steps, "prompt_tokens": prompt_tokens,
+                  "first_preempt": first_preempt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -160,7 +268,11 @@ def main() -> int:
     from triton_distributed_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_reference)
     from triton_distributed_tpu_torch.kernels.flash_decode import (
-        flash_decode, flash_decode_reference)
+        flash_decode, flash_decode_paged, flash_decode_paged_reference,
+        flash_decode_reference, gather_pages)
+    from triton_distributed_tpu_torch.serving import (
+        DEFAULT_PREFILL_BUCKETS, ContinuousBatchingScheduler, Request,
+        RequestState, SchedulerConfig)
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -194,14 +306,15 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
 
-    errs = {"flash_attention": 0.0, "flash_decode": 0.0}
+    errs = {nm: 0.0 for nm in KERNEL_SOURCES}
     fa_cases = [
         ("prefill 4x32x512x128 causal", 4, 32, 8, 512, 512, True, 0),
+        ("bucket 2048 1x32x2048x128 causal", 1, 32, 8, 2048, 2048, True, 0),
         ("ragged Sq=Sk=300 causal", 2, 8, 2, 300, 300, True, 0),
         ("kv_offset=128 Sq=128 Sk=256", 2, 8, 4, 128, 256, True, 128),
         ("non-causal Sq=200 Sk=333", 2, 8, 8, 200, 333, False, 0),
     ]
-    fa_main = None
+    fa_timed = []
     for label, b, h, hkv, sq, sk, causal, off in fa_cases:
         q, k, v = randn(b, h, sq, 128), randn(b, hkv, sk, 128), randn(
             b, hkv, sk, 128)
@@ -214,8 +327,7 @@ def main() -> int:
         e = check_close(f"flash_attention {label} out", out, ref, 1e-2, 1e-2)
         check_close(f"flash_attention {label} lse", lse, ref_lse, 1e-3, 0.0)
         errs["flash_attention"] = max(errs["flash_attention"], e)
-        if fa_main is None:
-            fa_main = (q, k, v)
+        fa_timed.append((label, q, k, v, causal, off))
 
     def decode_case(label, q, kc, vc, kv_len):
         out, lse = flash_decode(q, kc, vc, kv_len)
@@ -233,14 +345,59 @@ def main() -> int:
                              device=dev))
     del kc, vc
 
-    # -- 4. main path ---------------------------------------------------
+    def paged_case(label, q, kp, vp, table, kv_len):
+        out, lse = flash_decode_paged(q, kp, vp, table, kv_len)
+        ref, ref_lse = flash_decode_paged_reference(
+            q.float(), kp.float(), vp.float(), table, kv_len)
+        torch.cuda.synchronize()
+        e = check_close(f"flash_decode_paged {label} out", out, ref, 1e-2,
+                        1e-2)
+        check_close(f"flash_decode_paged {label} lse", lse, ref_lse, 1e-3,
+                    0.0)
+        errs["flash_decode_paged"] = max(errs["flash_decode_paged"], e)
+        return out, lse
+
+    # K3 at the scheduler path's decode state: 8 rows, 36 layers of pools,
+    # each row's pages shuffled over the pool, the null page (and every
+    # page past a row's length) holding 1e4 so a stray read would show.
+    k3_len = torch.tensor(K3_KV_LEN, dtype=torch.int32, device=dev)
+    k3_table, k3_pages = shuffled_table(gen, K3_KV_LEN, PAGE, MAX_SEQ // PAGE,
+                                        dev)
+    k3_pools = []
+    for _ in range(36):
+        kp, vp = (randn(k3_pages, 8, PAGE, 128) for _ in range(2))
+        kp[0] = vp[0] = 1e4
+        k3_pools.append((kp, vp))
+    k3_q = randn(SLOTS, 32, 128)
+    paged_case(f"q 8x32x128, pool {k3_pages}x8x16x128 (shuffled pages, "
+               f"null page 1e4), kv_len={list(K3_KV_LEN)}", k3_q,
+               *k3_pools[0], k3_table, k3_len)
+    # Page sizes 16 and 24 (not a power of two), each bit for bit against
+    # the dense kernel over the same logical K/V.
+    kc, vc = randn(SLOTS, 8, MAX_SEQ, 128), randn(SLOTS, 8, MAX_SEQ, 128)
+    dense = flash_decode(k3_q, kc, vc, k3_len)
+    for ps in (PAGE, 24):
+        table, pages = shuffled_table(gen, K3_KV_LEN, ps, -(-MAX_SEQ // ps),
+                                      dev)
+        kp = scatter_to_pool(kc, table, pages, ps, 1e4)
+        vp = scatter_to_pool(vc, table, pages, ps, -1e4)
+        got = paged_case(f"page_size {ps}, dense 8x8x2048x128 scattered",
+                         k3_q, kp, vp, table, k3_len)
+        same = all(torch.equal(a, b) for a, b in zip(got, dense))
+        print(f"  flash_decode_paged page_size {ps} vs flash_decode on the "
+              f"same logical K/V: out and lse {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("paged decode differs from dense decode")
+    del kc, vc, kp, vp, dense
+
+    # -- 4. Engine path -------------------------------------------------
     cfg = ModelConfig.qwen3_8b()
     t0 = time.perf_counter()
     wgen = torch.Generator(device=dev).manual_seed(0)
     model = Qwen3(cfg).init_params(wgen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[main path] Qwen3-8B: {cfg.num_layers} layers, hidden "
+    print(f"[engine path] Qwen3-8B: {cfg.num_layers} layers, hidden "
           f"{cfg.hidden_size}, {n_params / 1e9:.3f} B parameters, "
           f"{cfg.dtype}; random weights (seed 0) in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -249,18 +406,31 @@ def main() -> int:
                             generator=wgen, device=dev)
     cache = model.create_cache(BATCH, max_seq=CACHE_SEQ)
 
+    counted = {"flash_attention": flash_attention,
+               "flash_decode": flash_decode,
+               "flash_decode_paged": flash_decode_paged}
+
+    def zero_counts():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {nm: fn.launches for nm, fn in counted.items()}
+
+    total_launches = dict.fromkeys(counted, 0)
     served = []
-    flash_attention.launches = 0
-    flash_decode.launches = 0
+    zero_counts()
     t_serve = wall_ms(lambda: served.append(
         engine.serve(prompts, GEN_LEN, cache=cache)))
-    launches = {"flash_attention": flash_attention.launches,
-                "flash_decode": flash_decode.launches}
-    print(f"[main path] Engine.serve {BATCH} requests x {PROMPT} prompt "
+    launches = read_counts()
+    for nm, n in launches.items():
+        total_launches[nm] += n
+    print(f"[engine path] Engine.serve {BATCH} requests x {PROMPT} prompt "
           f"tokens, gen_len {GEN_LEN}, greedy: {t_serve:.1f} ms (first "
           f"call); launches {launches}")
     want = {"flash_attention": cfg.num_layers,
-            "flash_decode": cfg.num_layers * (GEN_LEN - 1)}
+            "flash_decode": cfg.num_layers * (GEN_LEN - 1),
+            "flash_decode_paged": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -303,7 +473,7 @@ def main() -> int:
         floor = rel_l2(logits_f, logits_x)
         agree = float((logits_d.argmax(-1) == logits_f.argmax(-1)).float()
                       .mean())
-        print(f"[main path] teacher forcing, decode@{PROMPT} vs prefill of "
+        print(f"[engine path] teacher forcing, decode@{PROMPT} vs prefill of "
               f"{PROMPT + 1} tokens: rel_l2={tf_err:.3e} (max_abs "
               f"{float((logits_d - logits_f).abs().max()):.3e}, max|logit| "
               f"{float(logits_f.abs().max()):.3f}, argmax agreement "
@@ -314,25 +484,144 @@ def main() -> int:
         if not tf_err <= 3 * floor:
             raise AssertionError("teacher-forcing logits disagree")
 
-    # -- 5. times -------------------------------------------------------
+    # -- 5. scheduler path ---------------------------------------------
+    nl = cfg.num_layers
+    traffic = scheduler_traffic(cfg.vocab_size, seed=1)
+    base = dict(num_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                prefill_buckets=DEFAULT_PREFILL_BUCKETS, temperature=0.0)
+    kv_per_token = 2 * nl * cfg.num_kv_heads * cfg.head_dim * 2
+    print(f"[scheduler path] {len(traffic)} requests: {len(SHARED_TOTALS)} "
+          f"share a {SYS_PREFIX}-token prefix (totals {SHARED_TOTALS}), "
+          f"unique prompts {UNIQUE_LENS}; max_new_tokens cycling "
+          f"{MAX_NEW_CYCLE}; {SLOTS} slots x {MAX_SEQ} positions, pages of "
+          f"{PAGE}; KV {kv_per_token} B per token, greedy")
+    runs, kept = {}, {}
+    for label, extra in (("slots", dict(kv_layout="slots")),
+                         ("paged", dict(kv_layout="paged")),
+                         ("paged-200", dict(kv_layout="paged",
+                                            num_pages=TIGHT_PAGES))):
+        sched = ContinuousBatchingScheduler(model,
+                                            SchedulerConfig(**base, **extra))
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        reqs, rec = drive_scheduler(sched, traffic, Request,
+                                    RequestState.QUEUED)
+        got = read_counts()
+        for nm, n in got.items():
+            total_launches[nm] += n
+        steps = rec["steps"]
+        n_decode = sum(1 for _, _, dec in steps if dec)
+        n_prefill = len(traffic) + sum(r.preemptions for r in reqs)
+        want = {"flash_attention": nl * n_prefill,
+                "flash_decode": nl * n_decode if label == "slots" else 0,
+                "flash_decode_paged": 0 if label == "slots" else nl * n_decode}
+        pure = sorted(ms for ms, adm, dec in steps if dec and not adm)
+        step_ms = pure[len(pure) // 2]
+        adm_ms = sum(ms for ms, adm, _ in steps if adm) - step_ms * sum(
+            1 for _, adm, dec in steps if adm and dec)
+        n_gen = sum(len(r.generated) for r in reqs)
+        hits = sched.slots.radix.hit_tokens if label != "slots" else 0
+        print(f"[scheduler path] {label}: run {rec['wall_ms']:.1f} ms "
+              f"(host clock), {n_gen} tokens generated "
+              f"({n_gen / rec['wall_ms'] * 1e3:.1f} tokens/s), "
+              f"{rec['prompt_tokens']} prompt tokens prefilled at admission "
+              f"({rec['prompt_tokens'] / adm_ms * 1e3:.0f} tokens/s over "
+              f"{adm_ms:.1f} ms: admitting steps less one decode step "
+              f"each), {n_decode} decode steps at {step_ms:.2f} ms/step "
+              f"(median host time of the steps that admit nothing), "
+              f"{n_prefill} prefills, preemptions "
+              f"{sum(r.preemptions for r in reqs)}, prefix hits {hits} "
+              f"tokens, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {got}; {card}")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        for i, r in enumerate(reqs):
+            if (r.finish_reason is None or r.finish_reason.value != "length"
+                    or len(r.generated) != r.max_new_tokens):
+                raise AssertionError(f"{label}: request {i} finished "
+                                     f"{r.finish_reason} with "
+                                     f"{len(r.generated)} tokens")
+            if not all(0 <= t < cfg.vocab_size for t in r.generated):
+                raise AssertionError(f"{label}: request {i} left the "
+                                     "vocabulary")
+        runs[label] = (reqs, rec)
+        if label in ("slots", "paged"):
+            kept[label] = sched         # for the steady-state phase 7
+        del sched
+
+    slot_tokens = [r.generated for r in runs["slots"][0]]
+    paged_tokens = [r.generated for r in runs["paged"][0]]
+    for i, (a, b) in enumerate(zip(slot_tokens, paged_tokens)):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(f"slots and paged differ: request {i} at "
+                                 f"token {j}: {a[j]} != {b[j]}")
+    print(f"[scheduler path] slots and paged runs: equal tokens for all "
+          f"{len(slot_tokens)} requests")
+    hits = kept["paged"].slots.radix.hit_tokens
+    if hits < (len(SHARED_TOTALS) - 1) * SYS_PREFIX:
+        raise AssertionError(f"prefix hits {hits} < "
+                             f"{(len(SHARED_TOTALS) - 1) * SYS_PREFIX}")
+    tight, tight_rec = runs["paged-200"]
+    if not tight_rec["first_preempt"]:
+        raise AssertionError("the 200-page run never preempted")
+    for i, n in sorted(tight_rec["first_preempt"].items()):
+        a, b = tight[i].generated[:n], paged_tokens[i][:n]
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(f"preempted request {i} differs from the "
+                                 f"paged run before its preemption, at "
+                                 f"token {j}: {a[j]} != {b[j]}")
+    print(f"[scheduler path] paged-200: preempted requests "
+          f"{sorted(tight_rec['first_preempt'])}, tokens before the first "
+          f"preemption equal the paged run's "
+          f"({sorted(tight_rec['first_preempt'].values())} tokens); after "
+          f"it, resumes re-prefill prompt + generated (bf16 rounding differs "
+          f"from decode-written K/V), equal tokens "
+          f"{sum(a.generated == b for a, b in zip(tight, paged_tokens))} of "
+          f"{len(tight)}")
+    del runs
+
+    # -- 6. times -------------------------------------------------------
     print(f"[times] card: {card}; CUDA events, mean over back-to-back "
           "calls after warm-up")
     records = []
 
-    q, k, v = fa_main
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    out = flash_attention(q, k, v)
-    ms = time_ms(lambda: flash_attention(q, k, v), 50)
-    plain = time_ms(lambda: flash_attention_reference(q, k, v), 5)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 50)
-    lse_bytes = b * h * sq * 4
-    bms, by = bound(nbytes(q, k, v, out) + lse_bytes,
-                    4 * b * h * attention_pairs(sq, sk, True, 0) * d)
-    records.append(("flash_attention", ms, plain, bms, by, lib))
+    def attention_times(q, k, v, causal, off, reps):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        out = flash_attention(q, k, v, causal=causal, kv_offset=off)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             kv_offset=off), reps)
+        plain = time_ms(lambda: flash_attention_reference(
+            q, k, v, causal=causal, kv_offset=off), 3)
+        if off:
+            # SDPA's causal mask is top-left aligned: pass the shifted
+            # diagonal as a boolean mask.
+            mask = (torch.arange(sk, device=dev)[None, :]
+                    <= torch.arange(sq, device=dev)[:, None] + off)
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), reps)
+        else:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps)
+        bms, by = bound(nbytes(q, k, v, out) + b * h * sq * 4,
+                        4 * b * h * attention_pairs(sq, sk, causal, off) * d)
+        return ms, plain, bms, by, lib
 
-    # flash_decode at a main-path decode state: the cache after the
+    fa_rows = {}
+    for key, idx in (("K1a", 0), ("K1b", 1), ("K1c", 3)):
+        label, q, k, v, causal, off = fa_timed[idx]
+        fa_rows[key] = (label,) + attention_times(q, k, v, causal, off, 50)
+    records.append(("flash_attention",) + fa_rows["K1a"][1:])
+    for key, (label, ms, plain, bms, by, lib) in fa_rows.items():
+        print(f"[times] flash_attention {key} ({label}): {ms:.4f} ms (bound "
+              f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
+              f"{plain:.4f} ms, SDPA {lib:.4f} ms; {card}")
+    del fa_timed
+
+    # flash_decode at the Engine path's decode state: the cache after the
     # teacher-forcing decode, every row filled to PROMPT + 1 positions.
     # Timed over the 36 layers' caches in turn, as a decode step reads
     # them, so K/V come from device memory and not from the 50 MB L2.
@@ -341,32 +630,62 @@ def main() -> int:
     kv_len = cache.offset.clone()
     L = int(kv_len[0])
     qd = randn(BATCH, cfg.num_heads, cfg.head_dim)
-    decode_case(f"main-path state kv_len={L}", qd, kc, vc, kv_len)
+    decode_case(f"Engine-path state kv_len={L}", qd, kc, vc, kv_len)
     out, _ = flash_decode(qd, kc, vc, kv_len)
     q4 = qd[:, :, None, :]
+    d = cfg.head_dim
 
-    def per_layer_ms(call, reps):
+    def per_layer_ms(call, layers, reps):
         return time_ms(lambda: [call(k_, v_) for k_, v_ in layers],
                        reps) / len(layers)
 
-    ms = per_layer_ms(lambda k_, v_: flash_decode(qd, k_, v_, kv_len), 5)
+    ms = per_layer_ms(lambda k_, v_: flash_decode(qd, k_, v_, kv_len),
+                      layers, 5)
     plain = per_layer_ms(
-        lambda k_, v_: flash_decode_reference(qd, k_, v_, kv_len), 1)
+        lambda k_, v_: flash_decode_reference(qd, k_, v_, kv_len), layers, 1)
     lib = per_layer_ms(lambda k_, v_: F.scaled_dot_product_attention(
-        q4, k_[:, :, :L], v_[:, :, :L], enable_gqa=True), 5)
+        q4, k_[:, :, :L], v_[:, :, :L], enable_gqa=True), layers, 5)
     kv_bytes = 2 * int(kv_len.sum()) * kc.shape[1] * d * kc.element_size()
-    bms, by = bound(nbytes(qd, kv_len, out) + kv_bytes + BATCH * cfg.num_heads * 4,
+    bms, by = bound(nbytes(qd, kv_len, out) + kv_bytes
+                    + BATCH * cfg.num_heads * 4,
                     4 * cfg.num_heads * d * int(kv_len.sum()))
     records.append(("flash_decode", ms, plain, bms, by, lib))
+
+    # flash_decode_paged at the scheduler path's decode state (phase 3's
+    # 36 layers of pools, the same table for every layer as in a decode
+    # step).  The SDPA yardstick reads the same K/V gathered beforehand
+    # into dense (8, 8, 2048, 128) copies with a length mask; the gather
+    # is not timed.
+    out, _ = flash_decode_paged(k3_q, *k3_pools[0], k3_table, k3_len)
+    ms = per_layer_ms(lambda k_, v_: flash_decode_paged(
+        k3_q, k_, v_, k3_table, k3_len), k3_pools, 5)
+    plain = per_layer_ms(lambda k_, v_: flash_decode_paged_reference(
+        k3_q, k_, v_, k3_table, k3_len), k3_pools, 1)
+    dense = [(gather_pages(k_, k3_table), gather_pages(v_, k3_table))
+             for k_, v_ in k3_pools]
+    mask = (torch.arange(MAX_SEQ, device=dev)[None, :]
+            < k3_len[:, None])[:, None, None, :]
+    q4 = k3_q[:, :, None, :]
+    lib = per_layer_ms(lambda k_, v_: F.scaled_dot_product_attention(
+        q4, k_, v_, attn_mask=mask, enable_gqa=True), dense, 5)
+    del dense
+    n_pos = int(k3_len.sum())
+    n_pages = sum(-(-n // PAGE) for n in K3_KV_LEN)
+    kv_bytes = 2 * n_pos * 8 * d * 2
+    bms, by = bound(nbytes(k3_q, k3_len, out) + kv_bytes + SLOTS * 32 * 4
+                    + 4 * n_pages, 4 * 32 * d * n_pos)
+    records.append(("flash_decode_paged", ms, plain, bms, by, lib))
+    del k3_pools
 
     kernels = []
     for nm, ms, plain, bms, by, lib in records:
         src, repl = KERNEL_SOURCES[nm]
         print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, library "
-              f"{lib:.4f} ms; {card}")
+              f"{lib:.4f} ms; launches on the main paths "
+              f"{total_launches[nm]}; {card}")
         kernels.append({"name": nm, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[nm],
+                        "replaces": repl, "launches": total_launches[nm],
                         "max_abs_err": errs[nm], "ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib})
@@ -383,15 +702,37 @@ def main() -> int:
           f"prompt tokens/s); decode {step_ms:.3f} ms/step "
           f"({BATCH / step_ms * 1e3:.1f} tokens/s); whole serve "
           f"{serve_n:.2f} ms ({BATCH * GEN_LEN / serve_n * 1e3:.1f} "
-          f"generated tokens/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+          f"generated tokens/s); {card}")
 
-    # -- 6. where the time goes ----------------------------------------
+    # -- 7. where the time goes ----------------------------------------
     with torch.inference_mode():
-        profile_phase("prefill", lambda: model.prefill(prompts, cache),
+        profile_phase("Engine prefill", lambda: model.prefill(prompts, cache),
                       card)
-        profile_phase("decode x8", lambda: [
+        profile_phase("Engine decode x8", lambda: [
             model.decode(tokens[:, 0], cache) for _ in range(8)], card)
+    # Steady decode of the slots and the paged scheduler of phase 5 at the
+    # same state: the same 8 fresh requests (prompts of 40..512 tokens)
+    # fill each one's slots in one admitting step; then 8-step windows
+    # in the order slots, paged, paged, slots on the host clock, then
+    # one profile of each (a warm-up window and a traced one).  33
+    # decode steps in all, below every request's 64 tokens.
+    steady = [p[:512] for p, _ in scheduler_traffic(cfg.vocab_size,
+                                                    seed=2)[:SLOTS]]
+    for sched in kept.values():
+        for p in steady:
+            sched.submit(Request(prompt=p, max_new_tokens=64))
+        sched.step()
+    window = {label: [] for label in kept}
+    for label in ("slots", "paged", "paged", "slots"):
+        window[label].append(wall_ms(
+            lambda: [kept[label].step() for _ in range(8)]) / 8)
+    print(f"[profile] scheduler decode, 8 rows, host ms/step over 8-step "
+          f"windows in the order slots, paged, paged, slots: "
+          + "; ".join(f"{label} {a:.2f}, {b:.2f}" for label, (a, b)
+                      in window.items()) + f"; {card}")
+    for label, sched in kept.items():
+        profile_phase(f"scheduler {label} x8",
+                      lambda: [sched.step() for _ in range(8)], card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

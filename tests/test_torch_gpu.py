@@ -15,7 +15,8 @@ import torch
 from triton_distributed_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_reference)
 from triton_distributed_tpu_torch.kernels.flash_decode import (
-    flash_decode, flash_decode_reference)
+    flash_decode, flash_decode_paged, flash_decode_paged_reference,
+    flash_decode_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -85,6 +86,56 @@ def test_flash_decode_kernel(cuda, dtype, d, group):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
+def _scatter_to_pages(gen, kc, vc, kv_len, ps):
+    """A pool holding the dense caches' positions below kv_len in
+    shuffled physical pages (page 0 filled with garbage), and its table;
+    pages past a row's length map to page 0."""
+    b, hkv, s, d = kc.shape
+    t = -(-s // ps)
+    need = [-(-int(n) // ps) for n in kv_len.tolist()]
+    p = 1 + sum(need)
+    perm = 1 + torch.randperm(p - 1, generator=gen, device=kc.device)
+    table = torch.zeros((b, t), dtype=torch.int32, device=kc.device)
+    kp = torch.full((p, hkv, ps, d), 1e4, dtype=kc.dtype, device=kc.device)
+    vp = torch.full_like(kp, -1e4)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n].to(torch.int32)
+        at += n
+        for j in range(n):
+            lo, hi = j * ps, min((j + 1) * ps, s)
+            pg = int(table[i, j])
+            kp[pg, :, :hi - lo] = kc[i, :, lo:hi]
+            vp[pg, :, :hi - lo] = vc[i, :, lo:hi]
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("page_size", [16, 24])
+def test_flash_decode_paged_kernel(cuda, dtype, d, group, page_size):
+    """Against the plain version, and bit for bit against the dense
+    kernel over the same logical K/V (shared body)."""
+    b, hkv, s = 4, 2, 300
+    gen = torch.Generator(device=cuda).manual_seed(group * 7 + d + page_size)
+    q = _randn(gen, dtype, cuda, b, hkv * group, d)
+    kc = _randn(gen, dtype, cuda, b, hkv, s, d)
+    vc = _randn(gen, dtype, cuda, b, hkv, s, d)
+    kv_len = torch.tensor([1, 17, 150, s], dtype=torch.int32, device=cuda)
+    kp, vp, table = _scatter_to_pages(gen, kc, vc, kv_len, page_size)
+    before = flash_decode_paged.launches
+    out, lse = flash_decode_paged(q, kp, vp, table, kv_len)
+    assert flash_decode_paged.launches == before + 1
+    ref, ref_lse = flash_decode_paged_reference(q.float(), kp.float(),
+                                                vp.float(), table, kv_len)
+    dense, dense_lse = flash_decode(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **OUT_TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(out, dense) and torch.equal(lse, dense_lse)
+
+
 def test_kernels_reject_unsupported_inputs(cuda):
     q = torch.zeros(1, 2, 8, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
@@ -101,6 +152,13 @@ def test_kernels_reject_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="group"):
         flash_decode(qd, kc, kc, torch.ones(1, dtype=torch.int32,
                                             device=cuda))
+    qd = torch.zeros(1, 4, 64, device=cuda, dtype=torch.bfloat16)
+    kp = torch.zeros(3, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="page_table"):
+        flash_decode_paged(qd, kp, kp,
+                           torch.zeros(1, 2, dtype=torch.int64,
+                                       device=cuda),
+                           torch.ones(1, dtype=torch.int32, device=cuda))
 
 
 def test_tiny_model_gpu_matches_cpu(cuda):
@@ -120,3 +178,37 @@ def test_tiny_model_gpu_matches_cpu(cuda):
         cpu.prefill(ids, cpu.create_cache(2)), atol=1e-3, rtol=1e-3)
     assert torch.equal(Engine(gpu).serve(ids.to(cuda), 6).cpu(),
                        Engine(cpu).serve(ids, 6))
+
+
+def test_tiny_scheduler_gpu_matches_cpu(cuda):
+    """The scheduler over the tiny f32 model on the card (K1, K2, K3)
+    against the CPU (plain versions), both layouts, greedy: same tokens,
+    and the paged run goes through the paged kernel."""
+    from triton_distributed_tpu_torch import (
+        ContinuousBatchingScheduler, ModelConfig, Qwen3, Request,
+        SchedulerConfig)
+
+    cfg = ModelConfig.tiny(dtype="float32", head_dim=64)
+    cpu = Qwen3(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Qwen3(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    prefix = torch.randint(1, cfg.vocab_size, (16,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(1, cfg.vocab_size, (n,),
+                                      generator=gen).tolist()
+               for n in (3, 9, 20)]
+    outs = []
+    for model in (cpu, gpu):
+        for layout in ("slots", "paged"):
+            sched = ContinuousBatchingScheduler(model, SchedulerConfig(
+                num_slots=2, max_seq=64, prefill_buckets=(16, 32, 64),
+                page_size=8, kv_layout=layout))
+            before = flash_decode_paged.launches
+            done = sched.run([Request(prompt=p, max_new_tokens=6)
+                              for p in prompts])
+            if model is gpu and layout == "paged":
+                assert flash_decode_paged.launches > before
+            outs.append([r.generated for r in
+                         sorted(done, key=lambda r: r.request_id)])
+    assert all(o == outs[0] for o in outs)

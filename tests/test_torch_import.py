@@ -43,7 +43,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 21
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,13 +58,16 @@ def test_entry_points_need_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from triton_distributed_tpu_torch import (
-        KVCache, ModelConfig, Qwen3, resolve_device)
+        KVCache, ModelConfig, PagedKVCache, Qwen3, resolve_device)
+    from triton_distributed_tpu_torch.serving import ToyModel
 
     cfg = ModelConfig.tiny(dtype="float32")
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
                  lambda: Qwen3(cfg),
-                 lambda: KVCache.create(1, 1, 1, 4, 16, torch.float32)):
+                 lambda: ToyModel(),
+                 lambda: KVCache.create(1, 1, 1, 4, 16, torch.float32),
+                 lambda: PagedKVCache.create(1, 2, 1, 1, 4, 16, 1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -18,9 +18,13 @@ from triton_distributed_tpu.kernels.flash_attention import (
     flash_attention as jax_flash_attention)
 from triton_distributed_tpu.kernels.flash_decode import (
     flash_decode as jax_flash_decode)
+from triton_distributed_tpu.kernels.flash_decode import (
+    flash_decode_paged as jax_flash_decode_paged)
 from triton_distributed_tpu_torch.kernels.flash_attention import (
     flash_attention)
-from triton_distributed_tpu_torch.kernels.flash_decode import flash_decode
+from triton_distributed_tpu_torch.kernels.flash_decode import (
+    flash_decode, flash_decode_paged)
+from triton_distributed_tpu_torch.models.kv_cache import PagedKVCache
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -92,3 +96,48 @@ def test_flash_decode_ignores_cache_past_kv_len():
     out2, lse2 = flash_decode(torch.from_numpy(q), torch.from_numpy(kc2),
                               torch.from_numpy(vc2), kv_len)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+def _paged_inputs(seed, b, h, hkv, d, ps, t, kv_len):
+    """Pools whose page 0 (the null page) holds garbage, a table mapping
+    each row's pages below kv_len to a shuffled set of physical pages and
+    the rest to page 0."""
+    need = [-(-int(n) // ps) for n in kv_len]
+    p = 1 + sum(need)
+    q, kp, vp = _inputs(seed, (b, h, d), (p, hkv, ps, d), (p, hkv, ps, d))
+    kp[0] = vp[0] = 1e4
+    perm = np.random.default_rng(seed).permutation(np.arange(1, p))
+    table = np.zeros((b, t), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        table[i, :n] = perm[at:at + n]
+        at += n
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("group,page_size", [(1, 8), (1, 16), (4, 8),
+                                             (4, 16)])
+def test_flash_decode_paged_matches_jax(group, page_size):
+    """Shuffled table, a NULL tail past each row's length: the plain
+    version against the Pallas kernel, and against the port's dense
+    flash_decode over the same K/V gathered into logical order."""
+    b, hkv, d, t = 3, 2, 32, 6
+    kv_len = np.array([1, 2 * page_size + 3, t * page_size], np.int32)
+    q, kp, vp, table = _paged_inputs(group * 10 + page_size, b,
+                                     hkv * group, hkv, d, page_size, t,
+                                     kv_len)
+    out_j, lse_j = jax_flash_decode_paged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(kv_len))
+    tq, tkv = torch.from_numpy(q), torch.from_numpy(kv_len)
+    cache = PagedKVCache(ks=[torch.from_numpy(kp)],
+                         vs=[torch.from_numpy(vp)],
+                         page_table=torch.from_numpy(table), offset=tkv,
+                         page_size=page_size)
+    out_t, lse_t = flash_decode_paged(tq, cache.ks[0], cache.vs[0],
+                                      cache.page_table, tkv)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **TOL)
+    out_d, lse_d = flash_decode(tq, *cache.gather_logical(0), tkv)
+    np.testing.assert_allclose(out_d.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(lse_d.numpy(), np.asarray(lse_j), **TOL)

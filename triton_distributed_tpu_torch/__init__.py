@@ -6,6 +6,8 @@ version runs instead.
 """
 
 from triton_distributed_tpu_torch.models import (  # noqa: F401
-    Engine, KVCache, ModelConfig, Qwen3)
+    Engine, KVCache, ModelConfig, PagedKVCache, Qwen3)
+from triton_distributed_tpu_torch.serving import (  # noqa: F401
+    ContinuousBatchingScheduler, Request, SchedulerConfig)
 from triton_distributed_tpu_torch.utils.platform import (  # noqa: F401
     is_hopper, resolve_device)

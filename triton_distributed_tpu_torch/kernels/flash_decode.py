@@ -1,13 +1,17 @@
-"""Flash-decode: one-position GQA attention over a dense KV cache, masked
-by each row's filled length.
+"""Flash-decode: one-position GQA attention over a dense KV cache or a
+paged KV pool, masked by each row's filled length.
 
 Port of `triton_distributed_tpu/kernels/flash_decode.py` `flash_decode`
-(Pallas `_decode_kernel`, float cache) as the hand-written CUDA kernel
-``csrc/flash_decode.cu``.  The int8 cache (``k_scale``/``v_scale``) and
-the paged and sequence-parallel forms are not ported yet.
+(Pallas `_decode_kernel`, float cache) and `flash_decode_paged`
+(`_paged_decode_kernel`, float pools) as the hand-written CUDA kernels
+``csrc/flash_decode.cu`` and ``csrc/flash_decode_paged.cu``, which share
+one body (``csrc/decode_body.cuh``) and so agree bit for bit on the same
+logical K/V.  The int8 forms (``k_scale``/``v_scale``) and the
+sequence-parallel forms are not ported yet.
 
-On a CUDA tensor `flash_decode` launches that kernel or raises; on a CPU
-tensor it computes the plain version, `flash_decode_reference`.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it computes the plain version (`flash_decode_reference`,
+`flash_decode_paged_reference`).
 """
 
 from __future__ import annotations
@@ -23,9 +27,13 @@ NEG_INF = -1e30
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     ctypes.c_float, _P],
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+_PAGED_SIGNATURES = {
+    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _P],
 }
 
 
@@ -48,6 +56,24 @@ def flash_decode_reference(q, k_cache, v_cache, kv_len, *,
     return out.reshape(b, h, d).to(q.dtype), lse.reshape(b, h)
 
 
+def gather_pages(pool, page_table):
+    """The logical (B, Hkv, T*page, D) view of a (P, Hkv, page, D) pool
+    through a (B, T) page table (a copy)."""
+    b, t = page_table.shape
+    _, hkv, ps, d = pool.shape
+    g = pool[page_table.long()]                   # (B, T, Hkv, page, D)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, t * ps, d)
+
+
+def flash_decode_paged_reference(q, k_pool, v_pool, page_table, kv_len, *,
+                                 scale: Optional[float] = None):
+    """Paged decode attention in f32: gather the pools into logical order
+    through the table, then `flash_decode_reference`."""
+    return flash_decode_reference(q, gather_pages(k_pool, page_table),
+                                  gather_pages(v_pool, page_table), kv_len,
+                                  scale=scale)
+
+
 def flash_decode(q, k_cache, v_cache, kv_len, *,
                  scale: Optional[float] = None):
     """q: (B, H, D); k_cache, v_cache: (B, Hkv, S, D); kv_len: (B,) int32
@@ -59,7 +85,12 @@ def flash_decode(q, k_cache, v_cache, kv_len, *,
     if q.device.type == "cpu":
         return flash_decode_reference(q, k_cache, v_cache, kv_len,
                                       scale=scale)
-    b, h, d, hkv, s = _check(q, k_cache, v_cache, kv_len)
+    _check("flash_decode", q, k_cache, v_cache, kv_len)
+    if k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"flash_decode: cache batch {k_cache.shape[0]} != "
+                         f"q batch {q.shape[0]}")
+    b, h, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
@@ -78,32 +109,77 @@ def flash_decode(q, k_cache, v_cache, kv_len, *,
 flash_decode.launches = 0
 
 
-def _check(q, k_cache, v_cache, kv_len):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: unsupported device {q.device}")
-    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"flash_decode: bad shapes q{tuple(q.shape)} "
-                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
+def flash_decode_paged(q, k_pool, v_pool, page_table, kv_len, *,
+                       scale: Optional[float] = None):
+    """q: (B, H, D); k_pool, v_pool: (P, Hkv, page, D) shared by all rows;
+    page_table: (B, T) int32, logical page j of row b in physical page
+    ``page_table[b, j]``; kv_len: (B,) int32 filled lengths (<= T*page).
+    Only positions below kv_len are read, so pages at or past it may map
+    to the null page.  Returns (out (B, H, D), lse (B, H) f32).
+
+    Same dtypes, D and H/Hkv as `flash_decode`, any page size >= 1;
+    anything else raises.  Each kernel launch adds one to
+    ``flash_decode_paged.launches``."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(q, k_pool, v_pool, page_table,
+                                            kv_len, scale=scale)
+    _check("flash_decode_paged", q, k_pool, v_pool, kv_len)
     b, h, d = q.shape
-    _, hkv, s, dk = k_cache.shape
-    if k_cache.shape[0] != b or dk != d or h % hkv:
-        raise ValueError(f"flash_decode: q{tuple(q.shape)} does not match "
-                         f"cache {tuple(k_cache.shape)}")
+    p, hkv, ps, _ = k_pool.shape
+    if (page_table.dtype != torch.int32 or page_table.dim() != 2
+            or page_table.shape[0] != b or page_table.shape[1] < 1
+            or page_table.device != q.device
+            or not page_table.is_contiguous()):
+        raise ValueError("flash_decode_paged: page_table must be a "
+                         "contiguous (B, T) int32 tensor on q's device, "
+                         f"got {page_table.dtype} {tuple(page_table.shape)}")
+    t = page_table.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    if out.numel():
+        lib = _build.load_library("flash_decode_paged", _PAGED_SIGNATURES)
+        rc = lib.flash_decode_paged(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, hkv, p, ps,
+            t, d, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, rc, "flash_decode_paged kernel launch")
+        flash_decode_paged.launches += 1
+    return out, lse
+
+
+flash_decode_paged.launches = 0
+
+
+def _check(name, q, k, v, kv_len):
+    """Checks shared by both kernels: q (B, H, D) against 4-d K/V (dense
+    cache or page pool) whose dims 1 and 3 are Hkv and D."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    b, h, d = q.shape
+    hkv = k.shape[1]
+    if k.shape[3] != d or h % hkv or min(k.shape) < 1:
+        raise ValueError(f"{name}: q{tuple(q.shape)} does not match "
+                         f"k/v {tuple(k.shape)}")
     if d not in (64, 128) or h // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"flash_decode: head_dim {d} / group {h // hkv} "
+        raise ValueError(f"{name}: head_dim {d} / group {h // hkv} "
                          "not supported (64 or 128; 1, 2, 4 or 8)")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    for nm, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"flash_decode: {name} is {t.dtype} on "
-                             f"{t.device}, q is {q.dtype} on {q.device}")
+            raise ValueError(f"{name}: {nm} is {t.dtype} on {t.device}, "
+                             f"q is {q.dtype} on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode: {name} is not contiguous and "
-                             "16-byte aligned")
+            raise ValueError(f"{name}: {nm} is not contiguous and 16-byte "
+                             "aligned")
     if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"flash_decode: dtype {q.dtype} not in "
+        raise ValueError(f"{name}: dtype {q.dtype} not in "
                          "(bfloat16, float32)")
     if (kv_len.dtype != torch.int32 or kv_len.shape != (b,)
             or kv_len.device != q.device or not kv_len.is_contiguous()):
-        raise ValueError("flash_decode: kv_len must be a contiguous (B,) "
-                         "int32 tensor on q's device")
-    return b, h, d, hkv, s
+        raise ValueError(f"{name}: kv_len must be a contiguous (B,) int32 "
+                         "tensor on q's device")

@@ -2,8 +2,8 @@
 ``world_size == 1``).
 
 Fused QKV projection, Qwen3 per-head q/k RMSNorm, RoPE, then the flash
-attention kernel for prefill or the flash-decode kernel for decode, then
-the output projection.  At world 1 the JAX package's AllGather-GEMM and
+attention kernel for prefill or a flash-decode kernel (dense cache or
+paged pool) for decode, then the output projection.  At world 1 the JAX package's AllGather-GEMM and
 GEMM-ReduceScatter reduce to plain products (`allgather_gemm.py:304-315`,
 `gemm_reduce_scatter.py:259-260`), which stay `torch.matmul` here.
 Tensor parallelism over several GPUs is not ported yet.
@@ -16,7 +16,8 @@ from torch import nn
 
 from triton_distributed_tpu_torch.kernels.flash_attention import (
     flash_attention)
-from triton_distributed_tpu_torch.kernels.flash_decode import flash_decode
+from triton_distributed_tpu_torch.kernels.flash_decode import (
+    flash_decode, flash_decode_paged)
 
 
 def require_single_gpu(world_size: int) -> None:
@@ -132,13 +133,10 @@ class TPAttention(nn.Module):
         attn = attn.transpose(1, 2).reshape(m, -1)
         return torch.matmul(attn, self.wo), (k, v)
 
-    def decode(self, x, kv_cache, offset):
-        """One position per row.  x: (B, hidden); kv_cache: (k_cache,
-        v_cache), each (B, Hkv, S_max, D), written IN PLACE at each row's
-        ``offset`` ((B,) int32) before attention reads ``offset + 1``
-        positions.  Returns out (B, hidden)."""
-        k_cache, v_cache = kv_cache
-        b = k_cache.shape[0]
+    def _decode_qkv(self, x, offset):
+        """x: (B, hidden) at positions ``offset`` ((B,) int32) -> q
+        (B, H, D) contiguous, k/v (B, Hkv, D), normed and rotated."""
+        b = x.shape[0]
         q, k, v = self._qkv_heads(x, b, 1)              # (B, *, 1, D)
         cos, sin = rope_cos_sin(offset, self.head_dim, self.rope_theta)
         c = cos[:, None, None, :]                       # (B, 1, 1, D/2)
@@ -150,13 +148,42 @@ class TPAttention(nn.Module):
             return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s],
                              dim=-1).to(t.dtype)
 
-        q = rope_rows(q)
-        k = rope_rows(k)
+        q = rope_rows(q).reshape(b, self.num_heads, self.head_dim)
+        return q.contiguous(), rope_rows(k)[:, :, 0], v[:, :, 0]
+
+    def decode(self, x, kv_cache, offset):
+        """One position per row.  x: (B, hidden); kv_cache: (k_cache,
+        v_cache), each (B, Hkv, S_max, D), written IN PLACE at each row's
+        ``offset`` ((B,) int32) before attention reads ``offset + 1``
+        positions.  Returns out (B, hidden)."""
+        k_cache, v_cache = kv_cache
+        b = k_cache.shape[0]
+        q, k, v = self._decode_qkv(x, offset)
         rows = torch.arange(b, device=x.device)
         pos = offset.long()
-        k_cache[rows, :, pos] = k[:, :, 0].to(k_cache.dtype)
-        v_cache[rows, :, pos] = v[:, :, 0].to(v_cache.dtype)
-        out, _ = flash_decode(
-            q.reshape(b, self.num_heads, self.head_dim).contiguous(),
-            k_cache, v_cache, offset + 1)
+        k_cache[rows, :, pos] = k.to(k_cache.dtype)
+        v_cache[rows, :, pos] = v.to(v_cache.dtype)
+        out, _ = flash_decode(q, k_cache, v_cache, offset + 1)
+        return torch.matmul(out.reshape(b, -1), self.wo)
+
+    def decode_paged(self, x, kv_pools, page_table, offset):
+        """`decode` over a page pool (port of `TPAttention.decode_paged`).
+        kv_pools: (k_pool, v_pool), each (P, Hkv, page, D); page_table:
+        (B, T) int32.  The new K/V goes IN PLACE to row ``offset % page``
+        of page ``page_table[b, offset // page]`` (a masked row's
+        null-mapped write lands in the trash page 0), then attention reads
+        ``offset + 1`` positions through the table.  Returns out
+        (B, hidden)."""
+        k_pool, v_pool = kv_pools
+        b = offset.shape[0]
+        ps = k_pool.shape[2]
+        q, k, v = self._decode_qkv(x, offset)
+        pos = offset.long()
+        rows = torch.arange(b, device=x.device)
+        phys = page_table[rows, pos // ps].long()
+        within = pos % ps
+        k_pool[phys, :, within] = k.to(k_pool.dtype)
+        v_pool[phys, :, within] = v.to(v_pool.dtype)
+        out, _ = flash_decode_paged(q, k_pool, v_pool, page_table,
+                                    offset + 1)
         return torch.matmul(out.reshape(b, -1), self.wo)

@@ -1,13 +1,13 @@
-"""Dense KV cache with per-row offsets.
+"""Dense KV cache with per-row offsets, and the paged KV pool.
 
-Port of `triton_distributed_tpu/models/kv_cache.py` `KVCache` (float
-form).  The JAX cache is a functional pytree whose every update returns a
-new cache; this one is updated IN PLACE: every method mutates the
-tensors it holds and returns None; a decode step writes its new K/V
-rows into ``ks[layer]``/``vs[layer]`` in place (`layers.tp_attn`).
-Writes are ordinary kernels on the current stream, so a decode step's
-cache write is ordered before the attention kernel that reads it.  The int8 variant and the paged cache are
-not ported yet.
+Port of `triton_distributed_tpu/models/kv_cache.py` `KVCache` and
+`PagedKVCache` (float forms).  The JAX caches are functional pytrees
+whose every update returns a new cache; these are updated IN PLACE:
+every method mutates the tensors it holds and returns None; a decode
+step writes its new K/V rows into ``ks[layer]``/``vs[layer]`` in place
+(`layers.tp_attn`).  Writes are ordinary kernels on the current stream,
+so a decode step's cache write is ordered before the attention kernel
+that reads it.  The int8 variants (``kss``/``vss``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
+import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.kernels.flash_decode import gather_pages
 from triton_distributed_tpu_torch.utils.platform import resolve_device
 
 
@@ -69,3 +71,105 @@ class KVCache:
             per_row = k.shape[1] * k.shape[2] * k.shape[3]
             total += per_row * (k.element_size() + v.element_size())
         return total
+
+
+#: Physical page 0 is reserved as the null/trash page: unmapped page-table
+#: entries point at it, and writes that must be discarded (a masked or
+#: released row's frozen-offset decode write) land there.  Its contents
+#: are garbage by design and are never read below a row's length.
+NULL_PAGE = 0
+
+
+def pages_for(tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``tokens`` KV positions."""
+    return -(-int(tokens) // int(page_size)) if tokens > 0 else 0
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """One pool of fixed-size pages per layer plus a per-row page table
+    mapping logical page ``j`` of row ``b`` to a physical page.  A row of
+    length L pins ``ceil(L / page_size)`` pages, and rows may map the same
+    physical page (refcounted prefix sharing, `serving.pages`).  The page
+    table is managed on the host (`serving.pages.PagedKV`) and copied to
+    the device by `with_page_table` when an allocation changed it."""
+
+    ks: List[torch.Tensor]          # per layer: (P, Hkv, page, D)
+    vs: List[torch.Tensor]
+    page_table: torch.Tensor        # (B, T) int32: physical page ids
+    offset: torch.Tensor            # (B,) int32: filled length
+    page_size: int = 16
+
+    @property
+    def num_pages(self) -> int:
+        return int(self.ks[0].shape[0])
+
+    @property
+    def pages_per_seq(self) -> int:
+        return int(self.page_table.shape[1])
+
+    @property
+    def batch(self) -> int:
+        return int(self.offset.shape[0])
+
+    @property
+    def max_seq(self) -> int:
+        """Logical sequence capacity of one row (T x page_size)."""
+        return self.pages_per_seq * self.page_size
+
+    @classmethod
+    def create(cls, num_layers: int, num_pages: int, batch: int,
+               num_kv_heads: int, page_size: int, head_dim: int,
+               max_pages_per_seq: int, dtype=torch.bfloat16, device=None):
+        """Zero-filled pools.  ``num_pages`` INCLUDES the null page 0
+        (usable pages = num_pages - 1)."""
+        if num_pages < 2:
+            raise ValueError(f"num_pages={num_pages}: need >= 1 usable page "
+                             "beside NULL_PAGE")
+        device = resolve_device(device)
+        shape = (num_pages, num_kv_heads, page_size, head_dim)
+        return cls(
+            ks=[torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(num_layers)],
+            vs=[torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(num_layers)],
+            page_table=torch.zeros((batch, max_pages_per_seq),
+                                   dtype=torch.int32, device=device),
+            offset=torch.zeros((batch,), dtype=torch.int32, device=device),
+            page_size=page_size,
+        )
+
+    def bytes_per_page(self) -> int:
+        """Device bytes one physical page pins across all layers (K + V):
+        the unit the paged scheduler's admission budget is counted in."""
+        total = 0
+        for k, v in zip(self.ks, self.vs):
+            per_page = k.shape[1] * k.shape[2] * k.shape[3]
+            total += per_page * (k.element_size() + v.element_size())
+        return total
+
+    def inc_offset(self, n: int = 1) -> None:
+        self.offset += n
+
+    def set_offset(self, value) -> None:
+        self.offset.fill_(value)
+
+    def reset_slot(self, b: int) -> None:
+        """Zero row ``b``'s offset.  Its page-table row is reset on the
+        host (`serving.pages.PagedKV.release`) before the next dispatch."""
+        self.offset[b] = 0
+
+    def with_page_table(self, table: np.ndarray) -> None:
+        """Copy the host page table ((B, T) int32) into the device table.
+        The copy is synchronous (``copy_`` from pageable host memory waits
+        for it), so the caller may edit ``table`` as soon as this
+        returns."""
+        self.page_table.copy_(torch.from_numpy(
+            np.ascontiguousarray(table, dtype=np.int32)))
+
+    def gather_logical(self, layer: int):
+        """Tests: the logical (B, Hkv, T*page, D) view of ``layer``
+        through the page table (a copy).  Decode reads through the table
+        in the kernel."""
+        return (gather_pages(self.ks[layer], self.page_table),
+                gather_pages(self.vs[layer], self.page_table))

@@ -8,6 +8,10 @@ parameters carry over as they are (`load_jax_params`): matrices are
 [gate | up], and a tied LM head is ``embed.T``.  MoE layers,
 multi-GPU tensor parallelism and loading HF checkpoints are not ported
 yet.
+
+The engine contract the serving stack drives: `create_cache`,
+`create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
+`decode_paged(tokens, cache)`; each updates its cache in place.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from triton_distributed_tpu_torch.layers.tp_attn import (
     TPAttention, normal_init_, require_single_gpu, rms_norm, weight)
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
-from triton_distributed_tpu_torch.models.kv_cache import KVCache
+from triton_distributed_tpu_torch.models.kv_cache import (
+    KVCache, PagedKVCache)
 from triton_distributed_tpu_torch.utils.platform import resolve_device
 
 
@@ -56,6 +61,11 @@ class Qwen3Layer(nn.Module):
     def decode(self, x, kv_cache, offset):
         x = x + self.attn.decode(rms_norm(x, self.ln1, self.eps), kv_cache,
                                  offset)
+        return x + self.mlp(rms_norm(x, self.ln2, self.eps))
+
+    def decode_paged(self, x, kv_pools, page_table, offset):
+        x = x + self.attn.decode_paged(rms_norm(x, self.ln1, self.eps),
+                                       kv_pools, page_table, offset)
         return x + self.mlp(rms_norm(x, self.ln2, self.eps))
 
 
@@ -140,11 +150,19 @@ class Qwen3(nn.Module):
                               max_seq or cfg.max_seq_len, cfg.head_dim,
                               self.dtype, device=self.device)
 
+    def create_paged_cache(self, batch: int, num_pages: int,
+                           page_size: int, max_pages_per_seq: int):
+        """Zeroed page pools; ``num_pages`` includes the null page."""
+        cfg = self.config
+        return PagedKVCache.create(
+            cfg.num_layers, num_pages, batch, cfg.num_kv_heads, page_size,
+            cfg.head_dim, max_pages_per_seq, self.dtype, device=self.device)
+
     @torch.inference_mode()
     def prefill(self, input_ids, cache: Optional[KVCache]):
         """input_ids: (B, S).  Writes positions [0, S) of ``cache`` in
         place and sets its offset to S.  Returns f32 logits (B, V) of the
-        last position."""
+        last position.  (JAX: `Qwen3.make_prefill_fn`.)"""
         b, s = input_ids.shape
         x = self.embed[input_ids.long()].reshape(b * s, -1)
         for li, layer in enumerate(self.layers):
@@ -160,10 +178,25 @@ class Qwen3(nn.Module):
     @torch.inference_mode()
     def decode(self, tokens, cache: KVCache):
         """tokens: (B,).  Writes each row's position ``cache.offset`` in
-        place and advances the offset by one.  Returns f32 logits (B, V)."""
+        place and advances the offset by one.  Returns f32 logits (B, V).
+        (JAX: `Qwen3.make_decode_fn`.)"""
         x = self.embed[tokens.long()]
         for li, layer in enumerate(self.layers):
             x = layer.decode(x, (cache.ks[li], cache.vs[li]), cache.offset)
+        x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
+        cache.inc_offset(1)
+        return dot_f32(x, self.lm_head)
+
+    @torch.inference_mode()
+    def decode_paged(self, tokens, cache: PagedKVCache):
+        """`decode` over a `PagedKVCache`: each row's new K/V goes in place
+        to its page for position ``cache.offset``, attention reads through
+        ``cache.page_table``, and every offset advances by one.  Returns
+        f32 logits (B, V).  (JAX: `Qwen3.make_paged_decode_fn`.)"""
+        x = self.embed[tokens.long()]
+        for li, layer in enumerate(self.layers):
+            x = layer.decode_paged(x, (cache.ks[li], cache.vs[li]),
+                                   cache.page_table, cache.offset)
         x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
         cache.inc_offset(1)
         return dot_f32(x, self.lm_head)
