@@ -12,23 +12,34 @@ non-zero):
    per source, all started together;
 3. kernels vs plain: each kernel against its plain PyTorch version, in
    f32 from the same bf16 inputs, at the main paths' shapes and edge
-   cases; the paged decode kernel also bit for bit against the dense one
-   over the same logical K/V;
+   cases; the paged decode kernels also bit for bit against the dense
+   ones over the same logical K/V (float and int8); the int8 GEMM bit for
+   bit against its exact plain version at the Qwen3-8B MLP shapes;
 4. Engine path: Qwen3-8B at full width and depth with seeded random bf16
    weights; ``Engine.serve`` answers 4 requests of 512 prompt tokens with
    32 greedy tokens each, with the kernel launch counts checked, then a
-   teacher-forcing check of decode against prefill;
+   teacher-forcing check of decode against prefill; then the same model
+   with an int8 KV cache (``quantize_kv_cache=True``, the same weights):
+   the same requests, its prefill logits equal to the float model's and
+   its first 3 decode steps (fed the float run's tokens) within
+   0.03 max|logits| of the float model's;
 5. scheduler path: the same model behind ``ContinuousBatchingScheduler``
    (8 slots, 2048 positions, pages of 16), 16 requests (6 sharing a
    512-token prefix) served three ways: dense slots, paged with the
    prefix cache, and paged with a 200-page pool that forces preemption;
-   tokens, prefix hits, launch counts and preemption checked; wall time,
-   generated and prompt tokens/s, decode ms per step;
-6. times: each kernel, its bound, its plain version and the PyTorch
-   library call for the same function, then prefill and decode times;
-7. profile: one traced prefill and eight traced decode steps of the
-   Engine path, and eight traced scheduler steps of the paged run, with
-   the device's busy share and the kernels that take its time.
+   then with the int8 cache two ways, slots and paged with the prefix
+   cache; tokens, prefix hits, launch counts and preemption checked;
+   wall time, generated and prompt tokens/s, decode ms per step;
+6. W8A8 layer path: ``TPMLP(4096, 12288, mode="w8a8")`` at 2048 and 8
+   rows against its plain version and against the bf16 ``xla`` layer on
+   the float weights;
+7. times: each kernel, its bound, its plain version and the PyTorch
+   library call for the same function, then prefill and decode times,
+   int8 against float decode in alternating windows;
+8. profile: one traced prefill and eight traced decode steps of the
+   Engine path (float and int8), and eight traced scheduler steps of each
+   scheduler, with the device's busy share and the kernels that take its
+   time.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -45,10 +56,12 @@ import time
 
 import torch
 
-#: Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3
-#: and bf16 tensor-core FLOP/s.  Bounds are stated against these.
+#: Published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3,
+#: bf16 tensor-core FLOP/s and int8 tensor-core OP/s.  Bounds are stated
+#: against these.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 KERNEL_SOURCES = {
     "flash_attention": (
@@ -60,6 +73,22 @@ KERNEL_SOURCES = {
     "flash_decode_paged": (
         "triton_distributed_tpu_torch/kernels/csrc/flash_decode_paged.cu",
         "triton_distributed_tpu/kernels/flash_decode.py:310"),
+    "matmul_w8a8": (
+        "triton_distributed_tpu_torch/kernels/csrc/matmul_w8a8.cu",
+        "triton_distributed_tpu/kernels/quantized.py:120"),
+}
+
+#: The kernels of the JSON record: name -> (library it is built into, the
+#: wrapper's launch counter).  The int8 decode kernels (K2q, K3q) are the
+#: float ones' libraries with an int8 cache; their wrappers count them
+#: apart.
+KERNELS = {
+    "flash_attention": ("flash_attention", "launches"),
+    "flash_decode": ("flash_decode", "launches"),
+    "flash_decode_paged": ("flash_decode_paged", "launches"),
+    "flash_decode_int8": ("flash_decode", "int8_launches"),
+    "flash_decode_paged_int8": ("flash_decode_paged", "int8_launches"),
+    "matmul_w8a8": ("matmul_w8a8", "launches"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -78,6 +107,11 @@ TIGHT_PAGES = 200
 #: K3's main-path decode state: 8 rows at these lengths (1 position, a
 #: page less one, a page, a page plus one, ..., the full 2048).
 K3_KV_LEN = (1, 15, 16, 17, 513, 1000, 1928, 2048)
+
+#: The W8A8 layer path: Qwen3-8B's MLP widths; rows of a prefill bucket
+#: and of a decode batch of 8 slots (and a ragged count for K7's check).
+MLP_HIDDEN, MLP_FFN = 4096, 12288
+W8A8_ROWS = (2048, 8)
 
 #: Device cycles (about 50 ms at the H100's 1.98 GHz boost clock) that the
 #: stream spins before a timed run.  Every timed run below is queued by the
@@ -120,9 +154,11 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, ops: float, peak: float = PEAK_BF16_FLOPS):
+    """The least time (ms) for ``bytes_moved`` at the HBM rate and ``ops``
+    at ``peak``, and which of the two sets it."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -192,16 +228,17 @@ def shuffled_table(gen, kv_len, ps: int, t: int, device):
 
 
 def scatter_to_pool(cache, table, num_pages: int, ps: int, fill: float):
-    """The pool holding a dense (B, Hkv, S, D) cache's pages where
-    ``table`` maps them; unmapped pages (the null page among them) hold
-    ``fill``."""
-    b, hkv, s, d = cache.shape
+    """The pool holding a dense (B, Hkv, S, ...) cache's pages (K/V, or
+    their scales) where ``table`` maps them; unmapped pages (the null page
+    among them) hold ``fill``."""
+    b, hkv, s = cache.shape[:3]
+    tail = cache.shape[3:]
     t = table.shape[1]
-    padded = torch.full((b, hkv, t * ps, d), fill, dtype=cache.dtype,
+    padded = torch.full((b, hkv, t * ps, *tail), fill, dtype=cache.dtype,
                         device=cache.device)
     padded[:, :, :s] = cache
-    blocks = padded.reshape(b, hkv, t, ps, d).transpose(1, 2)
-    pool = torch.full((num_pages, hkv, ps, d), fill, dtype=cache.dtype,
+    blocks = padded.reshape(b, hkv, t, ps, *tail).transpose(1, 2)
+    pool = torch.full((num_pages, hkv, ps, *tail), fill, dtype=cache.dtype,
                       device=cache.device)
     mapped = table != 0
     pool[table[mapped].long()] = blocks[mapped]
@@ -269,7 +306,10 @@ def main() -> int:
         flash_attention, flash_attention_reference)
     from triton_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_reference,
-        flash_decode_reference, gather_pages)
+        flash_decode_reference, gather_pages, quantize_kv)
+    from triton_distributed_tpu_torch.kernels.quantized import (
+        matmul_w8a8, matmul_w8a8_reference, quantize_sym)
+    from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP, mlp_w8a8
     from triton_distributed_tpu_torch.serving import (
         DEFAULT_PREFILL_BUCKETS, ContinuousBatchingScheduler, Request,
         RequestState, SchedulerConfig)
@@ -306,7 +346,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device=dev,
                            dtype=torch.bfloat16)
 
-    errs = {nm: 0.0 for nm in KERNEL_SOURCES}
+    errs = dict.fromkeys(KERNELS, 0.0)
     fa_cases = [
         ("prefill 4x32x512x128 causal", 4, 32, 8, 512, 512, True, 0),
         ("bucket 2048 1x32x2048x128 causal", 1, 32, 8, 2048, 2048, True, 0),
@@ -390,6 +430,111 @@ def main() -> int:
             raise AssertionError("paged decode differs from dense decode")
     del kc, vc, kp, vp, dense
 
+    # K2q and K3q: the same two kernels over an int8 cache with per-token
+    # scales, out atol=rtol=1e-2 and lse 1e-3 as above.  Scales past each
+    # row's length are NaN (a reused slot's may be stale), as are the null
+    # page's and every unmapped page's, with codes of 127.
+    def int8_cache(*shape, kv_len):
+        k_q, v_q, ks, vs = quantize_kv(randn(*shape), randn(*shape))
+        past = (torch.arange(shape[2], device=dev)[None, :]
+                >= kv_len[:, None])[:, None, :].expand_as(ks)
+        ks[past] = float("nan")
+        vs[past] = float("nan")
+        return k_q, v_q, ks, vs
+
+    def int8_case(name, label, got, ref):
+        torch.cuda.synchronize()
+        e = check_close(f"{name} {label} out", got[0], ref[0], 1e-2, 1e-2)
+        check_close(f"{name} {label} lse", got[1], ref[1], 1e-3, 0.0)
+        if not bool(got[0].isfinite().all()):
+            raise AssertionError(f"{name} {label}: non-finite out")
+        errs[name] = max(errs[name], e)
+        return got
+
+    k2q_len = torch.tensor([1, 513, 700, 1024], dtype=torch.int32,
+                           device=dev)
+    kq, vq, ksq, vsq = int8_cache(BATCH, 8, CACHE_SEQ, 128, kv_len=k2q_len)
+    q = randn(BATCH, 32, 128)
+    int8_case("flash_decode_int8",
+              "q 4x32x128, int8 cache 4x8x1024x128, kv_len=[1,513,700,1024], "
+              "NaN scales past kv_len",
+              flash_decode(q, kq, vq, k2q_len, k_scale=ksq, v_scale=vsq),
+              flash_decode_reference(q.float(), kq, vq, k2q_len,
+                                     k_scale=ksq, v_scale=vsq))
+    del kq, vq, ksq, vsq
+
+    # K3q at K3's main-path state: 36 layers of int8 pools over the same
+    # shuffled table; then bit for bit against K2q at page sizes 16, 24.
+    k3q_pools = []
+    for _ in range(36):
+        kp, vp = (quantize_sym(randn(k3_pages, 8, PAGE, 128), 3)
+                  for _ in range(2))
+        for code, sc in (kp, vp):
+            code[0] = 127
+            sc[0] = float("nan")
+        k3q_pools.append((kp[0], vp[0], kp[1], vp[1]))
+    int8_case("flash_decode_paged_int8",
+              f"q 8x32x128, int8 pool {k3_pages}x8x16x128 (shuffled pages, "
+              f"null page codes 127, scales NaN), kv_len={list(K3_KV_LEN)}",
+              flash_decode_paged(k3_q, *k3q_pools[0][:2], k3_table, k3_len,
+                                 k_scale=k3q_pools[0][2],
+                                 v_scale=k3q_pools[0][3]),
+              flash_decode_paged_reference(
+                  k3_q.float(), *k3q_pools[0][:2], k3_table, k3_len,
+                  k_scale=k3q_pools[0][2], v_scale=k3q_pools[0][3]))
+    kq, vq, ksq, vsq = int8_cache(SLOTS, 8, MAX_SEQ, 128, kv_len=k3_len)
+    dense = flash_decode(k3_q, kq, vq, k3_len, k_scale=ksq, v_scale=vsq)
+    for ps in (PAGE, 24):
+        table, pages = shuffled_table(gen, K3_KV_LEN, ps, -(-MAX_SEQ // ps),
+                                      dev)
+        pools = [scatter_to_pool(t, table, pages, ps, fill)
+                 for t, fill in ((kq, 127), (vq, 127),
+                                 (ksq, float("nan")), (vsq, float("nan")))]
+        got = int8_case(
+            "flash_decode_paged_int8",
+            f"page_size {ps}, int8 dense 8x8x2048x128 scattered",
+            flash_decode_paged(k3_q, *pools[:2], table, k3_len,
+                               k_scale=pools[2], v_scale=pools[3]),
+            flash_decode_paged_reference(k3_q.float(), *pools[:2], table,
+                                         k3_len, k_scale=pools[2],
+                                         v_scale=pools[3]))
+        same = all(torch.equal(a, b) for a, b in zip(got, dense))
+        print(f"  flash_decode_paged_int8 page_size {ps} vs flash_decode_int8 "
+              f"on the same logical codes and scales: out and lse "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("int8 paged decode differs from int8 dense "
+                                 "decode")
+    del kq, vq, ksq, vsq, dense, pools
+
+    # K7 at the Qwen3-8B MLP shapes: activations quantized per row from
+    # bf16, weights per output channel from N(0, 1/hidden) bf16 draws.
+    # Against the exact plain version: f32 out bit-identical, bf16 out
+    # equal after the cast (int32 accumulation is exact and the epilogue
+    # multiplies in the same order).
+    w8 = {}
+    for nm, (k, n) in (("gate_up", (MLP_HIDDEN, 2 * MLP_FFN)),
+                       ("down", (MLP_FFN, MLP_HIDDEN))):
+        w8[nm] = quantize_sym(randn(k, n) * k ** -0.5, 0)
+    w8_rows = {}
+    for m in W8A8_ROWS + (37,):
+        for nm, (b_q, sb) in w8.items():
+            a_q, sa = quantize_sym(randn(m, b_q.shape[0]), 1)
+            w8_rows[(m, nm)] = (a_q, b_q, sa, sb)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
+                want = matmul_w8a8_reference(a_q, b_q, sa, sb,
+                                             out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                print(f"  matmul_w8a8 {nm} ({m}x{b_q.shape[0]})@"
+                      f"({b_q.shape[0]}x{b_q.shape[1]}) out {out_dtype}: "
+                      f"{'bit-identical' if same else 'DIFFER'} to the exact "
+                      "plain version")
+                if not same:
+                    raise AssertionError("matmul_w8a8 differs from its plain "
+                                         "version")
+
     # -- 4. Engine path -------------------------------------------------
     cfg = ModelConfig.qwen3_8b()
     t0 = time.perf_counter()
@@ -406,31 +551,40 @@ def main() -> int:
                             generator=wgen, device=dev)
     cache = model.create_cache(BATCH, max_seq=CACHE_SEQ)
 
-    counted = {"flash_attention": flash_attention,
-               "flash_decode": flash_decode,
-               "flash_decode_paged": flash_decode_paged}
+    wrappers = {"flash_attention": flash_attention,
+                "flash_decode": flash_decode,
+                "flash_decode_paged": flash_decode_paged,
+                "matmul_w8a8": matmul_w8a8}
+    total_launches = dict.fromkeys(KERNELS, 0)
 
-    def zero_counts():
-        for fn in counted.values():
-            fn.launches = 0
+    def counted(fn):
+        """Run ``fn`` with every kernel's launch count set to 0 just before
+        it, add the counts read just after to the totals of the main
+        paths, and return them."""
+        for lib, attr in KERNELS.values():
+            setattr(wrappers[lib], attr, 0)
+        fn()
+        got = {nm: getattr(wrappers[lib], attr)
+               for nm, (lib, attr) in KERNELS.items()}
+        for nm, n in got.items():
+            total_launches[nm] += n
+        return got
 
-    def read_counts():
-        return {nm: fn.launches for nm, fn in counted.items()}
+    def expect(**nonzero):
+        return {nm: nonzero.get(nm, 0) for nm in KERNELS}
 
-    total_launches = dict.fromkeys(counted, 0)
+    def short(counts):
+        return {nm: n for nm, n in counts.items() if n}
+
     served = []
-    zero_counts()
-    t_serve = wall_ms(lambda: served.append(
-        engine.serve(prompts, GEN_LEN, cache=cache)))
-    launches = read_counts()
-    for nm, n in launches.items():
-        total_launches[nm] += n
+    t_serve = []
+    launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
+        engine.serve(prompts, GEN_LEN, cache=cache)))))
     print(f"[engine path] Engine.serve {BATCH} requests x {PROMPT} prompt "
-          f"tokens, gen_len {GEN_LEN}, greedy: {t_serve:.1f} ms (first "
-          f"call); launches {launches}")
-    want = {"flash_attention": cfg.num_layers,
-            "flash_decode": cfg.num_layers * (GEN_LEN - 1),
-            "flash_decode_paged": 0}
+          f"tokens, gen_len {GEN_LEN}, greedy: {t_serve[0]:.1f} ms (first "
+          f"call); launches {short(launches)}")
+    want = expect(flash_attention=cfg.num_layers,
+                  flash_decode=cfg.num_layers * (GEN_LEN - 1))
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -484,8 +638,83 @@ def main() -> int:
         if not tf_err <= 3 * floor:
             raise AssertionError("teacher-forcing logits disagree")
 
+    # -- 4b. int8 Engine path -------------------------------------------
+    # The same weights (shared, not copied) behind an int8 KV cache.
+    cfg_q = dataclasses.replace(cfg, quantize_kv_cache=True)
+    model_q = Qwen3(cfg_q)
+    model_q.load_state_dict(model.state_dict(), assign=True)
+    engine_q = Engine(model_q)
+    cache_q = model_q.create_cache(BATCH, max_seq=CACHE_SEQ)
+    served_q, t_serve = [], []
+    launches = counted(lambda: t_serve.append(wall_ms(lambda: served_q.append(
+        engine_q.serve(prompts, GEN_LEN, cache=cache_q)))))
+    tokens_q = served_q[0]
+    print(f"[engine path int8] Engine.serve, int8 KV cache, the same "
+          f"{BATCH} x {PROMPT} prompts, gen_len {GEN_LEN}: {t_serve[0]:.1f} "
+          f"ms (first call); launches {short(launches)}; tokens equal to the "
+          f"float run's: {int((tokens_q == tokens).sum())} of "
+          f"{tokens.numel()}")
+    want = expect(flash_attention=cfg.num_layers,
+                  flash_decode_int8=cfg.num_layers * (GEN_LEN - 1))
+    if launches != want:
+        raise AssertionError(f"int8 launch counts {launches} != {want}")
+    if tokens_q.shape != (BATCH, GEN_LEN) or not bool(
+            ((tokens_q >= 0) & (tokens_q < cfg.vocab_size)).all()):
+        raise AssertionError("int8 tokens: bad shape or outside the "
+                             "vocabulary")
+    bytes_q = cache_q.bytes_per_slot() // CACHE_SEQ
+    bytes_f = cache.bytes_per_slot() // CACHE_SEQ
+    nl, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    print(f"[engine path int8] KV cache bytes per token: int8 {bytes_q} = "
+          f"{nl} layers x 2 (K, V) x {hkv} heads x ({hd} B of codes + 4 B "
+          f"of scale); bf16 {bytes_f} = {nl} x 2 x {hkv} x {hd} x 2 B")
+    if (bytes_q != nl * 2 * hkv * (hd + 4)
+            or bytes_f != nl * 2 * hkv * hd * 2):
+        raise AssertionError("cache bytes per token")
+    with torch.inference_mode():
+        # Prefill never reads the cache: logits equal the float model's bit
+        # for bit.  Then 3 decode steps fed the float run's tokens against
+        # the float cache's.  Through 36 layers of random bf16 weights a
+        # perturbation grows as phase 4's bf16 error does, so the int8
+        # cache's logits are held as phase 4 holds teacher forcing: rel_l2
+        # within 3x this run's bf16 error (`floor`).  The JAX test's
+        # tolerance for its 2-layer f32 model (0.03 max|logits| + 0.05
+        # |logit|, tests/test_model_e2e.py) is counted, not held.  Step 0
+        # is also held against phase 4's f32 logits of the same position.
+        cf = model.create_cache(BATCH, max_seq=CACHE_SEQ)
+        lf = model.prefill(prompts, cf)
+        lq = model_q.prefill(prompts, cache_q)
+        if not torch.equal(lf, lq):
+            raise AssertionError("int8-cache prefill logits differ from the "
+                                 "float model's")
+        print("[engine path int8] prefill logits: bit-identical to the float "
+              "model's")
+        for step in range(3):
+            lf = model.decode(tokens[:, step], cf)
+            lq = model_q.decode(tokens[:, step], cache_q)
+            err = (lq - lf).abs()
+            beyond = int((err > 0.03 * float(lf.abs().max())
+                          + 0.05 * lf.abs()).sum())
+            rel = rel_l2(lq, lf)
+            ok = rel <= 3 * floor
+            if step == 0:
+                exact_rel = rel_l2(lq, logits_x)
+                ok = ok and exact_rel <= 3 * floor
+            print(f"[engine path int8] decode step {step} (float run's "
+                  f"tokens): against the float cache's logits rel_l2 "
+                  f"{rel:.3e} (tolerance {3 * floor:.3e}, 3x the bf16 error), "
+                  f"max_abs_err {float(err.max()):.4f} (max|logit| "
+                  f"{float(lf.abs().max()):.3f}; {beyond} of {err.numel()} "
+                  f"beyond 0.03 max|logits| + 0.05|logit|), argmax agreement "
+                  f"{float((lq.argmax(-1) == lf.argmax(-1)).float().mean()):.2f}"
+                  + (f"; against the f32 logits rel_l2 {exact_rel:.3e} (the "
+                     f"float cache's {rel_l2(lf, logits_x):.3e})"
+                     if step == 0 else "") + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("int8-cache decode logits disagree")
+        del cf, logits_x
+
     # -- 5. scheduler path ---------------------------------------------
-    nl = cfg.num_layers
     traffic = scheduler_traffic(cfg.vocab_size, seed=1)
     base = dict(num_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
                 prefill_buckets=DEFAULT_PREFILL_BUCKETS, temperature=0.0)
@@ -494,33 +723,36 @@ def main() -> int:
           f"share a {SYS_PREFIX}-token prefix (totals {SHARED_TOTALS}), "
           f"unique prompts {UNIQUE_LENS}; max_new_tokens cycling "
           f"{MAX_NEW_CYCLE}; {SLOTS} slots x {MAX_SEQ} positions, pages of "
-          f"{PAGE}; KV {kv_per_token} B per token, greedy")
+          f"{PAGE}; KV {kv_per_token} B per token bf16, {bytes_q} int8, "
+          "greedy")
     runs, kept = {}, {}
-    for label, extra in (("slots", dict(kv_layout="slots")),
-                         ("paged", dict(kv_layout="paged")),
-                         ("paged-200", dict(kv_layout="paged",
-                                            num_pages=TIGHT_PAGES))):
-        sched = ContinuousBatchingScheduler(model,
+    for label, mdl, extra in (
+            ("slots", model, dict(kv_layout="slots")),
+            ("paged", model, dict(kv_layout="paged")),
+            ("paged-200", model, dict(kv_layout="paged",
+                                      num_pages=TIGHT_PAGES)),
+            ("int8 slots", model_q, dict(kv_layout="slots")),
+            ("int8 paged", model_q, dict(kv_layout="paged"))):
+        sched = ContinuousBatchingScheduler(mdl,
                                             SchedulerConfig(**base, **extra))
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        reqs, rec = drive_scheduler(sched, traffic, Request,
-                                    RequestState.QUEUED)
-        got = read_counts()
-        for nm, n in got.items():
-            total_launches[nm] += n
+        out = []
+        got = counted(lambda: out.extend(drive_scheduler(
+            sched, traffic, Request, RequestState.QUEUED)))
+        reqs, rec = out
         steps = rec["steps"]
         n_decode = sum(1 for _, _, dec in steps if dec)
         n_prefill = len(traffic) + sum(r.preemptions for r in reqs)
-        want = {"flash_attention": nl * n_prefill,
-                "flash_decode": nl * n_decode if label == "slots" else 0,
-                "flash_decode_paged": 0 if label == "slots" else nl * n_decode}
+        dec = ("flash_decode" if extra["kv_layout"] == "slots"
+               else "flash_decode_paged") + ("_int8" if mdl is model_q else "")
+        want = expect(flash_attention=nl * n_prefill, **{dec: nl * n_decode})
         pure = sorted(ms for ms, adm, dec in steps if dec and not adm)
         step_ms = pure[len(pure) // 2]
         adm_ms = sum(ms for ms, adm, _ in steps if adm) - step_ms * sum(
             1 for _, adm, dec in steps if adm and dec)
         n_gen = sum(len(r.generated) for r in reqs)
-        hits = sched.slots.radix.hit_tokens if label != "slots" else 0
+        hits = (sched.slots.radix.hit_tokens
+                if extra["kv_layout"] == "paged" else 0)
         print(f"[scheduler path] {label}: run {rec['wall_ms']:.1f} ms "
               f"(host clock), {n_gen} tokens generated "
               f"({n_gen / rec['wall_ms'] * 1e3:.1f} tokens/s), "
@@ -533,7 +765,7 @@ def main() -> int:
               f"{sum(r.preemptions for r in reqs)}, prefix hits {hits} "
               f"tokens, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"launches {got}; {card}")
+              f"launches {short(got)}; {card}")
         if got != want:
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         for i, r in enumerate(reqs):
@@ -546,23 +778,32 @@ def main() -> int:
                 raise AssertionError(f"{label}: request {i} left the "
                                      "vocabulary")
         runs[label] = (reqs, rec)
-        if label in ("slots", "paged"):
-            kept[label] = sched         # for the steady-state phase 7
+        if label != "paged-200":
+            kept[label] = sched         # for the steady-state phase 8
         del sched
 
-    slot_tokens = [r.generated for r in runs["slots"][0]]
-    paged_tokens = [r.generated for r in runs["paged"][0]]
-    for i, (a, b) in enumerate(zip(slot_tokens, paged_tokens)):
-        if a != b:
-            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-            raise AssertionError(f"slots and paged differ: request {i} at "
-                                 f"token {j}: {a[j]} != {b[j]}")
-    print(f"[scheduler path] slots and paged runs: equal tokens for all "
-          f"{len(slot_tokens)} requests")
-    hits = kept["paged"].slots.radix.hit_tokens
-    if hits < (len(SHARED_TOTALS) - 1) * SYS_PREFIX:
-        raise AssertionError(f"prefix hits {hits} < "
-                             f"{(len(SHARED_TOTALS) - 1) * SYS_PREFIX}")
+    for q8 in ("", "int8 "):
+        slot_tokens = [r.generated for r in runs[q8 + "slots"][0]]
+        paged_tokens = [r.generated for r in runs[q8 + "paged"][0]]
+        for i, (a, b) in enumerate(zip(slot_tokens, paged_tokens)):
+            if a != b:
+                j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                raise AssertionError(f"{q8}slots and paged differ: request "
+                                     f"{i} at token {j}: {a[j]} != {b[j]}")
+        print(f"[scheduler path] {q8}slots and {q8}paged runs: equal tokens "
+              f"for all {len(slot_tokens)} requests")
+        hits = kept[q8 + "paged"].slots.radix.hit_tokens
+        if hits < (len(SHARED_TOTALS) - 1) * SYS_PREFIX:
+            raise AssertionError(f"{q8}prefix hits {hits} < "
+                                 f"{(len(SHARED_TOTALS) - 1) * SYS_PREFIX}")
+    float_tokens = [r.generated for r in runs["paged"][0]]
+    print(f"[scheduler path] int8 against float cache: "
+          f"{sum(a == b for a, b in zip(paged_tokens, float_tokens))} of "
+          f"{len(float_tokens)} requests with equal tokens, "
+          f"{sum(x == y for a, b in zip(paged_tokens, float_tokens) for x, y in zip(a, b))}"
+          f" of {sum(len(b) for b in float_tokens)} tokens equal position "
+          "by position")
+    paged_tokens = float_tokens
     tight, tight_rec = runs["paged-200"]
     if not tight_rec["first_preempt"]:
         raise AssertionError("the 200-page run never preempted")
@@ -583,7 +824,53 @@ def main() -> int:
           f"{len(tight)}")
     del runs
 
-    # -- 6. times -------------------------------------------------------
+    # -- 6. W8A8 layer path --------------------------------------------
+    # TPMLP at Qwen3-8B's widths, bf16: the xla layer on float weights
+    # (N(0, 1/hidden), seed 3) and the w8a8 layer on their quantization.
+    mlp_f = TPMLP(MLP_HIDDEN, MLP_FFN, mode="xla", device=dev)
+    mlp_f.init_params(torch.Generator(device=dev).manual_seed(3))
+    mlp_q = TPMLP(MLP_HIDDEN, MLP_FFN, mode="w8a8", device=dev)
+    mlp_q.load_quantized(TPMLP.quantize_params(
+        {"gate_up": mlp_f.gate_up, "down": mlp_f.down}))
+    qparams = [mlp_q.gate_up_q, mlp_q.gate_up_scale, mlp_q.down_q,
+               mlp_q.down_scale]
+    mlp_x = {}
+    with torch.inference_mode():
+        for m in W8A8_ROWS:
+            x = randn(m, MLP_HIDDEN)
+            mlp_x[m] = x
+            out = []
+            launches = counted(lambda: out.append(mlp_q(x)))
+            plain = mlp_w8a8(x, *qparams, matmul=matmul_w8a8_reference)
+            ref = mlp_f(x)
+            torch.cuda.synchronize()
+            same = torch.equal(out[0], plain)
+            # Against the bf16 layer: the int8 error is set by the per-row
+            # quantization of h (12288 heavy-tailed values a row, a step of
+            # max|h_row| / 127), about 3.5% relative L2 at these widths on
+            # the CPU; held to 5%.  The elements beyond the JAX test's
+            # tolerance at its 128/256 widths (0.015 max|ref| + 0.05|ref|,
+            # tests/test_layers.py) are counted, not held.
+            err = (out[0].float() - ref.float()).abs()
+            rmax = float(ref.float().abs().max())
+            beyond = int((err > 0.015 * rmax + 0.05 * ref.float().abs()).sum())
+            rel = float((out[0].float() - ref.float()).norm()
+                        / ref.float().norm())
+            ok = rel <= 0.05
+            print(f"[w8a8 layer] TPMLP({MLP_HIDDEN}, {MLP_FFN}, "
+                  f"mode='w8a8') on {m} rows: launches {short(launches)}; "
+                  f"{'bit-identical' if same else 'DIFFERS'} to its plain "
+                  f"version; against the bf16 xla layer on the float weights "
+                  f"rel_l2 {rel:.3e} (held to 5e-2), max_abs_err "
+                  f"{float(err.max()):.4e} = {float(err.max()) / rmax:.4f} "
+                  f"max|ref|, {beyond} of {err.numel()} elements beyond "
+                  f"0.015 max|ref| + 0.05|ref| {'ok' if ok else 'FAIL'}")
+            if launches != expect(matmul_w8a8=2):
+                raise AssertionError(f"w8a8 launch counts {launches}")
+            if not same or not ok:
+                raise AssertionError("w8a8 layer disagrees")
+
+    # -- 7. times -------------------------------------------------------
     print(f"[times] card: {card}; CUDA events, mean over back-to-back "
           "calls after warm-up")
     records = []
@@ -636,7 +923,8 @@ def main() -> int:
     d = cfg.head_dim
 
     def per_layer_ms(call, layers, reps):
-        return time_ms(lambda: [call(k_, v_) for k_, v_ in layers],
+        """Device ms of ``call(*layer)`` per layer, the layers in turn."""
+        return time_ms(lambda: [call(*t) for t in layers],
                        reps) / len(layers)
 
     ms = per_layer_ms(lambda k_, v_: flash_decode(qd, k_, v_, kv_len),
@@ -677,9 +965,105 @@ def main() -> int:
     records.append(("flash_decode_paged", ms, plain, bms, by, lib))
     del k3_pools
 
+    # K2q at the int8 Engine path's decode state, the same kv_len and q as
+    # K2 above: codes and scales from the int8 prefill and decode.  The SDPA
+    # yardstick reads bf16 copies dequantized beforehand (not timed).
+    layers_q = [cache_q.layer(i) for i in range(cfg.num_layers)]
+    kq, vq, ksq, vsq = layers_q[0]
+    out, _ = int8_case(
+        "flash_decode_int8", f"int8 Engine-path state kv_len={L}",
+        flash_decode(qd, kq, vq, kv_len, k_scale=ksq, v_scale=vsq),
+        flash_decode_reference(qd.float(), kq, vq, kv_len, k_scale=ksq,
+                               v_scale=vsq))
+
+    ms = per_layer_ms(lambda k_, v_, ks_, vs_: flash_decode(
+        qd, k_, v_, kv_len, k_scale=ks_, v_scale=vs_), layers_q, 5)
+    plain = per_layer_ms(lambda k_, v_, ks_, vs_: flash_decode_reference(
+        qd, k_, v_, kv_len, k_scale=ks_, v_scale=vs_), layers_q, 1)
+    dq = [tuple((c[:, :, :L].float() * sc[:, :, :L, None]).to(torch.bfloat16)
+                for c, sc in ((k_, ks_), (v_, vs_)))
+          for k_, v_, ks_, vs_ in layers_q]
+    q4 = qd[:, :, None, :]
+    lib = per_layer_ms(lambda k_, v_: F.scaled_dot_product_attention(
+        q4, k_, v_, enable_gqa=True), dq, 5)
+    del dq
+    n_pos = int(kv_len.sum())
+    bms, by = bound(nbytes(qd, kv_len, out) + 2 * n_pos * 8 * d
+                    + 2 * n_pos * 8 * 4 + BATCH * cfg.num_heads * 4,
+                    4 * cfg.num_heads * d * n_pos)
+    records.append(("flash_decode_int8", ms, plain, bms, by, lib))
+
+    # K3q at the scheduler path's decode state: phase 3's 36 layers of int8
+    # pools over K3's table; SDPA over dense bf16 copies gathered and
+    # dequantized beforehand (not timed), with the length mask.
+    out, _ = flash_decode_paged(k3_q, *k3q_pools[0][:2], k3_table, k3_len,
+                                k_scale=k3q_pools[0][2],
+                                v_scale=k3q_pools[0][3])
+    ms = per_layer_ms(lambda k_, v_, ks_, vs_: flash_decode_paged(
+        k3_q, k_, v_, k3_table, k3_len, k_scale=ks_, v_scale=vs_),
+        k3q_pools, 5)
+    plain = per_layer_ms(lambda k_, v_, ks_, vs_: flash_decode_paged_reference(
+        k3_q, k_, v_, k3_table, k3_len, k_scale=ks_, v_scale=vs_),
+        k3q_pools, 1)
+    dq = [tuple((gather_pages(c, k3_table).float()
+                 * gather_pages(sc, k3_table).nan_to_num()[..., None])
+                .to(torch.bfloat16) for c, sc in ((k_, ks_), (v_, vs_)))
+          for k_, v_, ks_, vs_ in k3q_pools]
+    q4 = k3_q[:, :, None, :]
+    lib = per_layer_ms(lambda k_, v_: F.scaled_dot_product_attention(
+        q4, k_, v_, attn_mask=mask, enable_gqa=True), dq, 5)
+    del dq
+    n_pos = int(k3_len.sum())
+    bms, by = bound(nbytes(k3_q, k3_len, out) + 2 * n_pos * 8 * d
+                    + 2 * n_pos * 8 * 4 + SLOTS * 32 * 4 + 4 * n_pages,
+                    4 * 32 * d * n_pos)
+    records.append(("flash_decode_paged_int8", ms, plain, bms, by, lib))
+    del k3q_pools
+
+    # K7 at the W8A8 layer path's shapes (its 2048 and 8 rows, gate_up out
+    # bf16 and down out f32, as the layer calls it).  Yardstick: one
+    # torch._int_mm (cuBLASLt int8) plus the same epilogue; _int_mm takes
+    # more than 16 rows, so the 8-row calls are padded to 32 (the pad made
+    # beforehand, not timed).  The record is gate_up at 2048 rows.
+    k7_rows = {}
+    for m in W8A8_ROWS:
+        for nm, out_dtype in (("gate_up", torch.bfloat16),
+                              ("down", torch.float32)):
+            a_q, b_q, sa, sb = w8_rows[(m, nm)]
+            kk, n = b_q.shape
+            ms = time_ms(lambda: matmul_w8a8(a_q, b_q, sa, sb,
+                                             out_dtype=out_dtype), 20)
+            plain = time_ms(lambda: matmul_w8a8_reference(
+                a_q, b_q, sa, sb, out_dtype=out_dtype), 2, warmup=1)
+            mp = max(m, 32)
+            a_p = torch.zeros((mp, kk), dtype=torch.int8, device=dev)
+            a_p[:m] = a_q
+            sa_p = torch.ones(mp, device=dev)
+            sa_p[:m] = sa
+            lib = time_ms(lambda: (torch._int_mm(a_p, b_q).float()
+                                   * sa_p[:, None] * sb[None, :]
+                                   ).to(out_dtype), 20)
+            bms, by = bound(m * kk + kk * n + 4 * (m + n)
+                            + m * n * torch.finfo(out_dtype).bits // 8,
+                            2 * m * n * kk, PEAK_INT8_OPS)
+            k7_rows[(m, nm)] = (ms, plain, bms, by, lib)
+            print(f"[times] matmul_w8a8 {nm} ({m}x{kk})@({kk}x{n}) out "
+                  f"{out_dtype}: {ms:.4f} ms ({2 * m * n * kk / ms / 1e9:.1f}"
+                  f" TOP/s; bound {bms:.4f} ms by {by}, {bms / ms:.1%} of "
+                  f"bound), plain (float64) {plain:.4f} ms, _int_mm"
+                  f"{' on 32 padded rows' if mp != m else ''} + epilogue "
+                  f"{lib:.4f} ms; {card}")
+    records.append(("matmul_w8a8",) + k7_rows[(2048, "gate_up")])
+    with torch.inference_mode():
+        for m, x in mlp_x.items():
+            print(f"[times] TPMLP w8a8 layer on {m} rows: "
+                  f"{time_ms(lambda: mlp_q(x), 10):.4f} ms, bf16 xla layer "
+                  f"(cuBLAS) {time_ms(lambda: mlp_f(x), 10):.4f} ms; {card}")
+    del mlp_f, mlp_q, qparams, w8, w8_rows
+
     kernels = []
     for nm, ms, plain, bms, by, lib in records:
-        src, repl = KERNEL_SOURCES[nm]
+        src, repl = KERNEL_SOURCES[KERNELS[nm][0]]
         print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, library "
               f"{lib:.4f} ms; launches on the main paths "
@@ -703,19 +1087,50 @@ def main() -> int:
           f"({BATCH / step_ms * 1e3:.1f} tokens/s); whole serve "
           f"{serve_n:.2f} ms ({BATCH * GEN_LEN / serve_n * 1e3:.1f} "
           f"generated tokens/s); {card}")
+    with torch.inference_mode():
+        serve1 = sorted(wall_ms(lambda: engine_q.serve(prompts, 1,
+                                                       cache=cache_q))
+                        for _ in range(3))[1]
+        serve_n = sorted(wall_ms(lambda: engine_q.serve(prompts, GEN_LEN,
+                                                        cache=cache_q))
+                         for _ in range(3))[1]
+    step_ms = (serve_n - serve1) / (GEN_LEN - 1)
+    print(f"[times] Engine.serve int8 cache (median of 3, host clock): "
+          f"prefill+first token {serve1:.2f} ms; decode {step_ms:.3f} "
+          f"ms/step ({BATCH / step_ms * 1e3:.1f} tokens/s); whole serve "
+          f"{serve_n:.2f} ms; {card}")
+    # Float against int8 decode in one call: 8-step windows in the order
+    # float, int8, int8, float (host clock around a sync), each from the
+    # same state (every row at PROMPT + 1 positions, the first token).
+    window = {"float": [], "int8": []}
+    with torch.inference_mode():
+        for label in ("float", "int8", "int8", "float"):
+            mdl, c = (model, cache) if label == "float" else (model_q,
+                                                              cache_q)
+            c.set_offset(PROMPT + 1)
+            mdl.decode(tokens[:, 0], c)
+            window[label].append(wall_ms(lambda: [
+                mdl.decode(tokens[:, 0], c) for _ in range(8)]) / 8)
+    print(f"[times] Engine decode, 4 rows at {PROMPT + 1} positions, host "
+          f"ms/step over 8-step windows in the order float, int8, int8, "
+          f"float: " + "; ".join(f"{label} {a:.2f}, {b:.2f}" for label, (a, b)
+                                 in window.items()) + f"; {card}")
 
-    # -- 7. where the time goes ----------------------------------------
+    # -- 8. where the time goes ----------------------------------------
     with torch.inference_mode():
         profile_phase("Engine prefill", lambda: model.prefill(prompts, cache),
                       card)
         profile_phase("Engine decode x8", lambda: [
             model.decode(tokens[:, 0], cache) for _ in range(8)], card)
-    # Steady decode of the slots and the paged scheduler of phase 5 at the
-    # same state: the same 8 fresh requests (prompts of 40..512 tokens)
-    # fill each one's slots in one admitting step; then 8-step windows
-    # in the order slots, paged, paged, slots on the host clock, then
-    # one profile of each (a warm-up window and a traced one).  33
-    # decode steps in all, below every request's 64 tokens.
+        cache_q.set_offset(PROMPT + 1)
+        profile_phase("Engine int8 decode x8", lambda: [
+            model_q.decode(tokens[:, 0], cache_q) for _ in range(8)], card)
+    # Steady decode of the four kept schedulers of phase 5 (float and int8,
+    # slots and paged) at the same state: the same 8 fresh requests
+    # (prompts of 40..512 tokens) fill each one's slots in one admitting
+    # step; then 8-step windows on the host clock, two per scheduler in a
+    # mirrored order, then one profile of each (a warm-up window and a
+    # traced one).  33 decode steps each, below every request's 64 tokens.
     steady = [p[:512] for p, _ in scheduler_traffic(cfg.vocab_size,
                                                     seed=2)[:SLOTS]]
     for sched in kept.values():
@@ -723,11 +1138,12 @@ def main() -> int:
             sched.submit(Request(prompt=p, max_new_tokens=64))
         sched.step()
     window = {label: [] for label in kept}
-    for label in ("slots", "paged", "paged", "slots"):
+    order = list(kept) + list(kept)[::-1]
+    for label in order:
         window[label].append(wall_ms(
             lambda: [kept[label].step() for _ in range(8)]) / 8)
     print(f"[profile] scheduler decode, 8 rows, host ms/step over 8-step "
-          f"windows in the order slots, paged, paged, slots: "
+          f"windows in the order {', '.join(order)}: "
           + "; ".join(f"{label} {a:.2f}, {b:.2f}" for label, (a, b)
                       in window.items()) + f"; {card}")
     for label, sched in kept.items():

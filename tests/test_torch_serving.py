@@ -587,7 +587,14 @@ def test_later_slices_raise(toy):
     with pytest.raises(NotImplementedError, match="shipped_kv"):
         port_sched(tm).submit(Request(prompt=[1], max_new_tokens=1,
                                       shipped_kv=object()))
-    with pytest.raises(NotImplementedError, match="int8"):
-        ToyModel(ToyConfig(quantize_kv_cache=True), device="cpu")
+    # The int8 cache is ported: an int8 toy builds and decodes.
+    q8 = ToyModel(ToyConfig(quantize_kv_cache=True, **TOY),
+                  device="cpu").init_params(torch.Generator().manual_seed(0))
+    cache = q8.create_cache(2, max_seq=16)
+    assert cache.quantized and cache.ks[0].dtype == torch.int8
+    q8.prefill(torch.tensor([[3, 4, 5], [6, 7, 8]]), cache)
+    logits = q8.decode(torch.tensor([9, 10]), cache)
+    assert logits.shape == (2, TOY["vocab_size"])
+    assert bool(logits.isfinite().all()) and cache.offset.tolist() == [4, 4]
     with pytest.raises(ValueError, match="kv_layout"):
         port_sched(tm, "ring")

@@ -1,5 +1,5 @@
-// Helpers shared by the attention kernels: vector loads that widen to
-// float, stores that narrow from float, and the C error-string entry.
+// Helpers shared by the kernels: vector loads that widen to float, stores
+// that narrow from float, cp.async copies, and the C error-string entry.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,7 +17,8 @@ constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
 // Eight consecutive elements, widened to float.  bf16: one 16-byte load;
-// f32: two.  The caller guarantees 16-byte alignment.
+// f32: two; int8 (cache codes, exact in float): one 8-byte load.  The
+// caller guarantees 16-byte (int8: 8-byte) alignment.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -36,8 +37,36 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const int2 u = *reinterpret_cast<const int2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(c[i]);
+}
+
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; writes zeros instead when !pred.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 }  // namespace tdt
 

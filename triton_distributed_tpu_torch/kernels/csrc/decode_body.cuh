@@ -22,10 +22,24 @@
 //   shared memory with log-sum-exp weights.
 // - Positions at or past kv_len are never read, so they contribute
 //   exactly 0 whatever the cache (or an unmapped page) holds there.
+// - int8 cache (C = int8_t, the TPU kernel's `quantized` form, :44-48,
+//   :66-103): q, out and the arithmetic stay in T (bf16 or f32), lse f32.
+//   A lane still covers 8 positions' columns, now as one 8-byte load of
+//   codes: the lane and stream layout, and so the order of every sum, is
+//   the float kernel's, and each position's two f32 scales are one more
+//   load each.  The K scale multiplies the score after `scale` (:76-82);
+//   l sums the unscaled p, and the V scale multiplies p only in the
+//   accumulation (:93-103).  `Rows::row(b, hk, j)` is also the index of
+//   position j's scale, (B, Hkv, S) dense or (P, Hkv, ps) paged, so the
+//   dense and paged int8 kernels stay bit-identical too.  Positions at or
+//   past kv_len load no scale, so a stale or NaN scale there (a reused
+//   slot, the null page) never reaches the sums.
 // - Known limit: the grid is only B*Hkv blocks (32 at the Qwen3-8B decode
 //   shape with 4 rows, 64 with 8, for 132 SMs).  A split-KV second pass
 //   is the later fix.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -57,11 +71,15 @@ struct PagedRows {
   }
 };
 
-template <typename T, int D, int G, typename Rows>
+// T: q and out (bf16 or f32); C: the cache, T itself or int8_t with f32
+// scales ks/vs (null for a float cache).
+template <typename T, typename C, int D, int G, typename Rows>
 __global__ void __launch_bounds__(DECODE_NT) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, Rows rows, const int* __restrict__ kv_len,
+    const T* __restrict__ q, const C* __restrict__ kc,
+    const C* __restrict__ vc, const float* __restrict__ ks,
+    const float* __restrict__ vs, Rows rows, const int* __restrict__ kv_len,
     T* __restrict__ out, float* __restrict__ lse, int Hkv, float scale) {
+  constexpr bool QUANT = std::is_same<C, int8_t>::value;
   constexpr int NT = DECODE_NT;
   constexpr int LPK = D / 8;            // lanes per position
   constexpr int KPW = 32 / LPK;         // positions per warp step
@@ -101,17 +119,22 @@ __global__ void __launch_bounds__(DECODE_NT) decode_kernel(
   // The trip count depends on len only, so every lane of the warp runs
   // the shuffles below the same number of times.
   for (int j0 = 0; j0 < len; j0 += NS * U) {
-    float kf[U][8], vf[U][8];
+    float kf[U][8], vf[U][8], ksc[U], vsc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = j0 + u * NS + stream;
       if (j < len) {
-        const size_t off = rows.row(b, hk, j) * D + sl * 8;
-        load8(kc + off, kf[u]);
-        load8(vc + off, vf[u]);
+        const size_t r = rows.row(b, hk, j);
+        load8(kc + r * D + sl * 8, kf[u]);
+        load8(vc + r * D + sl * 8, vf[u]);
+        if constexpr (QUANT) {
+          ksc[u] = ks[r];
+          vsc[u] = vs[r];
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) kf[u][i] = vf[u][i] = 0.f;
+        ksc[u] = vsc[u] = 0.f;
       }
     }
 #pragma unroll
@@ -133,10 +156,12 @@ __global__ void __launch_bounds__(DECODE_NT) decode_kernel(
       if (j < len) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
+          if constexpr (QUANT) s[g] *= ksc[u];
           const float m_new = fmaxf(m[g], s[g]);
           const float alpha = expf(m[g] - m_new);
-          const float p = expf(s[g] - m_new);
+          float p = expf(s[g] - m_new);
           l[g] = l[g] * alpha + p;
+          if constexpr (QUANT) p *= vsc[u];
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             acc[g][i] = fmaf(p, vf[u][i], acc[g][i] * alpha);
@@ -175,50 +200,61 @@ __global__ void __launch_bounds__(DECODE_NT) decode_kernel(
   }
 }
 
-template <typename T, int D, int G, typename Rows>
-int launch_decode(const void* q, const void* k, const void* v, Rows rows,
-                  const void* kv_len, void* out, void* lse, int B, int Hkv,
-                  float scale, cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  decode_kernel<T, D, G, Rows><<<grid, DECODE_NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), rows, static_cast<const int*>(kv_len),
-      static_cast<T*>(out), static_cast<float*>(lse), Hkv, scale);
+// The kernel's arguments apart from its template parameters.
+template <typename Rows>
+struct DecodeArgs {
+  const void *q, *k, *v;
+  const float *ks, *vs;  // null for a float cache
+  Rows rows;
+  const int* kv_len;
+  void *out, *lse;
+  int B, Hkv;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename C, int D, int G, typename Rows>
+int launch_decode(const DecodeArgs<Rows>& a) {
+  const dim3 grid(a.Hkv, a.B);
+  decode_kernel<T, C, D, G, Rows><<<grid, DECODE_NT, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k),
+      static_cast<const C*>(a.v), a.ks, a.vs, a.rows, a.kv_len,
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.Hkv, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, typename Rows>
-int dispatch_group(int G, const void* q, const void* k, const void* v,
-                   Rows rows, const void* kv_len, void* out, void* lse,
-                   int B, int Hkv, float scale, cudaStream_t s) {
+template <typename T, typename C, int D, typename Rows>
+int dispatch_group(int G, const DecodeArgs<Rows>& a) {
   switch (G) {
-    case 1: return launch_decode<T, D, 1>(q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-    case 2: return launch_decode<T, D, 2>(q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-    case 4: return launch_decode<T, D, 4>(q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-    case 8: return launch_decode<T, D, 8>(q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
+    case 1: return launch_decode<T, C, D, 1>(a);
+    case 2: return launch_decode<T, C, D, 2>(a);
+    case 4: return launch_decode<T, C, D, 4>(a);
+    case 8: return launch_decode<T, C, D, 8>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// q (B,H,D), out (B,H,D) contiguous in the cache's dtype; kv_len (B,)
+template <typename T, typename Rows>
+int dispatch_cache(bool quant, int G, int D, const DecodeArgs<Rows>& a) {
+  if (quant && D == 128) return dispatch_group<T, int8_t, 128>(G, a);
+  if (quant && D == 64) return dispatch_group<T, int8_t, 64>(G, a);
+  if (D == 128) return dispatch_group<T, T, 128>(G, a);
+  if (D == 64) return dispatch_group<T, T, 64>(G, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q (B,H,D), out (B,H,D) contiguous in dtype; the cache in dtype, or int8
+// with f32 scales when ks and vs are given (both or neither); kv_len (B,)
 // int32; lse (B,H) f32.  Returns a cudaError_t code.
 template <typename Rows>
-int dispatch_decode(int dtype, int B, int H, int Hkv, int D, const void* q,
-                    const void* k, const void* v, Rows rows,
-                    const void* kv_len, void* out, void* lse, float scale,
-                    void* stream) {
-  if (B == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16 && D == 128)
-    return dispatch_group<__nv_bfloat16, 128>(G, q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-  if (dtype == DTYPE_BF16 && D == 64)
-    return dispatch_group<__nv_bfloat16, 64>(G, q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-  if (dtype == DTYPE_F32 && D == 128)
-    return dispatch_group<float, 128>(G, q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
-  if (dtype == DTYPE_F32 && D == 64)
-    return dispatch_group<float, 64>(G, q, k, v, rows, kv_len, out, lse, B, Hkv, scale, s);
+int dispatch_decode(int dtype, int H, int D, const DecodeArgs<Rows>& a) {
+  if (a.B == 0 || H == 0) return 0;
+  if (a.Hkv <= 0 || H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
+  if ((a.ks == nullptr) != (a.vs == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool quant = a.ks != nullptr;
+  const int G = H / a.Hkv;
+  if (dtype == DTYPE_BF16) return dispatch_cache<__nv_bfloat16>(quant, G, D, a);
+  if (dtype == DTYPE_F32) return dispatch_cache<float>(quant, G, D, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -55,6 +55,10 @@ namespace {
 
 using tdt::LN2;
 using tdt::NEG_INF;
+using tdt::cp_async16;
+using tdt::cp_async_commit;
+using tdt::cp_async_wait;
+using tdt::smem_addr;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;  // query rows per block
@@ -72,27 +76,6 @@ __device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal,
 // ---- bf16: tensor cores ---------------------------------------------------
 
 constexpr int MMA_NT = 128;  // 4 warps x 16 query rows
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; writes zeros instead when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile(

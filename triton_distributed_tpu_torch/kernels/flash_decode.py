@@ -2,12 +2,14 @@
 paged KV pool, masked by each row's filled length.
 
 Port of `triton_distributed_tpu/kernels/flash_decode.py` `flash_decode`
-(Pallas `_decode_kernel`, float cache) and `flash_decode_paged`
-(`_paged_decode_kernel`, float pools) as the hand-written CUDA kernels
-``csrc/flash_decode.cu`` and ``csrc/flash_decode_paged.cu``, which share
-one body (``csrc/decode_body.cuh``) and so agree bit for bit on the same
-logical K/V.  The int8 forms (``k_scale``/``v_scale``) and the
-sequence-parallel forms are not ported yet.
+(Pallas `_decode_kernel`) and `flash_decode_paged` (`_paged_decode_kernel`)
+as the hand-written CUDA kernels ``csrc/flash_decode.cu`` and
+``csrc/flash_decode_paged.cu``, which share one body
+(``csrc/decode_body.cuh``) and so agree bit for bit on the same logical
+K/V.  Both take a float cache or an int8 one with per-token f32 scales
+(``k_scale``/``v_scale``, from `quantize_kv`): the K scale multiplies the
+scores, the V scale the softmax weights.  The sequence-parallel forms are
+not ported yet.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version (`flash_decode_reference`,
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 
 from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 
 NEG_INF = -1e30
 
@@ -29,18 +32,51 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _F, _P],
 }
 _PAGED_SIGNATURES = {
-    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _P],
+    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _F, _P],
 }
+
+
+def quantize_kv(k, v):
+    """Per-token symmetric int8 quantization of a KV cache (amax over D):
+    returns (k_q, v_q int8, k_scale, v_scale f32 (B, Hkv, S))."""
+    k_q, ks = quantize_sym(k, 3)
+    v_q, vs = quantize_sym(v, 3)
+    return k_q, v_q, ks, vs
+
+
+def write_kv(caches, scales, idx, k, v) -> None:
+    """Write new K/V rows, k/v (N, Hkv, D), IN PLACE into ``caches``
+    (k_cache, v_cache) at ``idx``, an index over their (row or page,
+    head, position) dims.  With ``scales`` (k_scale, v_scale) the caches
+    are int8: the rows are quantized per token first (`quantize_kv`) and
+    their scales written at the same index."""
+    if scales is not None:
+        k, v, k_scale, v_scale = quantize_kv(k[:, :, None], v[:, :, None])
+        k, v = k[:, :, 0], v[:, :, 0]
+        scales[0][idx] = k_scale[:, :, 0]
+        scales[1][idx] = v_scale[:, :, 0]
+    caches[0][idx] = k.to(caches[0].dtype)
+    caches[1][idx] = v.to(caches[1].dtype)
 
 
 def flash_decode_reference(q, k_cache, v_cache, kv_len, *,
+                           k_scale=None, v_scale=None,
                            scale: Optional[float] = None):
-    """Dense decode attention in f32.  q: (B, H, D); caches (B, Hkv, S, D);
-    kv_len: (B,) int.  Returns out (B, H, D) in q's dtype, lse (B, H) f32."""
+    """Dense decode attention in f32.  q: (B, H, D); caches (B, Hkv, S, D),
+    float, or int8 with ``k_scale``/``v_scale`` (B, Hkv, S); kv_len: (B,)
+    int.  Returns out (B, H, D) in q's dtype, lse (B, H) f32.
+
+    Int8, as the TPU kernel (`_decode_kernel` :76-103): the K scale
+    multiplies the scores after ``scale``, the softmax normalises the
+    unscaled weights, and the V scale multiplies the weights.  Scales at
+    positions >= kv_len may be stale or NaN (a reused slot, the null
+    page): those scores are masked before the softmax and those V scales
+    zeroed, so they never reach the result."""
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
@@ -49,43 +85,59 @@ def flash_decode_reference(q, k_cache, v_cache, kv_len, *,
     scores = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.float()) * scale
     pos = torch.arange(s, device=q.device)
     valid = pos[None, :] < kv_len.to(q.device)[:, None]          # (B, S)
+    if k_scale is not None:
+        scores = scores * k_scale.float()[:, :, None, :]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        p = p * torch.where(valid[:, None, :], v_scale.float(),
+                            0.0)[:, :, None, :]
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     lse = torch.logsumexp(scores, dim=-1)
     return out.reshape(b, h, d).to(q.dtype), lse.reshape(b, h)
 
 
 def gather_pages(pool, page_table):
-    """The logical (B, Hkv, T*page, D) view of a (P, Hkv, page, D) pool
-    through a (B, T) page table (a copy)."""
+    """The logical (B, Hkv, T*page, ...) view of a (P, Hkv, page, ...) pool
+    (K/V pages, or their scales without the trailing D) through a (B, T)
+    page table (a copy)."""
     b, t = page_table.shape
-    _, hkv, ps, d = pool.shape
-    g = pool[page_table.long()]                   # (B, T, Hkv, page, D)
-    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, t * ps, d)
+    _, hkv, ps = pool.shape[:3]
+    g = pool[page_table.long()]                   # (B, T, Hkv, page, ...)
+    return g.transpose(1, 2).reshape(b, hkv, t * ps, *pool.shape[3:])
 
 
 def flash_decode_paged_reference(q, k_pool, v_pool, page_table, kv_len, *,
+                                 k_scale=None, v_scale=None,
                                  scale: Optional[float] = None):
-    """Paged decode attention in f32: gather the pools into logical order
-    through the table, then `flash_decode_reference`."""
-    return flash_decode_reference(q, gather_pages(k_pool, page_table),
-                                  gather_pages(v_pool, page_table), kv_len,
-                                  scale=scale)
+    """Paged decode attention in f32: gather the pools (and the scale
+    pools) into logical order through the table, then
+    `flash_decode_reference`."""
+    def gathered(x):
+        return None if x is None else gather_pages(x, page_table)
+
+    return flash_decode_reference(
+        q, gathered(k_pool), gathered(v_pool), kv_len,
+        k_scale=gathered(k_scale), v_scale=gathered(v_scale), scale=scale)
 
 
-def flash_decode(q, k_cache, v_cache, kv_len, *,
+def flash_decode(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None,
                  scale: Optional[float] = None):
     """q: (B, H, D); k_cache, v_cache: (B, Hkv, S, D); kv_len: (B,) int32
-    filled lengths (<= S).  Returns (out (B, H, D), lse (B, H) f32).
+    filled lengths (<= S).  With ``k_scale``/``v_scale`` ((B, Hkv, S) f32,
+    from `quantize_kv`) the caches are int8.  Returns (out (B, H, D), lse
+    (B, H) f32).
 
-    The kernel takes contiguous bf16 or f32 tensors with D in {64, 128}
-    and H/Hkv in {1, 2, 4, 8}; anything else raises.  Each kernel launch
-    adds one to ``flash_decode.launches``."""
+    The kernel takes contiguous bf16 or f32 q, a cache of q's dtype or
+    int8 with both scales, D in {64, 128} and H/Hkv in {1, 2, 4, 8};
+    anything else raises.  Each kernel launch adds one to
+    ``flash_decode.launches`` (float cache) or
+    ``flash_decode.int8_launches`` (int8 cache)."""
     if q.device.type == "cpu":
         return flash_decode_reference(q, k_cache, v_cache, kv_len,
+                                      k_scale=k_scale, v_scale=v_scale,
                                       scale=scale)
-    _check("flash_decode", q, k_cache, v_cache, kv_len)
+    _check("flash_decode", q, k_cache, v_cache, kv_len, k_scale, v_scale)
     if k_cache.shape[0] != q.shape[0]:
         raise ValueError(f"flash_decode: cache batch {k_cache.shape[0]} != "
                          f"q batch {q.shape[0]}")
@@ -98,32 +150,41 @@ def flash_decode(q, k_cache, v_cache, kv_len, *,
         lib = _build.load_library("flash_decode", _SIGNATURES)
         rc = lib.flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _build.DTYPE_CODES[q.dtype], b, h, hkv, s, d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _ptr(k_scale), _ptr(v_scale), kv_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, hkv, s, d,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, rc, "flash_decode kernel launch")
-        flash_decode.launches += 1
+        if k_scale is None:
+            flash_decode.launches += 1
+        else:
+            flash_decode.int8_launches += 1
     return out, lse
 
 
 flash_decode.launches = 0
+flash_decode.int8_launches = 0
 
 
 def flash_decode_paged(q, k_pool, v_pool, page_table, kv_len, *,
+                       k_scale=None, v_scale=None,
                        scale: Optional[float] = None):
     """q: (B, H, D); k_pool, v_pool: (P, Hkv, page, D) shared by all rows;
     page_table: (B, T) int32, logical page j of row b in physical page
     ``page_table[b, j]``; kv_len: (B,) int32 filled lengths (<= T*page).
-    Only positions below kv_len are read, so pages at or past it may map
-    to the null page.  Returns (out (B, H, D), lse (B, H) f32).
+    With ``k_scale``/``v_scale`` ((P, Hkv, page) f32 pools) the pools are
+    int8.  Only positions below kv_len are read, so pages at or past it may
+    map to the null page.  Returns (out (B, H, D), lse (B, H) f32).
 
     Same dtypes, D and H/Hkv as `flash_decode`, any page size >= 1;
     anything else raises.  Each kernel launch adds one to
-    ``flash_decode_paged.launches``."""
+    ``flash_decode_paged.launches`` (float pools) or
+    ``flash_decode_paged.int8_launches`` (int8 pools)."""
     if q.device.type == "cpu":
-        return flash_decode_paged_reference(q, k_pool, v_pool, page_table,
-                                            kv_len, scale=scale)
-    _check("flash_decode_paged", q, k_pool, v_pool, kv_len)
+        return flash_decode_paged_reference(
+            q, k_pool, v_pool, page_table, kv_len, k_scale=k_scale,
+            v_scale=v_scale, scale=scale)
+    _check("flash_decode_paged", q, k_pool, v_pool, kv_len, k_scale,
+           v_scale)
     b, h, d = q.shape
     p, hkv, ps, _ = k_pool.shape
     if (page_table.dtype != torch.int32 or page_table.dim() != 2
@@ -141,21 +202,31 @@ def flash_decode_paged(q, k_pool, v_pool, page_table, kv_len, *,
         lib = _build.load_library("flash_decode_paged", _PAGED_SIGNATURES)
         rc = lib.flash_decode_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(),
             lse.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, hkv, p, ps,
             t, d, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, rc, "flash_decode_paged kernel launch")
-        flash_decode_paged.launches += 1
+        if k_scale is None:
+            flash_decode_paged.launches += 1
+        else:
+            flash_decode_paged.int8_launches += 1
     return out, lse
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.int8_launches = 0
 
 
-def _check(name, q, k, v, kv_len):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name, q, k, v, kv_len, k_scale, v_scale):
     """Checks shared by both kernels: q (B, H, D) against 4-d K/V (dense
-    cache or page pool) whose dims 1 and 3 are Hkv and D."""
+    cache or page pool) whose dims 1 and 3 are Hkv and D; K/V of q's dtype,
+    or int8 with f32 scales of K/V's first three dims."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -169,10 +240,26 @@ def _check(name, q, k, v, kv_len):
     if d not in (64, 128) or h // hkv not in (1, 2, 4, 8):
         raise ValueError(f"{name}: head_dim {d} / group {h // hkv} "
                          "not supported (64 or 128; 1, 2, 4 or 8)")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    cache_dtype = q.dtype if k_scale is None else torch.int8
+    for nm, t in (("k", k), ("v", v)):
+        if t.dtype != cache_dtype:
+            raise ValueError(f"{name}: {nm} is {t.dtype}; with q {q.dtype} "
+                             f"and {'' if k_scale is None else 'k/v scales, '}"
+                             f"the cache must be {cache_dtype}")
+    for nm, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != k.shape[:3]
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {nm} must be a contiguous float32 "
+                             f"tensor of shape {tuple(k.shape[:3])} on "
+                             f"q's device")
     for nm, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name}: {nm} is {t.dtype} on {t.device}, "
-                             f"q is {q.dtype} on {q.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {nm} is on {t.device}, q is on "
+                             f"{q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {nm} is not contiguous and 16-byte "
                              "aligned")

@@ -3,7 +3,9 @@
 
 Fused QKV projection, Qwen3 per-head q/k RMSNorm, RoPE, then the flash
 attention kernel for prefill or a flash-decode kernel (dense cache or
-paged pool) for decode, then the output projection.  At world 1 the JAX package's AllGather-GEMM and
+paged pool, float or int8) for decode, then the output projection.
+Prefill attends over its float K/V and never reads the cache, so an int8
+cache changes decode only.  At world 1 the JAX package's AllGather-GEMM and
 GEMM-ReduceScatter reduce to plain products (`allgather_gemm.py:304-315`,
 `gemm_reduce_scatter.py:259-260`), which stay `torch.matmul` here.
 Tensor parallelism over several GPUs is not ported yet.
@@ -17,7 +19,7 @@ from torch import nn
 from triton_distributed_tpu_torch.kernels.flash_attention import (
     flash_attention)
 from triton_distributed_tpu_torch.kernels.flash_decode import (
-    flash_decode, flash_decode_paged)
+    flash_decode, flash_decode_paged, write_kv)
 
 
 def require_single_gpu(world_size: int) -> None:
@@ -151,39 +153,44 @@ class TPAttention(nn.Module):
         q = rope_rows(q).reshape(b, self.num_heads, self.head_dim)
         return q.contiguous(), rope_rows(k)[:, :, 0], v[:, :, 0]
 
-    def decode(self, x, kv_cache, offset):
+    def decode(self, x, kv_cache, offset, kv_scales=None):
         """One position per row.  x: (B, hidden); kv_cache: (k_cache,
         v_cache), each (B, Hkv, S_max, D), written IN PLACE at each row's
         ``offset`` ((B,) int32) before attention reads ``offset + 1``
-        positions.  Returns out (B, hidden)."""
-        k_cache, v_cache = kv_cache
-        b = k_cache.shape[0]
+        positions.  With ``kv_scales`` ((k_scale, v_scale), each
+        (B, Hkv, S_max) f32) the cache is int8 and the new token is
+        quantized on write.  Returns out (B, hidden)."""
+        b = kv_cache[0].shape[0]
         q, k, v = self._decode_qkv(x, offset)
-        rows = torch.arange(b, device=x.device)
-        pos = offset.long()
-        k_cache[rows, :, pos] = k.to(k_cache.dtype)
-        v_cache[rows, :, pos] = v.to(v_cache.dtype)
-        out, _ = flash_decode(q, k_cache, v_cache, offset + 1)
+        idx = (torch.arange(b, device=x.device), slice(None), offset.long())
+        write_kv(kv_cache, kv_scales, idx, k, v)
+        out, _ = flash_decode(q, *kv_cache, offset + 1,
+                              **_scale_kwargs(kv_scales))
         return torch.matmul(out.reshape(b, -1), self.wo)
 
-    def decode_paged(self, x, kv_pools, page_table, offset):
+    def decode_paged(self, x, kv_pools, page_table, offset, kv_scales=None):
         """`decode` over a page pool (port of `TPAttention.decode_paged`).
         kv_pools: (k_pool, v_pool), each (P, Hkv, page, D); page_table:
         (B, T) int32.  The new K/V goes IN PLACE to row ``offset % page``
         of page ``page_table[b, offset // page]`` (a masked row's
         null-mapped write lands in the trash page 0), then attention reads
-        ``offset + 1`` positions through the table.  Returns out
+        ``offset + 1`` positions through the table.  With ``kv_scales``
+        ((P, Hkv, page) f32 scale pools) the pools are int8 and the new
+        token's scales go to ``[page, :, offset % page]``.  Returns out
         (B, hidden)."""
-        k_pool, v_pool = kv_pools
         b = offset.shape[0]
-        ps = k_pool.shape[2]
+        ps = kv_pools[0].shape[2]
         q, k, v = self._decode_qkv(x, offset)
         pos = offset.long()
         rows = torch.arange(b, device=x.device)
-        phys = page_table[rows, pos // ps].long()
-        within = pos % ps
-        k_pool[phys, :, within] = k.to(k_pool.dtype)
-        v_pool[phys, :, within] = v.to(v_pool.dtype)
-        out, _ = flash_decode_paged(q, k_pool, v_pool, page_table,
-                                    offset + 1)
+        idx = (page_table[rows, pos // ps].long(), slice(None), pos % ps)
+        write_kv(kv_pools, kv_scales, idx, k, v)
+        out, _ = flash_decode_paged(q, *kv_pools, page_table, offset + 1,
+                                    **_scale_kwargs(kv_scales))
         return torch.matmul(out.reshape(b, -1), self.wo)
+
+
+def _scale_kwargs(kv_scales):
+    if kv_scales is None:
+        return {}
+    return {"k_scale": kv_scales[0], "v_scale": kv_scales[1]}

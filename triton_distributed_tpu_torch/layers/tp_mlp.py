@@ -2,19 +2,28 @@
 ``world_size == 1``): up-projection to [gate | up], gated SiLU,
 down-projection.  At world 1 the ``xla`` and ``fused`` modes compute the
 same plain products (the JAX package's AllGather-GEMM and
-GEMM-ReduceScatter reduce to dots there); the ``fused_ar`` and ``w8a8``
-modes and multi-GPU tensor parallelism are not ported yet."""
+GEMM-ReduceScatter reduce to dots there).  The ``w8a8`` mode holds int8
+weights with per-output-channel scales (`TPMLP.quantize_params`) and runs
+both projections on the int8 GEMM kernel (`kernels.quantized.matmul_w8a8`),
+with the activations quantized per row on the fly.  The ``fused_ar`` mode
+and multi-GPU tensor parallelism are not ported yet."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from triton_distributed_tpu_torch.kernels.quantized import (
+    matmul_w8a8, quantize_sym)
 from triton_distributed_tpu_torch.layers.tp_attn import (
     normal_init_, require_single_gpu, weight)
 
-MODES = ("xla", "fused")
+MODES = ("xla", "fused", "w8a8")
+
+#: The w8a8 mode's parameters, as `TPMLP.quantize_params` names them.
+QUANTIZED = ("gate_up_q", "gate_up_scale", "down_q", "down_scale")
 
 
 def gated_silu(gate_up):
@@ -25,9 +34,26 @@ def gated_silu(gate_up):
     return F.silu(gate.float()).to(gate.dtype) * up
 
 
+def mlp_w8a8(x, gate_up_q, gate_up_scale, down_q, down_scale,
+             matmul=matmul_w8a8):
+    """The w8a8 forward at world 1 (JAX `TPMLP._fwd_w8a8`, whose
+    `ag_gemm_w8a8` is ``quantize_sym`` + `matmul_w8a8` at world 1): x
+    quantized per row, int8 up-projection out in x's dtype, gated SiLU, h
+    quantized per row, int8 down-projection out in f32, cast to x's dtype.
+    ``matmul``: the int8 GEMM (its plain version for a reference run)."""
+    x_q, sx = quantize_sym(x, 1)
+    h = gated_silu(matmul(x_q, gate_up_q, sx, gate_up_scale,
+                          out_dtype=x.dtype))
+    h_q, sh = quantize_sym(h, 1)
+    return matmul(h_q, down_q, sh, down_scale,
+                  out_dtype=torch.float32).to(x.dtype)
+
+
 class TPMLP(nn.Module):
     """Weights: ``gate_up`` (hidden, 2 ffn) as [gate | up], ``down``
-    (ffn, hidden)."""
+    (ffn, hidden); in ``w8a8`` mode their int8 forms ``gate_up_q``,
+    ``down_q`` with f32 per-output-channel scales ``gate_up_scale``
+    (2 ffn,), ``down_scale`` (hidden,) instead."""
 
     def __init__(self, hidden: int, ffn: int, mode: str = "fused",
                  world_size: int = 1, *, dtype=torch.bfloat16, device=None):
@@ -39,15 +65,67 @@ class TPMLP(nn.Module):
         self.hidden = hidden
         self.ffn = ffn
         self.mode = mode
-        self.gate_up = weight(hidden, 2 * ffn, dtype=dtype, device=device)
-        self.down = weight(ffn, hidden, dtype=dtype, device=device)
+        if mode == "w8a8":
+            self.gate_up_q = weight(hidden, 2 * ffn, dtype=torch.int8,
+                                    device=device)
+            self.gate_up_scale = weight(2 * ffn, dtype=torch.float32,
+                                        device=device)
+            self.down_q = weight(ffn, hidden, dtype=torch.int8, device=device)
+            self.down_scale = weight(hidden, dtype=torch.float32,
+                                     device=device)
+        else:
+            self.gate_up = weight(hidden, 2 * ffn, dtype=dtype, device=device)
+            self.down = weight(ffn, hidden, dtype=dtype, device=device)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
+        """N(0, 1/hidden) weights; in w8a8 mode the same draws, quantized
+        (what `quantize_params` makes of a float layer's weights)."""
         std = self.hidden ** -0.5
-        normal_init_(self.gate_up, generator, std)
-        normal_init_(self.down, generator, std)
+        if self.mode != "w8a8":
+            normal_init_(self.gate_up, generator, std)
+            normal_init_(self.down, generator, std)
+            return
+        dev = self.gate_up_q.device
+        floats = {}
+        for name, shape in (("gate_up", self.gate_up_q.shape),
+                            ("down", self.down_q.shape)):
+            floats[name] = torch.empty(shape, device=dev)
+            normal_init_(floats[name], generator, std)
+        self.load_quantized(self.quantize_params(floats))
+
+    @staticmethod
+    def quantize_params(params):
+        """One-time symmetric int8 weight quantization per output channel
+        (axis 0) for the ``w8a8`` mode: ``{"gate_up", "down"}`` float
+        tensors -> ``{"gate_up_q", "gate_up_scale", "down_q",
+        "down_scale"}``, as the JAX `TPMLP.quantize_params`."""
+        gq, gs = quantize_sym(params["gate_up"], 0)
+        dq, ds = quantize_sym(params["down"], 0)
+        return {"gate_up_q": gq, "gate_up_scale": gs,
+                "down_q": dq, "down_scale": ds}
+
+    @torch.no_grad()
+    def load_quantized(self, qparams) -> "TPMLP":
+        """Copy quantized parameters (`quantize_params` output, tensors or
+        numpy arrays such as the JAX package's) into a ``w8a8`` layer.
+        Returns self."""
+        if self.mode != "w8a8":
+            raise ValueError(f"load_quantized: mode is {self.mode!r}, "
+                             "not 'w8a8'")
+        for name in QUANTIZED:
+            dst = getattr(self, name)
+            src = qparams[name]
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.array(src))
+            if src.dtype != dst.dtype or tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: {src.dtype} {tuple(src.shape)} != "
+                                 f"{dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+        return self
 
     def forward(self, x):
+        if self.mode == "w8a8":
+            return mlp_w8a8(x, *(getattr(self, n) for n in QUANTIZED))
         return torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
                             self.down)

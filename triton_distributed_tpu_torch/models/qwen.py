@@ -5,9 +5,13 @@ The JAX model is a parameter pytree plus pure per-device functions; here
 the parameters live in the module.  Layouts are the JAX package's, so its
 parameters carry over as they are (`load_jax_params`): matrices are
 (in, out), ``wqkv`` columns are [q | k | v], ``gate_up`` columns are
-[gate | up], and a tied LM head is ``embed.T``.  MoE layers,
-multi-GPU tensor parallelism and loading HF checkpoints are not ported
-yet.
+[gate | up], and a tied LM head is ``embed.T``.  With
+``ModelConfig.quantize_kv_cache`` the caches are int8 with per-token
+scales (decode quantizes its new token on write; prefill logits do not
+read the cache).  The MLP runs in the ``xla`` or ``fused`` mode, as the
+JAX model's `set_mode` allows (``w8a8`` is a layer mode of `TPMLP`, not a
+model mode there either).  MoE layers, multi-GPU tensor parallelism and
+loading HF checkpoints are not ported yet.
 
 The engine contract the serving stack drives: `create_cache`,
 `create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
@@ -58,14 +62,15 @@ class Qwen3Layer(nn.Module):
         x = x + h
         return x + self.mlp(rms_norm(x, self.ln2, self.eps)), kv
 
-    def decode(self, x, kv_cache, offset):
+    def decode(self, x, kv_cache, offset, kv_scales=None):
         x = x + self.attn.decode(rms_norm(x, self.ln1, self.eps), kv_cache,
-                                 offset)
+                                 offset, kv_scales)
         return x + self.mlp(rms_norm(x, self.ln2, self.eps))
 
-    def decode_paged(self, x, kv_pools, page_table, offset):
+    def decode_paged(self, x, kv_pools, page_table, offset, kv_scales=None):
         x = x + self.attn.decode_paged(rms_norm(x, self.ln1, self.eps),
-                                       kv_pools, page_table, offset)
+                                       kv_pools, page_table, offset,
+                                       kv_scales)
         return x + self.mlp(rms_norm(x, self.ln2, self.eps))
 
 
@@ -79,8 +84,9 @@ class Qwen3(nn.Module):
         require_single_gpu(world_size)
         if config.is_moe:
             raise NotImplementedError("MoE layers are not yet ported")
-        if config.quantize_kv_cache:
-            raise NotImplementedError("the int8 KV cache is not yet ported")
+        if mode not in ("xla", "fused"):
+            raise ValueError(f"mode {mode!r}: a Qwen3 runs 'xla' or 'fused' "
+                             "(w8a8 is a TPMLP layer mode)")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
@@ -148,7 +154,8 @@ class Qwen3(nn.Module):
         cfg = self.config
         return KVCache.create(cfg.num_layers, batch, cfg.num_kv_heads,
                               max_seq or cfg.max_seq_len, cfg.head_dim,
-                              self.dtype, device=self.device)
+                              self.dtype, device=self.device,
+                              quantized=cfg.quantize_kv_cache)
 
     def create_paged_cache(self, batch: int, num_pages: int,
                            page_size: int, max_pages_per_seq: int):
@@ -156,7 +163,8 @@ class Qwen3(nn.Module):
         cfg = self.config
         return PagedKVCache.create(
             cfg.num_layers, num_pages, batch, cfg.num_kv_heads, page_size,
-            cfg.head_dim, max_pages_per_seq, self.dtype, device=self.device)
+            cfg.head_dim, max_pages_per_seq, self.dtype, device=self.device,
+            quantized=cfg.quantize_kv_cache)
 
     @torch.inference_mode()
     def prefill(self, input_ids, cache: Optional[KVCache]):
@@ -182,7 +190,9 @@ class Qwen3(nn.Module):
         (JAX: `Qwen3.make_decode_fn`.)"""
         x = self.embed[tokens.long()]
         for li, layer in enumerate(self.layers):
-            x = layer.decode(x, (cache.ks[li], cache.vs[li]), cache.offset)
+            k, v, ks, vs = cache.layer(li)
+            x = layer.decode(x, (k, v), cache.offset,
+                             None if ks is None else (ks, vs))
         x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
         cache.inc_offset(1)
         return dot_f32(x, self.lm_head)
@@ -195,8 +205,9 @@ class Qwen3(nn.Module):
         f32 logits (B, V).  (JAX: `Qwen3.make_paged_decode_fn`.)"""
         x = self.embed[tokens.long()]
         for li, layer in enumerate(self.layers):
-            x = layer.decode_paged(x, (cache.ks[li], cache.vs[li]),
-                                   cache.page_table, cache.offset)
+            k, v, ks, vs = cache.layer(li)
+            x = layer.decode_paged(x, (k, v), cache.page_table, cache.offset,
+                                   None if ks is None else (ks, vs))
         x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
         cache.inc_offset(1)
         return dot_f32(x, self.lm_head)

@@ -43,7 +43,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from triton_distributed_tpu_torch.models.kv_cache import NULL_PAGE
+from triton_distributed_tpu_torch.models.kv_cache import (
+    NULL_PAGE, layer_tensors)
 from triton_distributed_tpu_torch.models.utils import sample_token
 
 #: Default prefill length buckets.  Powers of two keep padding waste
@@ -196,14 +197,15 @@ def make_masked_block_fn(decode_fn, temperature: float = 0.0,
 def make_insert_fn():
     """``insert(big_cache, keys, row_cache, key, slot, offset)``: copy a
     freshly prefilled single-row cache (batch 1, max_seq = its length
-    bucket) into row ``slot`` of the decode cache, set that slot's offset
-    and its key.  In place."""
+    bucket; int8 codes and scales when the caches are int8) into row
+    ``slot`` of the decode cache, set that slot's offset and its key.  In
+    place."""
 
     def insert(big, keys, row, key, slot: int, offset: int):
         bucket = row.ks[0].shape[2]
-        for bk, bv, rk, rv in zip(big.ks, big.vs, row.ks, row.vs):
-            bk[slot, :, :bucket].copy_(rk[0])
-            bv[slot, :, :bucket].copy_(rv[0])
+        for b, r in zip(layer_tensors(big), layer_tensors(row),
+                        strict=True):
+            b[slot, :, :bucket].copy_(r[0])
         big.offset[slot] = offset
         keys[slot] = key
 
@@ -220,8 +222,10 @@ def make_paged_insert_fn():
     the physical destination of each LOCAL page of the row cache; entries
     equal to `NULL_PAGE` are skipped: shared prefix pages (owned by the
     radix cache, possibly mapped by other slots) and pad-tail pages past
-    the prompt.  The row may cover a page-aligned SUFFIX of the prompt
-    (the prefix-aware prefill); the caller encodes that in ``page_ids``.
+    the prompt.  An int8 row's scales go to the same pages of the scale
+    pools, with the same skips.  The row may cover a page-aligned SUFFIX
+    of the prompt (the prefix-aware prefill); the caller encodes that in
+    ``page_ids``.
     The page TABLE is not touched: `serving.pages.PagedKV` owns it."""
 
     def insert(pool, keys, row, key, slot: int, page_ids, offset: int):
@@ -234,15 +238,15 @@ def make_paged_insert_fn():
         dev = pool.offset.device
         src = torch.from_numpy(full.astype(np.int64)).to(dev)
         dst = torch.from_numpy(page_ids[full].astype(np.int64)).to(dev)
-        for pk, pv, rk, rv in zip(pool.ks, pool.vs, row.ks, row.vs):
-            for p, r in ((pk, rk[0]), (pv, rv[0])):
-                hkv, _, d = r.shape
-                blocks = r[:, :bucket // ps * ps].reshape(hkv, -1, ps, d)
-                p[dst] = blocks[:, src].transpose(0, 1).to(p.dtype)
-                for j in ragged:
-                    lo = int(j) * ps
-                    p[int(page_ids[j]), :, :bucket - lo] = r[:, lo:].to(
-                        p.dtype)
+        for p, r in zip(layer_tensors(pool), layer_tensors(row),
+                        strict=True):
+            r = r[0]                        # (Hkv, bucket[, D])
+            hkv, tail = r.shape[0], r.shape[2:]
+            blocks = r[:, :bucket // ps * ps].reshape(hkv, -1, ps, *tail)
+            p[dst] = blocks[:, src].transpose(0, 1).to(p.dtype)
+            for j in ragged:
+                lo = int(j) * ps
+                p[int(page_ids[j]), :, :bucket - lo] = r[:, lo:].to(p.dtype)
         pool.offset[slot] = offset
         keys[slot] = key
 

@@ -43,7 +43,6 @@ import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from triton_distributed_tpu_torch.models.kv_cache import (
     NULL_PAGE, PagedKVCache, pages_for)
@@ -603,23 +602,25 @@ class PagedKV:
 
     # -- spill content I/O (admission path, not the decode hot path) ----
 
+    def _page_tensors(self):
+        """Payload name -> per-layer pool: ``k{i}``/``v{i}``, and the int8
+        scale pools ``ks{i}``/``vs{i}`` (the JAX payload's names)."""
+        c = self.cache
+        names = {"k": c.ks, "v": c.vs, "ks": c.kss or [], "vs": c.vss or []}
+        return {f"{n}{i}": t for n, ts in names.items()
+                for i, t in enumerate(ts)}
+
     def _read_page(self, page: int) -> dict:
         """One physical page's content across all layers as CPU tensors
-        (the SpillPool payload); a copy of the stored dtype, so restore
-        is bit-exact."""
-        c = self.cache
-        out: Dict[str, torch.Tensor] = {}
-        for layer in range(len(c.ks)):
-            out[f"k{layer}"] = c.ks[layer][page].to("cpu", copy=True)
-            out[f"v{layer}"] = c.vs[layer][page].to("cpu", copy=True)
-        return out
+        (the SpillPool payload); a copy of the stored dtypes (int8 codes
+        and f32 scales when int8), so restore is bit-exact."""
+        return {name: t[page].to("cpu", copy=True)
+                for name, t in self._page_tensors().items()}
 
     def _write_page(self, page: int, payload: dict) -> None:
         """Write parked content back into physical ``page`` (restore)."""
-        c = self.cache
-        for i in range(len(c.ks)):
-            c.ks[i][page].copy_(payload[f"k{i}"])
-            c.vs[i][page].copy_(payload[f"v{i}"])
+        for name, t in self._page_tensors().items():
+            t[page].copy_(payload[name])
 
     def active_mask(self) -> np.ndarray:
         return self._active.copy()

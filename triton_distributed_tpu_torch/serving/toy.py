@@ -1,5 +1,5 @@
 """Toy single-layer attention LM implementing the engine contract (port
-of `triton_distributed_tpu/serving/toy.py`, float cache only).
+of `triton_distributed_tpu/serving/toy.py`).
 
 Same interface as `models.qwen.Qwen3` (`create_cache`,
 `create_paged_cache`, `prefill`, `decode`, `decode_paged`; prefill sets
@@ -11,6 +11,11 @@ insert, masked step, radix cache, preemption) on any host.  Position
 embeddings make the logits depend on absolute position, so a wrong slot
 offset or a consumed pad tail shows up as wrong tokens.  Caches are
 updated in place.
+
+With ``ToyConfig.quantize_kv_cache`` both layouts hold an int8 cache with
+per-token scales (`kernels.flash_decode.quantize_kv`), as the JAX toy:
+writes quantize, reads dequantize, so the slot and the paged engines see
+the same dequantized values.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.kernels.flash_decode import write_kv
 from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedKVCache)
 from triton_distributed_tpu_torch.utils.platform import resolve_device
@@ -42,8 +48,6 @@ class ToyModel:
 
     def __init__(self, config: Optional[ToyConfig] = None, device=None):
         self.config = cfg = config or ToyConfig()
-        if cfg.quantize_kv_cache:
-            raise NotImplementedError("the int8 KV cache is not yet ported")
         self.device = resolve_device(device)
         h, v = cfg.hidden, cfg.vocab_size
         shapes = {"embed": (v, h), "pe": (cfg.max_seq_len, h),
@@ -72,13 +76,16 @@ class ToyModel:
     def create_cache(self, batch: int, max_seq: Optional[int] = None):
         cfg = self.config
         return KVCache.create(1, batch, 1, max_seq or cfg.max_seq_len,
-                              cfg.hidden, torch.float32, device=self.device)
+                              cfg.hidden, torch.float32, device=self.device,
+                              quantized=cfg.quantize_kv_cache)
 
     def create_paged_cache(self, batch: int, num_pages: int,
                            page_size: int, max_pages_per_seq: int):
+        cfg = self.config
         return PagedKVCache.create(1, num_pages, batch, 1, page_size,
-                                   self.config.hidden, max_pages_per_seq,
-                                   torch.float32, device=self.device)
+                                   cfg.hidden, max_pages_per_seq,
+                                   torch.float32, device=self.device,
+                                   quantized=cfg.quantize_kv_cache)
 
     def _kv(self, ids, positions):
         p = self.params
@@ -124,15 +131,30 @@ class ToyModel:
         att = torch.softmax(torch.where(mask, scores, -torch.inf), dim=-1)
         return torch.einsum("bs,bsh->bh", att, vf) @ self.params["wo"]
 
+    @staticmethod
+    def _write(cache, lead, pos, k, v) -> None:
+        """One new K/V row per batch row, k/v (B, h), at ``[lead, 0,
+        pos]`` of layer 0 (quantized per token when the cache is int8)."""
+        kc, vc, ks, vs = cache.layer(0)
+        write_kv((kc, vc), None if ks is None else (ks, vs),
+                 (lead, slice(None), pos), k[:, None], v[:, None])
+
+    @staticmethod
+    def _dequant(k, v, k_scale=None, v_scale=None):
+        """(k, v) as f32 values: int8 codes times their scales."""
+        if k_scale is None:
+            return k, v
+        return k.float() * k_scale[..., None], v.float() * v_scale[..., None]
+
     def decode(self, tokens, cache: KVCache):
         """tokens: (B,).  Writes each row's K/V at ``cache.offset``,
         attends, advances every offset by one.  Returns logits (B, V)."""
         offset = cache.offset
         x, k, v = self._kv(tokens, offset)
         rows = torch.arange(tokens.shape[0], device=tokens.device)
-        cache.ks[0][rows, 0, offset.long()] = k
-        cache.vs[0][rows, 0, offset.long()] = v
-        logits = self._attend(x, cache.ks[0][:, 0], cache.vs[0][:, 0], offset)
+        self._write(cache, rows, offset.long(), k, v)
+        kf, vf = self._dequant(*cache.layer(0))
+        logits = self._attend(x, kf[:, 0], vf[:, 0], offset)
         cache.inc_offset(1)
         return logits
 
@@ -148,9 +170,8 @@ class ToyModel:
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         pos = offset.long()
         phys = cache.page_table[rows, pos // ps].long()
-        cache.ks[0][phys, 0, pos % ps] = k
-        cache.vs[0][phys, 0, pos % ps] = v
-        kf, vf = cache.gather_logical(0)
+        self._write(cache, phys, pos % ps, k, v)
+        kf, vf = self._dequant(*cache.gather_logical(0))
         logits = self._attend(x, kf[:, 0], vf[:, 0], offset)
         cache.inc_offset(1)
         return logits
