@@ -14,7 +14,10 @@ non-zero):
    f32 from the same bf16 inputs, at the main paths' shapes and edge
    cases; the paged decode kernels also bit for bit against the dense
    ones over the same logical K/V (float and int8); the int8 GEMM bit for
-   bit against its exact plain version at the Qwen3-8B MLP shapes;
+   bit against its exact plain version at the Qwen3-8B MLP shapes; the
+   flash backward (K4 dq, K5 dk/dv) at the training shapes in bf16 and
+   on ragged and negative-offset cases in f32, each output held row by
+   row and in relative L2;
 4. Engine path: Qwen3-8B at full width and depth with seeded random bf16
    weights; ``Engine.serve`` answers 4 requests of 512 prompt tokens with
    32 greedy tokens each, with the kernel launch counts checked, then a
@@ -39,7 +42,16 @@ non-zero):
 8. profile: one traced prefill and eight traced decode steps of the
    Engine path (float and int8), and eight traced scheduler steps of each
    scheduler, with the device's busy share and the kernels that take its
-   time.
+   time;
+9. training path: gradients of a 2-layer model of Qwen3-8B's widths on
+   the card (kernels) in f32 and in bf16 against the CPU's f32 (plain
+   versions), per leaf; then
+   Qwen3-8B at full width and depth in bf16 (the same weights as phases
+   4-8, which no longer need them) takes 3 SGD steps on 4 sequences of
+   512 tokens (cross-entropy of the last position's logits against seeded
+   targets): loss, ms per forward+backward, tokens/s, peak memory, exact
+   K1/K4/K5 launches per step, finite gradients, a falling loss; one
+   traced training step.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -49,6 +61,7 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -63,32 +76,33 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 
+#: Library -> its CUDA source (``kernels/csrc/<library>.cu``).
 KERNEL_SOURCES = {
-    "flash_attention": (
-        "triton_distributed_tpu_torch/kernels/csrc/flash_attention.cu",
-        "triton_distributed_tpu/kernels/flash_attention.py:564"),
-    "flash_decode": (
-        "triton_distributed_tpu_torch/kernels/csrc/flash_decode.cu",
-        "triton_distributed_tpu/kernels/flash_decode.py:195"),
-    "flash_decode_paged": (
-        "triton_distributed_tpu_torch/kernels/csrc/flash_decode_paged.cu",
-        "triton_distributed_tpu/kernels/flash_decode.py:310"),
-    "matmul_w8a8": (
-        "triton_distributed_tpu_torch/kernels/csrc/matmul_w8a8.cu",
-        "triton_distributed_tpu/kernels/quantized.py:120"),
-}
+    lib: f"triton_distributed_tpu_torch/kernels/csrc/{lib}.cu"
+    for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
+                "matmul_w8a8", "flash_attention_bwd")}
 
+_TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
-#: wrapper's launch counter).  The int8 decode kernels (K2q, K3q) are the
-#: float ones' libraries with an int8 cache; their wrappers count them
-#: apart.
+#: wrapper's launch counter, the TPU kernel it replaces).  The int8 decode
+#: kernels (K2q, K3q) are the float ones' libraries with an int8 cache;
+#: their wrappers count them apart.  K4 and K5 launch as a pair from one
+#: wrapper, which counts each kernel apart (and the pair in ``launches``).
 KERNELS = {
-    "flash_attention": ("flash_attention", "launches"),
-    "flash_decode": ("flash_decode", "launches"),
-    "flash_decode_paged": ("flash_decode_paged", "launches"),
-    "flash_decode_int8": ("flash_decode", "int8_launches"),
-    "flash_decode_paged_int8": ("flash_decode_paged", "int8_launches"),
-    "matmul_w8a8": ("matmul_w8a8", "launches"),
+    "flash_attention": ("flash_attention", "launches",
+                        _TPU + "flash_attention.py:564"),
+    "flash_decode": ("flash_decode", "launches", _TPU + "flash_decode.py:195"),
+    "flash_decode_paged": ("flash_decode_paged", "launches",
+                           _TPU + "flash_decode.py:310"),
+    "flash_decode_int8": ("flash_decode", "int8_launches",
+                          _TPU + "flash_decode.py:195"),
+    "flash_decode_paged_int8": ("flash_decode_paged", "int8_launches",
+                                _TPU + "flash_decode.py:310"),
+    "matmul_w8a8": ("matmul_w8a8", "launches", _TPU + "quantized.py:120"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", "dq_launches",
+                               _TPU + "flash_attention.py:948"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", "dkv_launches",
+                                _TPU + "flash_attention.py:987"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -174,11 +188,31 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
     return sum(min(max(i + kv_offset + 1, 0), sk) for i in range(sq))
 
 
+#: Substrings of a device kernel's name -> its kind in a profile's
+#: breakdown (first match wins); the port's own kernels first.
+KERNEL_KINDS = (
+    ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
+                      "w8a8_kernel")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
+    ("elementwise and reductions", ("elementwise", "reduce", "index",
+                                    "embedding", "softmax", "cat")),
+)
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
 def profile_phase(label: str, fn, card: str, top: int = 6) -> None:
     """One traced call of ``fn`` under torch.profiler: its host time, the
     summed device time of its kernels (one stream, so no overlap), the
-    device's busy share of the host time, and the kernels that took
-    most of it.  Tracing adds host time, so the share is a lower bound."""
+    device's busy share of the host time, the device time by kernel kind,
+    and the kernels that took most of it.  Tracing adds host time, so
+    the share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -194,12 +228,19 @@ def profile_phase(label: str, fn, card: str, top: int = 6) -> None:
               "not measured")
         return
     kern.sort(key=lambda e: -e.self_device_time_total)
+    kinds = {}
+    for e in kern:
+        kind = kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0) + e.self_device_time_total
+    by_kind = ", ".join(f"{k} {v / 1e3:.2f} ms ({v / dev_us:.0%})"
+                        for k, v in sorted(kinds.items(),
+                                           key=lambda kv: -kv[1]))
     tops = "; ".join(
         f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms "
         f"({e.self_device_time_total / dev_us:.0%})" for e in kern[:top])
     print(f"[profile] {label}: host {t_host:.2f} ms (traced), device "
           f"{dev_us / 1e3:.2f} ms, busy {dev_us / 1e3 / t_host:.0%}; "
-          f"{card}; top kernels: {tops}")
+          f"{card}; by kind: {by_kind}; top kernels: {tops}")
 
 
 def check_close(name, got, want, atol, rtol):
@@ -208,6 +249,31 @@ def check_close(name, got, want, atol, rtol):
     ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
     print(f"  {name}: max_abs_err={worst:.3e} (atol={atol}, rtol={rtol}) "
           f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return worst
+
+
+def check_rows(name, got, want, tol, rel_tol, floor):
+    """``got`` against ``want`` with a bound that scales with each row (the
+    last dim), not with the tensor's maximum: |err| <= tol * (|ref| +
+    rms(ref's row) + floor * rms(ref)), the last term for rows whose exact
+    value is zero (a query row that sees one key: its ds cancels, leaving
+    the rounding of dp - delta); and rel_l2 <= ``rel_tol`` over the
+    tensor.  Returns max |err|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    row = w.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = floor * w.pow(2).mean().sqrt()
+    ratio = float((err / (w.abs() + row + floor).clamp_min(
+        torch.finfo(torch.float32).tiny)).max()) if err.numel() else 0.0
+    rel = float(err.norm() / w.norm()) if float(w.norm()) else float(
+        err.norm())
+    worst = float(err.max()) if err.numel() else 0.0
+    ok = ratio <= tol and rel <= rel_tol
+    print(f"  {name}: max_abs_err={worst:.3e}, max err/(|ref| + rms_row + "
+          f"floor*rms)={ratio:.3e} (tol {tol}), rel_l2={rel:.3e} (tol "
+          f"{rel_tol}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
     return worst
@@ -295,6 +361,161 @@ def drive_scheduler(sched, traffic, request_cls, queued_state):
                   "first_preempt": first_preempt}
 
 
+#: Training path: 3 SGD steps of this rate on Qwen3-8B (the target logit
+#: moves by about TRAIN_LR / BATCH * hidden = 10 a step through the head's
+#: gradient alone), and the 2-layer gradient check's tokens and per-leaf
+#: rel_l2 bounds against the CPU's f32 (measured on an H100: f32 about
+#: 5e-6, bf16 at most 2.3e-2, the q/k norms' weights).
+TRAIN_STEPS, TRAIN_LR = 3, 1e-2
+GRAD_CHECK_TOKENS = 128
+GRAD_REL_L2 = {"f32": 1e-4, "bf16": 5e-2}
+
+
+def last_position_loss(model, ids, targets):
+    """Cross-entropy of the last position's logits (the differentiable
+    prefill, ``model(ids)``) against ``targets``."""
+    return torch.nn.functional.cross_entropy(model(ids), targets)
+
+
+@torch.no_grad()
+def sgd_step(params, lr: float) -> None:
+    """p -= lr * p.grad in one pass per tensor: PyTorch computes a bf16
+    add in f32 and rounds the sum once, so no update is lost to a bf16
+    product first."""
+    for p in params:
+        p.add_(p.grad, alpha=-lr)
+
+
+def train_model_gradients(cfg, dev, card: str) -> None:
+    """Gradients of a 2-layer model of ``cfg``'s widths (random bf16
+    weights, seed 7) for 1 x GRAD_CHECK_TOKENS tokens, on the card (K1, K4,
+    K5, cuBLAS) in f32 and in bf16, each against the same weights' f32
+    gradients on the CPU (the plain versions), per leaf within
+    GRAD_REL_L2 of its dtype in relative L2: f32 on both sides differs only in the
+    order of the sums; bf16 rounds every activation and gradient too."""
+    from triton_distributed_tpu_torch import Qwen3
+    from triton_distributed_tpu_torch.kernels.flash_attention import (
+        flash_attention_backward)
+
+    two = dataclasses.replace(cfg, num_layers=2)
+    small = dataclasses.replace(two, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16 = Qwen3(two).init_params(gen)
+    f32 = Qwen3(small)
+    f32.load_state_dict(bf16.state_dict())
+    cpu = Qwen3(small, device="cpu")
+    cpu.load_state_dict(f32.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (1, GRAD_CHECK_TOKENS),
+                        generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (1,), generator=gen,
+                            device=dev)
+    losses = {}
+    for tag, m in (("CPU", cpu), ("f32", f32), ("bf16", bf16)):
+        d = "cpu" if m is cpu else dev
+        m.requires_grad_(True)
+        before = (flash_attention_backward.dq_launches,
+                  flash_attention_backward.dkv_launches)
+        loss = last_position_loss(m, ids.to(d), targets.to(d))
+        loss.backward()
+        losses[tag] = float(loss)
+        launched = (flash_attention_backward.dq_launches - before[0],
+                    flash_attention_backward.dkv_launches - before[1])
+        want = (0, 0) if m is cpu else (two.num_layers, two.num_layers)
+        if launched != want:
+            raise AssertionError(f"2-layer check {tag}: K4/K5 launched "
+                                 f"{launched}, want {want}")
+    torch.cuda.synchronize()
+    for tag, m in (("f32", f32), ("bf16", bf16)):
+        rels = {}
+        for (name, pc), pg in zip(cpu.named_parameters(), m.parameters()):
+            if not bool(pg.grad.isfinite().all()):
+                raise AssertionError(f"2-layer check {tag}: {name} gradient "
+                                     "not finite")
+            rels[name] = float((pg.grad.float().cpu() - pc.grad).norm()
+                               / pc.grad.norm())
+        worst = max(rels, key=rels.get)
+        ok = rels[worst] <= GRAD_REL_L2[tag]
+        print(f"[training path] 2-layer {tag} model of Qwen3-8B's widths, "
+              f"1 x {GRAD_CHECK_TOKENS} tokens, last-position cross-entropy: "
+              f"loss card {losses[tag]:.6f}, CPU f32 {losses['CPU']:.6f}; "
+              f"gradients of all {len(rels)} leaves (K4 and K5 launched "
+              f"{two.num_layers} times each) against the CPU's plain "
+              f"versions: worst rel_l2 {rels[worst]:.3e} ({worst}), median "
+              f"{sorted(rels.values())[len(rels) // 2]:.3e}; bound "
+              f"{GRAD_REL_L2[tag]} {'ok' if ok else 'FAIL'}; {card}")
+        if not ok:
+            raise AssertionError(f"2-layer {tag} gradient check failed")
+    del bf16, f32, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_steps(model, cfg, ids, counted, expect, short, dev,
+                card: str) -> None:
+    """TRAIN_STEPS SGD steps of ``model`` on ``ids`` against seeded
+    targets, each forward+backward counted (exact K1/K4/K5 launches, one of
+    each per layer), with finite gradients and a falling loss; then one
+    traced step."""
+    targets = torch.randint(0, cfg.vocab_size, (ids.shape[0],),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(0), device=dev)
+    model.requires_grad_(True)
+    params = list(model.parameters())
+    nl = cfg.num_layers
+    want = expect(flash_attention=nl, flash_attention_bwd_dq=nl,
+                  flash_attention_bwd_dkv=nl)
+    print(f"[training path] Qwen3-8B, {nl} layers, bf16, seed-0 weights; "
+          f"{ids.shape[0]} x {ids.shape[1]} tokens; loss = cross-entropy of "
+          f"the last position's logits against seeded targets; SGD lr "
+          f"{TRAIN_LR} computed in f32, rounded once to bf16")
+    losses = []
+    for step in range(TRAIN_STEPS):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        got, t = [], []
+
+        def fwd_bwd():
+            loss = last_position_loss(model, ids, targets)
+            loss.backward()
+            got.append(loss.detach())
+
+        launches = counted(lambda: t.append(wall_ms(fwd_bwd)))
+        loss = float(got[0])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(p.grad.isfinite().all())]
+        t_sgd = wall_ms(lambda: sgd_step(params, TRAIN_LR))
+        print(f"[training path] step {step}: loss {loss:.6f}; "
+              f"forward+backward {t[0]:.2f} ms (host clock around a sync), "
+              f"{ids.numel() / t[0] * 1e3:.0f} tokens/s; SGD update "
+              f"{t_sgd:.2f} ms; peak memory "
+              f"{peak:.2f} GiB; launches {short(launches)}; gradients of "
+              f"{len(params)} leaves "
+              f"{'finite' if not bad else 'NOT finite: ' + str(bad[:3])}; "
+              f"{card}")
+        if launches != want:
+            raise AssertionError(f"training launch counts {launches} != "
+                                 f"{want}")
+        if bad or loss != loss:
+            raise AssertionError("training produced non-finite values")
+        losses.append(loss)
+    print(f"[training path] loss over {TRAIN_STEPS} steps: "
+          + " -> ".join(f"{x:.6f}" for x in losses)
+          + (" (falls)" if losses[-1] < losses[0] else " (DOES NOT FALL)"))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the training loss does not fall")
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        last_position_loss(model, ids, targets).backward()
+        sgd_step(params, TRAIN_LR)
+
+    profile_phase("training step (forward, backward, SGD)", step, card,
+                  top=14)
+    profile_phase("training forward+backward", lambda: last_position_loss(
+        model, ids, targets).backward(), card, top=14)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -303,7 +524,8 @@ def main() -> int:
         Engine, ModelConfig, Qwen3, is_hopper)
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_reference)
+        _launch_bwd, flash_attention, flash_attention_backward,
+        flash_attention_backward_reference, flash_attention_reference)
     from triton_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_reference,
         flash_decode_reference, gather_pages, quantize_kv)
@@ -535,6 +757,56 @@ def main() -> int:
                     raise AssertionError("matmul_w8a8 differs from its plain "
                                          "version")
 
+    # K4 (dq) and K5 (dk, dv): the flash backward on K1's out and lse and a
+    # random cotangent, against the plain version on the same inputs, held
+    # row by row (`check_rows`; under the causal mask dk and dv shrink
+    # along the keys, so a bound on the tensor's maximum is loose for late
+    # keys): tol 2e-2, rel_l2 1e-2 and floor 0.1 in bf16 (p and ds are
+    # rounded to bf16 before their products, as in the TPU kernels, and
+    # the outputs to bf16; the kernels need about 8.5e-3 and 2.4e-3); 1e-4,
+    # 1e-5 and floor 1 in f32 (a zero row's cancelled ds is off by the f32
+    # rounding of dp, about 1e-5 of rms(dq)).
+    print("[kernels vs plain] flash backward: |err| <= tol * (|ref| + "
+          "rms_row(ref) + floor * rms(ref)) and rel_l2 bound; bf16 tol "
+          "2e-2, rel_l2 1e-2, floor 0.1; f32 tol 1e-4, rel_l2 1e-5, floor 1")
+
+    def bwd_case(label, dtype, b, h, hkv, sq, sk, off):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+                       for shape in ((b, h, sq, 128), (b, hkv, sk, 128),
+                                     (b, hkv, sk, 128), (b, h, sq, 128)))
+        out, lse = flash_attention(q, k, v, kv_offset=off, return_lse=True)
+        got = flash_attention_backward(q, k, v, out, lse, do, kv_offset=off)
+        ref = flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+            kv_offset=off)
+        torch.cuda.synchronize()
+        tols = (2e-2, 1e-2, 0.1) if dtype == torch.bfloat16 else (1e-4, 1e-5,
+                                                                  1.0)
+        for nm, key, g_, r_ in zip(("dq", "dk", "dv"),
+                                   ("flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv",
+                                    "flash_attention_bwd_dkv"), got, ref):
+            if not bool(g_.isfinite().all()):
+                raise AssertionError(f"flash backward {label} {nm}: "
+                                     "non-finite")
+            e = check_rows(f"flash_attention_backward {label} {nm}", g_, r_,
+                           *tols)
+            errs[key] = max(errs[key], e)
+        return q, k, v, out, lse, do
+
+    bwd_timed = [
+        ("4x32/8x512x128", bwd_case("training 4x32/8x512x128 causal bf16",
+                                    torch.bfloat16, 4, 32, 8, 512, 512, 0)),
+        ("1x32/8x2048x128", bwd_case("bucket 1x32/8x2048x128 causal bf16",
+                                     torch.bfloat16, 1, 32, 8, 2048, 2048,
+                                     0)),
+    ]
+    bwd_case("ragged Sq=Sk=300 causal f32", torch.float32, 2, 8, 2, 300, 300,
+             0)
+    bwd_case("kv_offset=-70 Sq=Sk=200 causal f32 (rows 0-69 fully masked)",
+             torch.float32, 1, 8, 2, 200, 200, -70)
+
     # -- 4. Engine path -------------------------------------------------
     cfg = ModelConfig.qwen3_8b()
     t0 = time.perf_counter()
@@ -554,18 +826,19 @@ def main() -> int:
     wrappers = {"flash_attention": flash_attention,
                 "flash_decode": flash_decode,
                 "flash_decode_paged": flash_decode_paged,
-                "matmul_w8a8": matmul_w8a8}
+                "matmul_w8a8": matmul_w8a8,
+                "flash_attention_bwd": flash_attention_backward}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
         """Run ``fn`` with every kernel's launch count set to 0 just before
         it, add the counts read just after to the totals of the main
         paths, and return them."""
-        for lib, attr in KERNELS.values():
+        for lib, attr, _ in KERNELS.values():
             setattr(wrappers[lib], attr, 0)
         fn()
         got = {nm: getattr(wrappers[lib], attr)
-               for nm, (lib, attr) in KERNELS.items()}
+               for nm, (lib, attr, _) in KERNELS.items()}
         for nm, n in got.items():
             total_launches[nm] += n
         return got
@@ -1061,18 +1334,51 @@ def main() -> int:
                   f"(cuBLAS) {time_ms(lambda: mlp_f(x), 10):.4f} ms; {card}")
     del mlp_f, mlp_q, qparams, w8, w8_rows
 
-    kernels = []
-    for nm, ms, plain, bms, by, lib in records:
-        src, repl = KERNEL_SOURCES[KERNELS[nm][0]]
-        print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
-              f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, library "
-              f"{lib:.4f} ms; launches on the main paths "
-              f"{total_launches[nm]}; {card}")
-        kernels.append({"name": nm, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": total_launches[nm],
-                        "max_abs_err": errs[nm], "ms": ms,
-                        "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib})
+    # K4 (with its delta prologue) and K5 (reading K4's delta) each alone,
+    # and the wrapper's pair, at both training shapes.  The plain version
+    # and the yardstick, SDPA's backward (causal, GQA; its forward run
+    # beforehand), compute dq, dk and dv together, so the records of K4 and
+    # K5 carry the pair's time beside them and say so.  The record is the
+    # 4x512 shape.
+    for label, (q, k, v, out, lse, do) in bwd_timed:
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        delta = torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        k4 = time_ms(lambda: _launch_bwd(
+            "dq", (q, k, v, do, out, lse, None, delta, dq), True, 0,
+            d ** -0.5), 20)
+        k5 = time_ms(lambda: _launch_bwd(
+            "dkv", (q, k, v, do, lse, delta, dk, dv), True, 0, d ** -0.5),
+            20)
+        pair = time_ms(lambda: flash_attention_backward(q, k, v, out, lse,
+                                                        do), 20)
+        plain = time_ms(lambda: flash_attention_backward_reference(
+            q, k, v, out, lse, do), 2, warmup=1)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=True)
+        lib = time_ms(lambda: torch.autograd.grad(o, leaves, do,
+                                                  retain_graph=True), 20)
+        flops = 2 * b * h * attention_pairs(sq, sk, True, 0) * d
+        io = nbytes(q, k, v, do, lse, delta)
+        b4, by4 = bound(io + nbytes(out, dq), 3 * flops)
+        b5, by5 = bound(io + nbytes(dk, dv), 4 * flops)
+        print(f"[times] flash backward {label} causal bf16: K4 (dq) "
+              f"{k4:.4f} ms (bound {b4:.4f} ms by {by4}, {b4 / k4:.1%} of "
+              f"bound); K5 (dk, dv) {k5:.4f} ms (bound {b5:.4f} ms by {by5}, "
+              f"{b5 / k5:.1%} of bound); delta + K4 + K5 {pair:.4f} ms; "
+              f"plain {plain:.4f} ms; SDPA backward {lib:.4f} ms; {card}")
+        if label.startswith("4x"):
+            whole = {"pair_ms": pair, "plain_and_library_compute":
+                     "dq, dk and dv together (the whole backward): compare "
+                     "them with pair_ms, delta + K4 + K5"}
+            records.append(("flash_attention_bwd_dq", k4, plain, b4, by4,
+                            lib, whole))
+            records.append(("flash_attention_bwd_dkv", k5, plain, b5, by5,
+                            lib, whole))
+        del o, leaves
+    del bwd_timed
 
     with torch.inference_mode():
         serve1 = sorted(wall_ms(lambda: engine.serve(prompts, 1, cache=cache))
@@ -1150,6 +1456,36 @@ def main() -> int:
         profile_phase(f"scheduler {label} x8",
                       lambda: [sched.step() for _ in range(8)], card)
 
+    # -- 9. training path ---------------------------------------------
+    # The serving phases are done: free their caches and schedulers, and
+    # let the training phase move the weights.
+    del kept, sched, cache, cache_q, c, mdl, model_q, engine_q, engine
+    del layers, layers_q, kc, vc, kq, vq, ksq, vsq
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[training path] device memory held before training: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (the bf16 "
+          f"weights: {n_params * 2 / 2**30:.2f} GiB)")
+    train_model_gradients(cfg, dev, card)
+    train_steps(model, cfg, prompts, counted, expect, short, dev, card)
+    del model
+
+    kernels = []
+    for nm, ms, plain, bms, by, lib, *extra in records:
+        lib_name, _, repl = KERNELS[nm]
+        extra = extra[0] if extra else {}
+        pair = (f" (pair {extra['pair_ms']:.4f} ms; plain and library are "
+                "the whole backward)" if extra else "")
+        print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
+              f"{bms / ms:.1%} of bound){pair}, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms; launches on the main paths "
+              f"{total_launches[nm]}; {card}")
+        kernels.append({"name": nm, "route": "cuda",
+                        "source": KERNEL_SOURCES[lib_name],
+                        "replaces": repl, "launches": total_launches[nm],
+                        "max_abs_err": errs[nm], "ms": ms,
+                        "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib, **extra})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,14 +8,23 @@ Tolerances: bf16 out atol=rtol=1e-2 (about one bf16 ulp at magnitude 1:
 the kernel rounds its f32 result to bf16), f32 out 1e-4 (order of the
 sums, exp2 against exp), lse 1e-3 (f32 on both sides).  The int8 GEMM
 is held bit for bit: int32 accumulation is exact and the epilogue
-multiplies in the plain version's order.
+multiplies in the plain version's order.  The flash backward (K4/K5) is
+held row by row, since under the causal mask dk and dv shrink along the
+keys: |got - ref| <= tol * (|ref| + rms(ref's row) + floor * rms(ref))
+(the last term for rows whose exact value is zero, where ds cancels) and
+rel_l2 <= rel_tol per output; tol 2e-2, rel_tol 1e-2 and floor 0.1 in
+bf16 (p and ds are rounded to bf16 before their products, as in the TPU
+kernels, and the outputs to bf16; the kernels need about 1.0e-2 and
+2.4e-3 on an H100), 1e-4, 1e-5 and floor 1 in f32.
 """
 
 import pytest
 import torch
 
 from triton_distributed_tpu_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_diff,
+    flash_attention_reference)
 from triton_distributed_tpu_torch.kernels.flash_decode import (
     flash_decode, flash_decode_paged, flash_decode_paged_reference,
     flash_decode_reference, gather_pages, quantize_kv)
@@ -138,6 +147,148 @@ def test_flash_decode_paged_kernel(cuda, dtype, d, group, page_size):
     torch.testing.assert_close(out.float(), ref, **OUT_TOL[dtype])
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
     assert torch.equal(out, dense) and torch.equal(lse, dense_lse)
+
+
+BWD_TOL = {torch.bfloat16: (2e-2, 1e-2, 0.1),
+           torch.float32: (1e-4, 1e-5, 1.0)}
+
+
+def _assert_rows_close(name, got, ref, tol, rel_tol, floor):
+    err = (got.float() - ref).abs()
+    row = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = floor * ref.pow(2).mean().sqrt()
+    ratio = float((err / (ref.abs() + row + floor).clamp_min(
+        torch.finfo(torch.float32).tiny)).max())
+    rel = float(err.norm() / ref.norm())
+    assert ratio <= tol and rel <= rel_tol, (
+        f"{name}: max err/(|ref| + rms_row + floor*rms) {ratio:.3e}, rel_l2 "
+        f"{rel:.3e}")
+
+
+def _bwd_inputs(cuda, dtype, b, h, hkv, sq, sk, d, causal, kv_offset, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = _randn(gen, dtype, cuda, b, h, sq, d)
+    k = _randn(gen, dtype, cuda, b, hkv, sk, d)
+    v = _randn(gen, dtype, cuda, b, hkv, sk, d)
+    do = _randn(gen, dtype, cuda, b, h, sq, d)
+    out, lse = flash_attention(q, k, v, causal=causal, kv_offset=kv_offset,
+                               return_lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,causal,kv_offset",
+    [
+        (2, 8, 8, 128, 128, True, 0),
+        (1, 8, 4, 100, 100, True, 0),       # ragged, group 2
+        (2, 8, 2, 64, 192, True, 128),      # kv_offset, group 4
+        (1, 4, 1, 77, 150, False, 0),       # non-causal, ragged both
+        (1, 4, 2, 65, 65, True, 0),         # one row past a tile
+        (1, 8, 2, 130, 130, True, -70),     # fully masked rows 0..69
+    ])
+def test_flash_backward_kernels(cuda, dtype, d, b, h, hkv, sq, sk, causal,
+                                kv_offset):
+    """K4/K5 against the plain version on the same inputs (the forward's
+    out and lse from K1), a nonzero lse cotangent included; fully masked
+    rows get exactly zero dq; two runs are bit-identical; the pair counts
+    one launch, K4 and K5 one each."""
+    q, k, v, out, lse, do = _bwd_inputs(cuda, dtype, b, h, hkv, sq, sk, d,
+                                        causal, kv_offset, sq * 7 + sk + d)
+    dlse = torch.randn(lse.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(5))
+    counts = (flash_attention_backward.launches,
+              flash_attention_backward.dq_launches,
+              flash_attention_backward.dkv_launches)
+    got = flash_attention_backward(q, k, v, out, lse, do, dlse,
+                                   causal=causal, kv_offset=kv_offset)
+    assert (flash_attention_backward.launches,
+            flash_attention_backward.dq_launches,
+            flash_attention_backward.dkv_launches) == tuple(
+                n + 1 for n in counts)
+    again = flash_attention_backward(q, k, v, out, lse, do, dlse,
+                                     causal=causal, kv_offset=kv_offset)
+    ref = flash_attention_backward_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(), dlse,
+        causal=causal, kv_offset=kv_offset)
+    torch.cuda.synchronize()
+    for name, g, a, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert torch.equal(g, a), f"{name}: two runs differ"
+        assert bool(g.isfinite().all()), name
+        _assert_rows_close(name, g, r, *BWD_TOL[dtype])
+    if kv_offset < 0:
+        dead = lse <= -1e29
+        assert bool(dead.any())
+        assert bool((got[0][dead] == 0).all())
+
+
+def test_flash_attention_diff_launches(cuda):
+    """Under autograd: K1 once in the forward, K4/K5 once in the backward,
+    the gradients those of `flash_attention_backward` bit for bit; without
+    a gradient, K1 alone."""
+    q, k, v, _, _, do = _bwd_inputs(cuda, torch.bfloat16, 2, 8, 2, 96, 96,
+                                    128, True, 0, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    out, lse = flash_attention_diff(*leaves, return_lse=True)
+    assert (flash_attention.launches, flash_attention_backward.launches) == (
+        f0 + 1, b0)
+    # The cotangent arrives non-contiguous, as through the layer's reshape.
+    grads = torch.autograd.grad(out, leaves,
+                                do.transpose(2, 3).contiguous()
+                                .transpose(2, 3))
+    assert flash_attention_backward.launches == b0 + 1
+    want = flash_attention_backward(q, k, v, out.detach(), lse.detach(),
+                                    do.contiguous())
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        flash_attention_diff(*leaves)
+    assert flash_attention.launches == f0 + 2
+    assert flash_attention_backward.launches == b0 + 2
+
+
+def test_tiny_model_grads_gpu_match_cpu(cuda):
+    """The training path on the card (K1, K4, K5, cuBLAS in f32) against
+    the CPU (plain versions): every parameter's gradient of a last-position
+    cross-entropy within 1e-4 relative L2, one K4/K5 pair per layer."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch import ModelConfig, Qwen3
+
+    cfg = ModelConfig.tiny(dtype="float32", head_dim=64)
+    cpu = Qwen3(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Qwen3(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    targets = torch.tensor([3, 200])
+    before = flash_attention_backward.launches
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        model.requires_grad_(True)
+        F.cross_entropy(model(ids.to(dev)), targets.to(dev)).backward()
+    assert flash_attention_backward.launches == before + cfg.num_layers
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        rel = float((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm())
+        assert rel <= 1e-4, f"{name}: rel_l2 {rel:.3e}"
+
+
+def test_flash_backward_rejects_unsupported_inputs(cuda):
+    q, k, v, out, lse, do = _bwd_inputs(cuda, torch.bfloat16, 1, 2, 2, 64,
+                                        64, 64, True, 0, 9)
+    with pytest.raises(ValueError, match="do must be"):
+        flash_attention_backward(q, k, v, out, lse,
+                                 do.transpose(2, 3).contiguous()
+                                 .transpose(2, 3))
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_backward(q, k, v, out, lse.double(), do)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_backward(*(t[..., :32].contiguous()
+                                   for t in (q, k, v, out)), lse,
+                                 do[..., :32].contiguous())
 
 
 def test_kernels_reject_unsupported_inputs(cuda):

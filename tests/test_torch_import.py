@@ -46,6 +46,27 @@ def test_imports_without_jax():
     assert int(res.stdout.strip()) >= 21
 
 
+def test_training_path_runs_without_jax():
+    """The training path (the flash backward's plain version and the
+    differentiable Qwen3 forward) imports and runs with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch import ModelConfig, Qwen3\n"
+        "from triton_distributed_tpu_torch.kernels.flash_attention import (\n"
+        "    flash_attention_backward, flash_attention_diff)\n"
+        "m = Qwen3(ModelConfig.tiny(dtype='float32'), device='cpu')\n"
+        "m.init_params(torch.Generator().manual_seed(0)).requires_grad_(True)\n"
+        "m(torch.zeros(1, 8, dtype=torch.long)).sum().backward()\n"
+        "print(sum(p.grad is not None for p in m.parameters()))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) == 2 * 8 + 2
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):

@@ -55,72 +55,20 @@ namespace {
 
 using tdt::LN2;
 using tdt::NEG_INF;
-using tdt::cp_async16;
 using tdt::cp_async_commit;
 using tdt::cp_async_wait;
-using tdt::smem_addr;
+using tdt::ldsm_x4;
+using tdt::ldsm_x4_trans;
+using tdt::mma_bf16;
+using tdt::pack_bf16;
 using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
 
-// Number of K/V tiles a block of query rows [q0, q0 + BQ) must visit.
-__device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal,
-                                        int kv_offset) {
-  if (!causal) return (Sk + BK - 1) / BK;
-  const int last_q = min(q0 + BQ, Sq) - 1;
-  const int last_k = min(last_q + kv_offset, Sk - 1);
-  return last_k < 0 ? 0 : last_k / BK + 1;
-}
-
 // ---- bf16: tensor cores ---------------------------------------------------
 
 constexpr int MMA_NT = 128;  // 4 warps x 16 query rows
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row-major fragment) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// Rows [r0, r0 + 64) of a (n, D) bf16 matrix into a padded shared tile by
-// cp.async; rows at or past n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16 (*dst)[D + 8],
-                                                const bf16* src, int r0,
-                                                int n, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < 64 * CH; c += MMA_NT) {
-    const int r = c / CH, ch = c % CH;
-    const bool ok = r0 + r < n;
-    cp_async16(&dst[r][ch * 8], src + (size_t)(ok ? r0 + r : 0) * D + ch * 8,
-               ok);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(
@@ -151,7 +99,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(
   const bf16* vp = v + (size_t)(b * Hkv + hk) * Sk * D;
 
   // Q: device memory -> Ks -> A fragments in registers.
-  load_tile_async<D>(Ks, qp, q0, Sq, tid);
+  tdt::load_tile_async<D, MMA_NT>(Ks, qp, q0, Sq, tid);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -160,7 +108,7 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(
   for (int kk = 0; kk < KS; ++kk)
     ldsm_x4(qf[kk], &Ks[warp * 16 + lr][kk * 16 + lc]);
 
-  const int n_kt = kv_tiles(q0, Sq, Sk, causal, kv_offset);
+  const int n_kt = tdt::kv_tiles<BQ, BK>(q0, Sq, Sk, causal, kv_offset);
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -171,9 +119,9 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_bf16_kernel(
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done reading Ks / Vs
-    load_tile_async<D>(Ks, kp, k0, Sk, tid);
+    tdt::load_tile_async<D, MMA_NT>(Ks, kp, k0, Sk, tid);
     cp_async_commit();
-    load_tile_async<D>(Vs, vp, k0, Sk, tid);
+    tdt::load_tile_async<D, MMA_NT>(Vs, vp, k0, Sk, tid);
     cp_async_commit();
     cp_async_wait<1>();  // K has landed; V may still be in flight
     __syncthreads();
@@ -345,7 +293,7 @@ __global__ void __launch_bounds__(F32_NT) flash_fwd_f32_kernel(
     for (int i = 0; i < 8; ++i) Qs[(dc * 8 + i) * BQ + r] = f[i] * qscale;
   }
 
-  const int n_kt = kv_tiles(q0, Sq, Sk, causal, kv_offset);
+  const int n_kt = tdt::kv_tiles<BQ, BK>(q0, Sq, Sk, causal, kv_offset);
 
   float m[4], l[4], acc[4][4 * NG];
 #pragma unroll

@@ -1,13 +1,19 @@
-"""Flash attention forward (prefill): causal GQA attention with an
-optional ``kv_offset`` shift of the diagonal and a natural-log lse.
+"""Flash attention for prefill and training: causal GQA attention with an
+optional ``kv_offset`` shift of the diagonal and a natural-log lse, and its
+backward.
 
-Port of `triton_distributed_tpu/kernels/flash_attention.py`
+Port of `triton_distributed_tpu/kernels/flash_attention.py`.  The forward
 `flash_attention` (its three Pallas kernels `_flash_kernel_single_diag`,
-`_flash_kernel_packed` and `_flash_kernel` are schedules of one function;
-one hand-written CUDA kernel, ``csrc/flash_attention.cu``, computes it).
+`_flash_kernel_packed` and `_flash_kernel` are schedules of one function)
+is one hand-written CUDA kernel, K1 (``csrc/flash_attention.cu``).  The
+backward `flash_attention_backward` (`_flash_backward`: `_flash_bwd_dq_kernel`
+and `_flash_bwd_dkv_kernel`) is two, K4 (dq) and K5 (dk, dv), in
+``csrc/flash_attention_bwd.cu``; `flash_attention_diff` joins them in a
+`torch.autograd.Function`.
 
-On a CUDA tensor `flash_attention` launches that kernel or raises; on a
-CPU tensor it computes the plain version, `flash_attention_reference`.
+On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
+tensor it computes the plain version (`flash_attention_reference`,
+`flash_attention_backward_reference`).
 """
 
 from __future__ import annotations
@@ -21,12 +27,20 @@ import torch
 from triton_distributed_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
+LN2 = 0.6931471805599453
+#: lse at or below this marks a fully masked row (the JAX kernels' test).
+LSE_DEAD = NEG_INF * (LN2 / 2)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, ctypes.c_float, _P],
+                            _I, _I, _I, _F, _P],
+}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd_dq": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
 }
 
 
@@ -113,3 +127,158 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: dtype {q.dtype} not in "
                          "(bfloat16, float32)")
     return b, h, sq, d
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, dlse=None, *,
+                                       causal: bool = True,
+                                       scale: Optional[float] = None,
+                                       kv_offset: int = 0):
+    """The plain version of the backward, in f32, with the JAX package's
+    contract (`_flash_backward`): delta = rowsum(do * out) - dlse,
+    p = exp(s - lse) (0 on the rows whose lse is at the fully masked
+    sentinel, and on masked columns), ds = p * (do v^T - delta),
+    dq = scale ds k, dk = scale ds^T q, dv = p^T do, dk/dv summed over each
+    GQA group.  Returns (dq, dk, dv) in q's, k's and v's dtypes.
+
+    Not autograd through `flash_attention_reference`: that gives a fully
+    masked row a uniform softmax, whose gradient would leak."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    live = (lse > LSE_DEAD)[..., None]                      # (b, h, sq, 1)
+    delta = (dof * out.float()).sum(-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    keep = live
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None] + kv_offset
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        keep = keep & (kpos <= qpos)
+    p = torch.where(keep, torch.exp(torch.clamp(s - lse[..., None], max=0.0)),
+                    0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    # A select, not a product: delta is NaN on a dead row whose out is.
+    ds = torch.where(live, p * (dp - delta[..., None]), 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, hkv, group, sk, d).sum(2)
+    dv = dv.reshape(b, hkv, group, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward(q, k, v, out, lse, do, dlse=None, *,
+                             causal: bool = True,
+                             scale: Optional[float] = None,
+                             kv_offset: int = 0):
+    """Gradients (dq, dk, dv) of `flash_attention`'s (out, lse) for the
+    cotangents ``do`` (like out) and ``dlse`` (like lse, or None).  ``out``
+    and ``lse`` are the forward's.  K4 forms delta = rowsum(do * out) -
+    dlse (XLA code in the JAX package) in its prologue and computes dq; K5
+    reads that delta and computes dk, dv.  K4 adds one to
+    ``flash_attention_backward.dq_launches``, K5 one to ``.dkv_launches``,
+    and the pair one to ``.launches``.  The kernels take what K1 takes
+    (contiguous bf16 or f32, D in {64, 128}; lse, dlse f32); anything else
+    raises."""
+    kv_offset = operator.index(kv_offset)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, out, lse, do, dlse, causal=causal, scale=scale,
+            kv_offset=kv_offset)
+    b, h, sq, d = _check(q, k, v)
+    for name, t in (("out", out), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_backward: {name} must be a "
+                             f"contiguous {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is not None and (t.shape != (b, h, sq)
+                              or t.dtype != torch.float32
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_backward: {name} must be a "
+                             f"contiguous f32 {(b, h, sq)} on {q.device}")
+    scale = scale if scale is not None else d ** -0.5
+    delta = torch.empty_like(lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch_bwd("dq", (q, k, v, do, out, lse, dlse, delta, dq), causal,
+                kv_offset, scale)
+    flash_attention_backward.dq_launches += 1
+    _launch_bwd("dkv", (q, k, v, do, lse, delta, dk, dv), causal, kv_offset,
+                scale)
+    flash_attention_backward.dkv_launches += 1
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.dq_launches = 0
+flash_attention_backward.dkv_launches = 0
+
+
+def _launch_bwd(which, tensors, causal, kv_offset, scale):
+    """Launch K4 (``which="dq"``; tensors q, k, v, do, out, lse, dlse or
+    None, delta (written), dq) or K5 (``"dkv"``; q, k, v, do, lse, delta,
+    dk, dv) on checked CUDA tensors; counts nothing."""
+    q, k = tensors[:2]
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    lib = _build.load_library("flash_attention_bwd", _BWD_SIGNATURES)
+    rc = getattr(lib, f"flash_attention_bwd_{which}")(
+        *(None if t is None else t.data_ptr() for t in tensors),
+        _build.DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, int(causal),
+        kv_offset, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, rc, f"flash_attention_bwd_{which} kernel launch")
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """K1 forward (out, lse); K4/K5 backward, the lse cotangent folded into
+    delta.  ``kv_offset``, ``causal`` and ``scale`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_offset, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_offset=kv_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, scale=scale, kv_offset=kv_offset)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        # The cotangent of out arrives through a transpose and reshape: make
+        # it contiguous for the kernels.
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        if dlse is not None:
+            dlse = dlse.contiguous()
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, dlse,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q, k, v, kv_offset: int = 0, *, causal: bool = True,
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
+    """Differentiable `flash_attention` (the training path; JAX
+    `flash_attention_diff`): the same forward, K1, with K4/K5 as its
+    backward.  With ``return_lse`` the lse is differentiable too (its
+    cotangent folds into delta).  When no gradient is needed (grad mode
+    off, or no input requires one) this is `flash_attention` itself and
+    saves nothing.  JAX's ``block_q``/``block_k`` are TPU tiling knobs and
+    have no counterpart here.  Returns (B, H, Sq, D) [, lse (B, H, Sq)]."""
+    kv_offset = operator.index(kv_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttentionFn.apply(q, k, v, kv_offset, causal, scale)
+    else:
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   kv_offset=kv_offset, return_lse=True)
+    return (out, lse) if return_lse else out

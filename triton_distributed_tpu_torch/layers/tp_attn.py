@@ -4,6 +4,9 @@
 Fused QKV projection, Qwen3 per-head q/k RMSNorm, RoPE, then the flash
 attention kernel for prefill or a flash-decode kernel (dense cache or
 paged pool, float or int8) for decode, then the output projection.
+Prefill is differentiable (`flash_attention_diff`: K1 forward, K4/K5
+backward) when a gradient is needed; the weights are created frozen, and
+training turns them on with ``Module.requires_grad_(True)``.
 Prefill attends over its float K/V and never reads the cache, so an int8
 cache changes decode only.  At world 1 the JAX package's AllGather-GEMM and
 GEMM-ReduceScatter reduce to plain products (`allgather_gemm.py:304-315`,
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from triton_distributed_tpu_torch.kernels.flash_attention import (
-    flash_attention)
+    flash_attention_diff)
 from triton_distributed_tpu_torch.kernels.flash_decode import (
     flash_decode, flash_decode_paged, write_kv)
 
@@ -37,8 +40,8 @@ def normal_init_(t: torch.Tensor, generator: torch.Generator,
 
 
 def weight(*shape, dtype, device) -> nn.Parameter:
-    """An uninitialised inference weight (filled by `init_params` or
-    `load_jax_params`)."""
+    """An uninitialised weight (filled by `init_params` or
+    `load_jax_params`), frozen until ``requires_grad_(True)``."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -122,7 +125,8 @@ class TPAttention(nn.Module):
 
     def prefill(self, x, batch: int):
         """x: (B*S, hidden).  Returns (out (B*S, hidden), (k, v)) with k/v
-        (B, Hkv, S, D) for the cache."""
+        (B, Hkv, S, D) for the cache.  Differentiable; without a gradient
+        to compute it launches K1 alone and saves nothing."""
         m = x.shape[0]
         seq = m // batch
         q, k, v = self._qkv_heads(x, batch, seq)
@@ -131,7 +135,7 @@ class TPAttention(nn.Module):
         q = apply_rope(q, cos, sin).contiguous()
         k = apply_rope(k, cos, sin).contiguous()
         v = v.contiguous()
-        attn = flash_attention(q, k, v, causal=True)
+        attn = flash_attention_diff(q, k, v, causal=True)
         attn = attn.transpose(1, 2).reshape(m, -1)
         return torch.matmul(attn, self.wo), (k, v)
 

@@ -5,8 +5,12 @@ same plain products (the JAX package's AllGather-GEMM and
 GEMM-ReduceScatter reduce to dots there).  The ``w8a8`` mode holds int8
 weights with per-output-channel scales (`TPMLP.quantize_params`) and runs
 both projections on the int8 GEMM kernel (`kernels.quantized.matmul_w8a8`),
-with the activations quantized per row on the fly.  The ``fused_ar`` mode
-and multi-GPU tensor parallelism are not ported yet."""
+with the activations quantized per row on the fly.  The ``xla`` and
+``fused`` modes differentiate through ``torch.matmul`` (at world 1 the JAX
+package's `ag_gemm_diff`/`gemm_rs_diff` are dots); ``w8a8`` has no
+backward and refuses a gradient, as the JAX layer's ``training`` assert
+does.  The ``fused_ar`` mode and multi-GPU tensor parallelism are not
+ported yet."""
 
 from __future__ import annotations
 
@@ -126,6 +130,10 @@ class TPMLP(nn.Module):
 
     def forward(self, x):
         if self.mode == "w8a8":
+            if torch.is_grad_enabled() and x.requires_grad:
+                raise NotImplementedError(
+                    "TPMLP(mode='w8a8') has no backward: training runs the "
+                    "'xla' or 'fused' mode")
             return mlp_w8a8(x, *(getattr(self, n) for n in QUANTIZED))
         return torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
                             self.down)

@@ -16,6 +16,13 @@ loading HF checkpoints are not ported yet.
 The engine contract the serving stack drives: `create_cache`,
 `create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
 `decode_paged(tokens, cache)`; each updates its cache in place.
+
+Training: ``model(ids)`` (`forward`) is the differentiable prefill without
+a cache (JAX: ``prefill_shard(params, ids, None)``), returning the f32
+last-position logits; ``model.requires_grad_(True)`` turns on the
+gradients of the (frozen by default) weights, and `to_jax_params` turns
+the parameters or their gradients back into the JAX pytree layout.  The
+package has no optimizer: a caller takes its own steps.
 """
 
 from __future__ import annotations
@@ -37,8 +44,13 @@ from triton_distributed_tpu_torch.utils.platform import resolve_device
 
 def dot_f32(a, b):
     """a @ b with an f32 result (the JAX package's
-    ``preferred_element_type=jnp.float32``) without widening ``b``."""
-    if a.dtype != torch.float32 and a.is_cuda:
+    ``preferred_element_type=jnp.float32``).  Without a gradient to compute
+    it does not widen ``b``; with one it multiplies f32 copies (the
+    products of bf16 values are exact in f32, so only the order of the sums
+    differs), whose backward is plain autograd."""
+    needs_grad = torch.is_grad_enabled() and (a.requires_grad
+                                              or b.requires_grad)
+    if a.dtype != torch.float32 and a.is_cuda and not needs_grad:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
 
@@ -150,6 +162,36 @@ class Qwen3(nn.Module):
             put(self.lm_head_w, tree["lm_head"])
         return self
 
+    def to_jax_params(self, grad: bool = False):
+        """The inverse of `load_jax_params`: this module's parameters (or,
+        with ``grad``, their ``.grad``s, zeros where there is none) as the
+        JAX package's pytree of f32 numpy arrays.  With tied embeddings the
+        parameter tree's ``lm_head`` is ``embed.T``; the gradient tree has
+        no ``lm_head``, because the one tensor's gradient (the gather's and
+        the head's together) is under ``embed``."""
+        def get(t):
+            if grad:
+                t = t.grad if t.grad is not None else torch.zeros_like(t)
+            return t.detach().float().cpu().numpy()
+
+        layers = []
+        for layer in self.layers:
+            attn = {"wqkv": get(layer.attn.wqkv), "wo": get(layer.attn.wo)}
+            if self.config.qk_norm:
+                attn["q_norm"] = get(layer.attn.q_norm)
+                attn["k_norm"] = get(layer.attn.k_norm)
+            layers.append({"ln1": get(layer.ln1), "ln2": get(layer.ln2),
+                           "attn": attn,
+                           "mlp": {"gate_up": get(layer.mlp.gate_up),
+                                   "down": get(layer.mlp.down)}})
+        tree = {"embed": get(self.embed), "layers": layers,
+                "ln_f": get(self.ln_f)}
+        if not self.config.tie_word_embeddings:
+            tree["lm_head"] = get(self.lm_head_w)
+        elif not grad:
+            tree["lm_head"] = tree["embed"].T
+        return tree
+
     def create_cache(self, batch: int, max_seq: Optional[int] = None):
         cfg = self.config
         return KVCache.create(cfg.num_layers, batch, cfg.num_kv_heads,
@@ -166,11 +208,20 @@ class Qwen3(nn.Module):
             cfg.head_dim, max_pages_per_seq, self.dtype, device=self.device,
             quantized=cfg.quantize_kv_cache)
 
+    def forward(self, input_ids):
+        """The differentiable prefill: input_ids (B, S) -> f32 logits
+        (B, V) of the last position, with no cache.  (JAX:
+        `Qwen3.prefill_shard(params, ids, None)`.)"""
+        return self._prefill(input_ids, None)
+
     @torch.inference_mode()
     def prefill(self, input_ids, cache: Optional[KVCache]):
         """input_ids: (B, S).  Writes positions [0, S) of ``cache`` in
         place and sets its offset to S.  Returns f32 logits (B, V) of the
         last position.  (JAX: `Qwen3.make_prefill_fn`.)"""
+        return self._prefill(input_ids, cache)
+
+    def _prefill(self, input_ids, cache: Optional[KVCache]):
         b, s = input_ids.shape
         x = self.embed[input_ids.long()].reshape(b * s, -1)
         for li, layer in enumerate(self.layers):
