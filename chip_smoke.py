@@ -17,7 +17,12 @@ non-zero):
    bit against its exact plain version at the Qwen3-8B MLP shapes; the
    flash backward (K4 dq, K5 dk/dv) at the training shapes in bf16 and
    on ragged and negative-offset cases in f32, each output held row by
-   row and in relative L2;
+   row and in relative L2; the grouped GEMM (K8) at the Qwen3-30B-A3B
+   expert shapes (prefill and decode buckets) and on ragged and f32
+   cases, and the matmul (K6) through ``ag_gemm(method="fused" | "ll")``
+   at the Qwen3-8B MLP shape, row by row; the int8 grouped GEMM (K9) bit
+   for bit against its exact plain version on `MoEMLP.quantize_params`
+   output;
 4. Engine path: Qwen3-8B at full width and depth with seeded random bf16
    weights; ``Engine.serve`` answers 4 requests of 512 prompt tokens with
    32 greedy tokens each, with the kernel launch counts checked, then a
@@ -35,7 +40,8 @@ non-zero):
    wall time, generated and prompt tokens/s, decode ms per step;
 6. W8A8 layer path: ``TPMLP(4096, 12288, mode="w8a8")`` at 2048 and 8
    rows against its plain version and against the bf16 ``xla`` layer on
-   the float weights;
+   the float weights; then ``ag_gemm(method="fused" | "ll")`` at world 1
+   (K6) at 2048 and 8 rows against the "xla" method;
 7. times: each kernel, its bound, its plain version and the PyTorch
    library call for the same function, then prefill and decode times,
    int8 against float decode in alternating windows;
@@ -51,7 +57,19 @@ non-zero):
    512 tokens (cross-entropy of the last position's logits against seeded
    targets): loss, ms per forward+backward, tokens/s, peak memory, exact
    K1/K4/K5 launches per step, finite gradients, a falling loss; one
-   traced training step.
+   traced training step;
+10. MoE path (the 8B model freed first): a 2-layer f32 model of
+   Qwen3-30B-A3B's widths, card (kernels) against CPU (plain versions):
+   logits per sequence and every token's top-8 expert set; then
+   Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, 8 a
+   token) with seeded random bf16 weights: ``Engine.serve`` of 4 x 512
+   prompt tokens to 32 greedy tokens with exact K1/K2/K8 launches;
+   teacher forcing of decode against prefill with the router's choices
+   compared (flips and capacity drops counted, the clean positions held);
+   phase 5's traffic through both scheduler layouts with equal tokens;
+   layer 0's experts quantized and run on K9 against the bf16 layer; K8
+   and K9 times on layer 0's weights; prefill, decode, tokens/s, peak
+   memory and profiles.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -80,29 +98,41 @@ PEAK_INT8_OPS = 1979e12
 KERNEL_SOURCES = {
     lib: f"triton_distributed_tpu_torch/kernels/csrc/{lib}.cu"
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
-                "matmul_w8a8", "flash_attention_bwd")}
+                "matmul_w8a8", "flash_attention_bwd", "grouped_matmul",
+                "grouped_matmul_w8a8")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
-#: wrapper's launch counter, the TPU kernel it replaces).  The int8 decode
-#: kernels (K2q, K3q) are the float ones' libraries with an int8 cache;
-#: their wrappers count them apart.  K4 and K5 launch as a pair from one
-#: wrapper, which counts each kernel apart (and the pair in ``launches``).
+#: wrapper that launches it, the wrapper's launch counter, the TPU kernel
+#: it replaces).  The int8 decode kernels (K2q, K3q) are the float ones'
+#: libraries with an int8 cache; their wrappers count them apart.  K4 and
+#: K5 launch as a pair from one wrapper, which counts each kernel apart (and
+#: the pair in ``launches``).  K6 is K8's library with one group, launched
+#: and counted by its own wrapper, `matmul`.
 KERNELS = {
-    "flash_attention": ("flash_attention", "launches",
+    "flash_attention": ("flash_attention", "flash_attention", "launches",
                         _TPU + "flash_attention.py:564"),
-    "flash_decode": ("flash_decode", "launches", _TPU + "flash_decode.py:195"),
-    "flash_decode_paged": ("flash_decode_paged", "launches",
-                           _TPU + "flash_decode.py:310"),
-    "flash_decode_int8": ("flash_decode", "int8_launches",
+    "flash_decode": ("flash_decode", "flash_decode", "launches",
+                     _TPU + "flash_decode.py:195"),
+    "flash_decode_paged": ("flash_decode_paged", "flash_decode_paged",
+                           "launches", _TPU + "flash_decode.py:310"),
+    "flash_decode_int8": ("flash_decode", "flash_decode", "int8_launches",
                           _TPU + "flash_decode.py:195"),
-    "flash_decode_paged_int8": ("flash_decode_paged", "int8_launches",
-                                _TPU + "flash_decode.py:310"),
-    "matmul_w8a8": ("matmul_w8a8", "launches", _TPU + "quantized.py:120"),
-    "flash_attention_bwd_dq": ("flash_attention_bwd", "dq_launches",
+    "flash_decode_paged_int8": ("flash_decode_paged", "flash_decode_paged",
+                                "int8_launches", _TPU + "flash_decode.py:310"),
+    "matmul_w8a8": ("matmul_w8a8", "matmul_w8a8", "launches",
+                    _TPU + "quantized.py:120"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               "flash_attention_backward", "dq_launches",
                                _TPU + "flash_attention.py:948"),
-    "flash_attention_bwd_dkv": ("flash_attention_bwd", "dkv_launches",
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                "flash_attention_backward", "dkv_launches",
                                 _TPU + "flash_attention.py:987"),
+    "matmul": ("grouped_matmul", "matmul", "launches", _TPU + "matmul.py:138"),
+    "grouped_matmul": ("grouped_matmul", "grouped_matmul", "launches",
+                       _TPU + "grouped_gemm.py:71"),
+    "grouped_matmul_w8a8": ("grouped_matmul_w8a8", "grouped_matmul_w8a8",
+                            "launches", _TPU + "grouped_gemm.py:266"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -126,6 +156,29 @@ K3_KV_LEN = (1, 15, 16, 17, 513, 1000, 1928, 2048)
 #: and of a decode batch of 8 slots (and a ragged count for K7's check).
 MLP_HIDDEN, MLP_FFN = 4096, 12288
 W8A8_ROWS = (2048, 8)
+
+#: Qwen3-30B-A3B as `ModelConfig` fields, from its published config
+#: (huggingface.co/Qwen/Qwen3-30B-A3B, config.json): hidden 2048, 48
+#: layers, 32 query and 4 KV heads of 128, 128 experts of 768 with 8 a
+#: token (renormalized, every layer sparse), vocabulary 151936, untied
+#: head.  The package has no preset for it, as the JAX package has none.
+#: Expert capacity is the port's (and the JAX package's) capacity padding
+#: with factor 2; the published model routes without a capacity.
+MOE_FIELDS = dict(
+    vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+    num_layers=48, num_heads=32, num_kv_heads=4, head_dim=128,
+    rms_norm_eps=1e-6, rope_theta=1e6, qk_norm=True,
+    tie_word_embeddings=False, max_seq_len=40960, num_experts=128,
+    num_experts_per_tok=8, moe_intermediate_size=768)
+#: `MoEMLP.capacity` of the Engine path's 4 x 512 prefill, of a decode
+#: batch of up to 8 rows, and of the latter in w8a8 (32-row alignment).
+MOE_PREFILL_CAP, MOE_DECODE_CAP, MOE_W8A8_DECODE_CAP = 256, 16, 32
+#: The MoE path's 2-layer f32 check, card against CPU: sequences x tokens,
+#: decode steps after the prefill, and the bound on each sequence's logits
+#: in relative L2 (f32 on both sides; only the order of the sums differs).
+MOE_CHECK_SHAPE, MOE_CHECK_STEPS, MOE_CHECK_REL_L2 = (2, 128), 2, 1e-4
+#: The int8 experts against the bf16 layer, relative L2 (as phase 6).
+MOE_W8A8_REL_L2 = 5e-2
 
 #: Device cycles (about 50 ms at the H100's 1.98 GHz boost clock) that the
 #: stream spins before a timed run.  Every timed run below is queued by the
@@ -192,7 +245,7 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 #: breakdown (first match wins); the port's own kernels first.
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
-                      "w8a8_kernel")),
+                      "w8a8_kernel", "grouped_bf16_", "grouped_f32_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("elementwise and reductions", ("elementwise", "reduce", "index",
                                     "embedding", "softmax", "cat")),
@@ -516,6 +569,478 @@ def train_steps(model, cfg, ids, counted, expect, short, dev,
         model, ids, targets).backward(), card, top=14)
 
 
+class RouterTap:
+    """Within a ``with`` block, records for every call of the given MoE
+    layers each token's top-k expert set (sorted) and its number of pairs
+    dropped by capacity, recomputed from the layer's input as the layer
+    routes it (forward pre-hooks), and the call's tokens per expert."""
+
+    def __init__(self, mlps):
+        self.mlps = list(mlps)
+        self.calls = []
+        self.counts = []
+        self._handles = []
+
+    def _hook(self, mlp, args):
+        from triton_distributed_tpu_torch.kernels.moe_utils import (
+            route_capacity)
+        from triton_distributed_tpu_torch.layers.moe_mlp import route
+
+        x = args[0]
+        ids, _ = route(x, mlp.router, mlp.topk)
+        r = route_capacity(ids, mlp.num_experts, mlp.capacity(x.shape[0]))
+        self.calls.append((ids.sort(dim=-1).values,
+                           (r.slot_of_pair < 0).sum(-1)))
+        self.counts.append(r.counts)
+
+    def __enter__(self):
+        self._handles = [m.register_forward_pre_hook(self._hook)
+                         for m in self.mlps]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._handles:
+            h.remove()
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def moe_card_vs_cpu(cfg, dev, card: str) -> None:
+    """A 2-layer f32 model of ``cfg``'s widths (random weights, seed 7):
+    the prefill of MOE_CHECK_SHAPE tokens and MOE_CHECK_STEPS decode steps
+    (fed the card's greedy tokens) on the card (K1, K2, K8) against the CPU
+    (plain versions): each sequence's logits within MOE_CHECK_REL_L2, and
+    every token's top-8 expert set and dropped pairs equal in every layer
+    call (a differing set is a discontinuity of the routing, not a
+    rounding, and fails the check)."""
+    from triton_distributed_tpu_torch import Qwen3
+
+    two = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    card_m = Qwen3(two).init_params(gen)
+    cpu_m = Qwen3(two, device="cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    b, s = MOE_CHECK_SHAPE
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    runs, feed = {}, []
+    for tag, m, d in (("card", card_m, dev), ("CPU", cpu_m, "cpu")):
+        with torch.inference_mode(), RouterTap(
+                layer.mlp for layer in m.layers) as tap:
+            cache = m.create_cache(b, max_seq=s + MOE_CHECK_STEPS)
+            logits = [m.prefill(ids.to(d), cache)]
+            for step in range(MOE_CHECK_STEPS):
+                if m is card_m:
+                    feed.append(logits[-1].argmax(-1))
+                logits.append(m.decode(feed[step].to(d), cache))
+        runs[tag] = ([lg.float().cpu() for lg in logits],
+                     [(i.cpu(), dr.cpu()) for i, dr in tap.calls])
+    worst = max(rel_l2(g[i], c[i]) for g, c in zip(runs["card"][0],
+                                                   runs["CPU"][0])
+                for i in range(b))
+    sets = sum(int((ic != ig).any(-1).sum()) for (ig, _), (ic, _) in zip(
+        runs["card"][1], runs["CPU"][1]))
+    drops = [sum(int(dr.sum()) for _, dr in runs[t][1]) for t in runs]
+    n_sets = sum(ig.shape[0] for ig, _ in runs["card"][1])
+    ok = worst <= MOE_CHECK_REL_L2 and sets == 0 and drops[0] == drops[1]
+    print(f"[moe path] 2-layer f32 model of Qwen3-30B-A3B's widths, {b} x "
+          f"{s} tokens + {MOE_CHECK_STEPS} decode steps, card (kernels) vs "
+          f"CPU (plain versions): worst per-sequence logits rel_l2 "
+          f"{worst:.3e} (bound {MOE_CHECK_REL_L2}); top-"
+          f"{cfg.num_experts_per_tok} expert sets that differ: {sets} of "
+          f"{n_sets}; pairs dropped by capacity card "
+          f"{drops[0]}, CPU {drops[1]} {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("MoE 2-layer card vs CPU check failed")
+    del card_m, cpu_m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def f32_prefill(model, ids):
+    """Last-position logits of a prefill of ``ids`` with ``model``'s bf16
+    weights in f32, converted one layer at a time (the whole model in f32
+    would not fit beside the bf16 one), and the router tap's calls."""
+    from triton_distributed_tpu_torch.layers.tp_attn import rms_norm
+    from triton_distributed_tpu_torch.models.qwen import Qwen3Layer
+
+    cfg = model.config
+    layer32 = Qwen3Layer(cfg, "fused", torch.float32, model.device)
+    b, s = ids.shape
+    with torch.no_grad(), RouterTap([layer32.mlp]) as tap:
+        x = model.embed[ids.long()].float().reshape(b * s, -1)
+        for layer in model.layers:
+            layer32.load_state_dict(layer.state_dict())
+            x, _ = layer32.prefill(x, b)
+        x = rms_norm(x, model.ln_f.float(), cfg.rms_norm_eps)
+        logits = torch.matmul(x.reshape(b, s, -1)[:, -1],
+                              model.lm_head.float())
+    return logits, tap.calls
+
+
+def moe_experts_w8a8(buckets, q, gmm):
+    """The int8 expert products of JAX `MoEMLP._fwd_w8a8` without its ring:
+    buckets (E, cap, h) quantized per token, gate_up on ``gmm`` (K9 or its
+    plain version) out in the buckets' dtype, gated SiLU, quantized per
+    token, down out in f32.  ``q``: `MoEMLP.quantize_params` output."""
+    from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
+    from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
+
+    a_q, sa = quantize_sym(buckets, 2)
+    inter = gmm(a_q, q["gate_up_q"], sa, q["gate_up_scale"],
+                out_dtype=buckets.dtype)
+    h_q, sh = quantize_sym(gated_silu(inter), 2)
+    return gmm(h_q, q["down_q"], sh, q["down_scale"],
+               out_dtype=torch.float32)
+
+
+def moe_path(dev, card: str, counted, expect, short, records,
+             errs) -> None:
+    """Phase 10: Qwen3-30B-A3B at full width and depth (MOE_FIELDS), seeded
+    random bf16 weights made on the card: the 2-layer f32 check first, then
+    `Engine.serve` with exact launches, teacher forcing with the routing
+    compared, both scheduler layouts on phase 5's traffic, the int8 experts
+    (K9) on layer 0's quantized weights, kernel and path times, and
+    profiles."""
+    from triton_distributed_tpu_torch import (
+        ContinuousBatchingScheduler, Engine, ModelConfig, Qwen3, Request,
+        SchedulerConfig)
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
+        grouped_matmul_w8a8_reference)
+    from triton_distributed_tpu_torch.kernels.moe_utils import (
+        combine_tokens, gather_tokens, route_capacity)
+    from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP, route
+    from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
+    from triton_distributed_tpu_torch.serving import (
+        DEFAULT_PREFILL_BUCKETS, RequestState)
+
+    cfg = ModelConfig(**MOE_FIELDS)
+    moe_card_vs_cpu(cfg, dev, card)
+
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device=dev).manual_seed(0)
+    model = Qwen3(cfg).init_params(wgen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    nl, ne, topk = cfg.num_layers, cfg.num_experts, cfg.num_experts_per_tok
+    mlp0 = model.layers[0].mlp
+    w8_caps = MoEMLP(cfg.hidden_size, cfg.moe_intermediate_size, ne,
+                     topk=topk, mode="w8a8", device="meta")
+    caps = (mlp0.capacity(BATCH * PROMPT), mlp0.capacity(SLOTS),
+            w8_caps.capacity(SLOTS))
+    print(f"[moe path] Qwen3-30B-A3B: {nl} layers, hidden {cfg.hidden_size}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {ne} "
+          f"experts of {cfg.moe_intermediate_size}, {topk} a token; "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card (bf16, "
+          f"routers f32); random weights (seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s; expert capacity: prefill "
+          f"{BATCH} x {PROMPT} {caps[0]}, decode (<= {SLOTS} rows) "
+          f"{caps[1]}, w8a8 decode {caps[2]}")
+    if caps != (MOE_PREFILL_CAP, MOE_DECODE_CAP, MOE_W8A8_DECODE_CAP):
+        raise AssertionError(f"capacities {caps}")
+
+    # -- Engine.serve ---------------------------------------------------
+    engine = Engine(model)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=wgen, device=dev)
+    cache = model.create_cache(BATCH, max_seq=CACHE_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    served, t_serve = [], []
+    launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
+        engine.serve(prompts, GEN_LEN, cache=cache)))))
+    tokens = served[0]
+    print(f"[moe path] Engine.serve {BATCH} requests x {PROMPT} prompt tokens, "
+          f"gen_len {GEN_LEN}, greedy: {t_serve[0]:.1f} ms (first call); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {short(launches)}")
+    want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
+                  grouped_matmul=2 * nl * GEN_LEN)
+    if launches != want:
+        raise AssertionError(f"MoE launch counts {launches} != {want}")
+    if tokens.shape != (BATCH, GEN_LEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("MoE tokens: bad shape or outside the "
+                             "vocabulary")
+
+    # -- teacher forcing, with the routing compared ----------------------
+    # Decode at position PROMPT against a prefill of PROMPT + 1 tokens (as
+    # phase 4), each layer's router recomputed from its input.  bf16
+    # rounds differently on the two paths, and a difference near a tie
+    # flips a top-8 choice, which carries into every later layer; pairs the
+    # prefill dropped by capacity differ from decode too (decode never
+    # drops: at most 8 rows for 16 slots).  So the flips and drops are
+    # counted, and the positions with neither in any layer are held to
+    # phase 4's bound: 3x this run's bf16 error (the bf16 prefill against
+    # the same weights in f32, converted a layer at a time).
+    mlps = [layer.mlp for layer in model.layers]
+    with torch.inference_mode():
+        with RouterTap(mlps) as tap_p:
+            logits_p = model.prefill(prompts, cache)
+        with RouterTap(mlps) as tap_d:
+            logits_d = model.decode(tokens[:, 0], cache)
+        seq = torch.cat([prompts, tokens[:, :1].long()], dim=1)
+        tf_cache = model.create_cache(BATCH, max_seq=CACHE_SEQ)
+        with RouterTap(mlps) as tap_f:
+            logits_f = model.prefill(seq, tf_cache)
+        del tf_cache
+    logits_x, calls_x = f32_prefill(model, seq)
+    for nm, lg in (("prefill", logits_p), ("decode", logits_d),
+                   ("prefill+1", logits_f), ("f32 prefill+1", logits_x)):
+        if lg.dtype != torch.float32 or not bool(lg.isfinite().all()):
+            raise AssertionError(f"MoE {nm} logits not finite f32")
+    if not torch.equal(logits_p.argmax(-1).to(torch.int32), tokens[:, 0]):
+        raise AssertionError("MoE first token != argmax of prefill logits")
+    last = torch.arange(BATCH, device=dev) * (PROMPT + 1) + PROMPT
+    flips = torch.zeros(nl, BATCH, dtype=torch.bool, device=dev)
+    dropped = torch.zeros_like(flips)
+    for li, ((ids_d, drop_d), (ids_f, drop_f)) in enumerate(
+            zip(tap_d.calls, tap_f.calls)):
+        if int(drop_d.sum()):
+            raise AssertionError("MoE decode dropped a pair")
+        flips[li] = (ids_d != ids_f[last]).any(-1)
+        dropped[li] = drop_f[last] > 0
+    clean = ~(flips | dropped).any(0)
+    drops_p = sum(int(dr.sum()) for _, dr in tap_p.calls)
+    drops_f = sum(int(dr.sum()) for _, dr in tap_f.calls)
+    flips_x = sum(float((ib != ix).any(-1).float().mean())
+                  for (ib, _), (ix, _) in zip(tap_f.calls, calls_x)) / nl
+    floor = rel_l2(logits_f, logits_x)
+    per_pos = [rel_l2(logits_d[i], logits_f[i]) for i in range(BATCH)]
+    held = [i for i in range(BATCH) if bool(clean[i])]
+    ok = all(per_pos[i] <= 3 * floor for i in held)
+    def load(counts):
+        """(experts with a token, largest count) of each layer call."""
+        return [(int((c > 0).sum()), int(c.max())) for c in counts]
+
+    load_p = load(tap_p.counts)
+    drop_layers = [int(dr.sum()) for _, dr in tap_p.calls]
+    print(f"[moe path] expert load of the {BATCH} x {PROMPT} prefill "
+          f"(capacity {caps[0]}, {BATCH * PROMPT * topk // ne} pairs an "
+          f"expert on average), (experts hit, most pairs an expert) by "
+          f"layer: {load_p[:4]} ... {load_p[-2:]}; pairs dropped by layer: "
+          f"{drop_layers[:4]} ... {drop_layers[-2:]}")
+    print(f"[moe path] routing: pairs dropped by capacity, prefill "
+          f"{BATCH} x {PROMPT} {drops_p} of {BATCH * PROMPT * topk * nl} "
+          f"(all layers), prefill of {PROMPT + 1} {drops_f}; decode@{PROMPT} "
+          f"vs prefill+1 at the same positions: top-{topk} sets that differ "
+          f"{int(flips.sum())} of {nl * BATCH} (layer, position) pairs "
+          f"(first flip at layer "
+          f"{[int(f.nonzero()[0]) if bool(f.any()) else None for f in flips.t()]}"
+          f" per position), positions with a prefill drop "
+          f"{int(dropped.any(0).sum())}; bf16 prefill+1 vs f32: "
+          f"{flips_x:.2%} of top-{topk} sets differ (mean over layers)")
+    print(f"[moe path] teacher forcing, decode@{PROMPT} vs prefill of "
+          f"{PROMPT + 1} tokens: rel_l2 per position "
+          f"{[f'{r:.3e}' for r in per_pos]} (argmax agreement "
+          f"{float((logits_d.argmax(-1) == logits_f.argmax(-1)).float().mean()):.2f}); "
+          f"bf16 error of the prefill against f32: rel_l2 {floor:.3e}; "
+          f"positions with no flip and no drop in any layer: {held}, held "
+          f"to {3 * floor:.3e} (3x the bf16 error) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MoE teacher-forcing logits disagree")
+    del logits_x, calls_x, tap_p, tap_d, tap_f
+
+    # -- scheduler --------------------------------------------------------
+    traffic = scheduler_traffic(cfg.vocab_size, seed=1)
+    base = dict(num_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                prefill_buckets=DEFAULT_PREFILL_BUCKETS, temperature=0.0)
+    runs = {}
+    for layout in ("slots", "paged"):
+        sched = ContinuousBatchingScheduler(model, SchedulerConfig(
+            **base, kv_layout=layout))
+        torch.cuda.reset_peak_memory_stats()
+        out = []
+        got = counted(lambda: out.extend(drive_scheduler(
+            sched, traffic, Request, RequestState.QUEUED)))
+        reqs, rec = out
+        steps = rec["steps"]
+        n_decode = sum(1 for _, _, dec in steps if dec)
+        n_prefill = len(traffic) + sum(r.preemptions for r in reqs)
+        dec = "flash_decode" if layout == "slots" else "flash_decode_paged"
+        want = expect(flash_attention=nl * n_prefill,
+                      grouped_matmul=2 * nl * (n_prefill + n_decode),
+                      **{dec: nl * n_decode})
+        pure = sorted(ms for ms, adm, dec_ in steps if dec_ and not adm)
+        n_gen = sum(len(r.generated) for r in reqs)
+        hits = sched.slots.radix.hit_tokens if layout == "paged" else 0
+        print(f"[moe path] scheduler {layout}: run {rec['wall_ms']:.1f} ms "
+              f"(host clock), {n_gen} tokens generated "
+              f"({n_gen / rec['wall_ms'] * 1e3:.1f} tokens/s), "
+              f"{rec['prompt_tokens']} prompt tokens prefilled, {n_decode} "
+              f"decode steps at {pure[len(pure) // 2]:.2f} ms/step (median "
+              f"of the steps that admit nothing), {n_prefill} prefills, "
+              f"preemptions {sum(r.preemptions for r in reqs)}, prefix hits "
+              f"{hits} tokens, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {short(got)}; {card}")
+        if got != want:
+            raise AssertionError(f"MoE {layout}: launch counts {got} != "
+                                 f"{want}")
+        for i, r in enumerate(reqs):
+            if (r.finish_reason is None or r.finish_reason.value != "length"
+                    or len(r.generated) != r.max_new_tokens
+                    or not all(0 <= t < cfg.vocab_size
+                               for t in r.generated)):
+                raise AssertionError(f"MoE {layout}: request {i} finished "
+                                     f"{r.finish_reason} with "
+                                     f"{len(r.generated)} tokens")
+        runs[layout] = [r.generated for r in reqs]
+        if layout == "paged" and hits < (len(SHARED_TOTALS) - 1) * SYS_PREFIX:
+            raise AssertionError(f"MoE prefix hits {hits}")
+        del sched
+    for i, (a, b) in enumerate(zip(runs["slots"], runs["paged"])):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            raise AssertionError(f"MoE slots and paged differ: request {i} "
+                                 f"at token {j}: {a[j]} != {b[j]}")
+    print(f"[moe path] scheduler slots and paged runs: equal tokens for all "
+          f"{len(runs['slots'])} requests")
+
+    # -- int8 experts (K9) on layer 0's quantized weights ----------------
+    # Layer 0's MoE input from the Engine path's prefill and from a decode
+    # step, routed at the w8a8 capacities; the expert products on K9
+    # (counted), bit for bit against their exact plain version, and the
+    # combined output against the bf16 layer's (K8) within
+    # MOE_W8A8_REL_L2.
+    grab = []
+    hook = mlp0.register_forward_pre_hook(
+        lambda mod, args: grab.append(args[0].clone()))
+    with torch.inference_mode():
+        model.prefill(prompts, cache)
+        model.decode(tokens[:, 0], cache)
+    hook.remove()
+    x_in = dict(zip(("prefill", "decode"), grab))
+    q0 = MoEMLP.quantize_params(mlp0.params())
+    k9_in = {}
+    with torch.inference_mode():
+        for label, x in x_in.items():
+            cap = w8_caps.capacity(x.shape[0])
+            ids, w = route(x, mlp0.router, topk)
+            r = route_capacity(ids, ne, cap)
+            buckets = gather_tokens(x, r.dispatch_index)
+            out = []
+            launches = counted(lambda: out.append(moe_experts_w8a8(
+                buckets, q0, grouped_matmul_w8a8)))
+            plain = moe_experts_w8a8(buckets, q0,
+                                     grouped_matmul_w8a8_reference)
+            got = combine_tokens(out[0], ids, r.slot_of_pair, w).to(x.dtype)
+            ref = mlp0(x)
+            torch.cuda.synchronize()
+            same = torch.equal(out[0], plain)
+            rel = rel_l2(got, ref)
+            ok = same and rel <= MOE_W8A8_REL_L2
+            print(f"[moe path] int8 experts of layer 0 on {x.shape[0]} "
+                  f"tokens (capacity {cap}): launches {short(launches)}; "
+                  f"{'bit-identical' if same else 'DIFFER'} to the exact "
+                  f"plain version; combined output against the bf16 layer "
+                  f"rel_l2 {rel:.3e} (bound {MOE_W8A8_REL_L2}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if launches != expect(grouped_matmul_w8a8=2) or not ok:
+                raise AssertionError("MoE int8 experts disagree")
+            k9_in[label] = quantize_sym(buckets, 2)
+
+    # -- kernel times at the path's shapes --------------------------------
+    # K8 on layer 0's weights and the Engine path's buckets (prefill 256
+    # rows an expert, decode 16); yardstick torch.bmm (cuBLAS, f32
+    # accumulation; out_dtype=f32 for down).  K9 on layer 0's quantized
+    # gate_up (prefill 256, decode 32); yardstick a loop of torch._int_mm
+    # over the experts plus the same epilogue (no single call computes it).
+    # Bounds count every expert's weights: the buckets are dense.
+    with torch.inference_mode():
+        for label, x in x_in.items():
+            cap = mlp0.capacity(x.shape[0])
+            ids, _ = route(x, mlp0.router, topk)
+            buckets = gather_tokens(x, route_capacity(ids, ne,
+                                                      cap).dispatch_index)
+            act = gated_silu(grouped_matmul(buckets, mlp0.gate_up))
+            for nm, a, b, out_dtype in (
+                    ("gate_up", buckets, mlp0.gate_up, torch.bfloat16),
+                    ("down", act, mlp0.down, torch.float32)):
+                _, m, k = a.shape
+                n = b.shape[2]
+                ms = time_ms(lambda: grouped_matmul(a, b, out_dtype), 20)
+                plain = time_ms(lambda: grouped_matmul_reference(
+                    a, b, out_dtype), 3)
+                lib = time_ms(lambda: torch.bmm(a, b, out_dtype=out_dtype)
+                              if out_dtype != a.dtype else torch.bmm(a, b),
+                              20)
+                flops = 2 * ne * m * k * n
+                bms, by = bound(nbytes(a, b) + ne * m * n
+                                * torch.finfo(out_dtype).bits // 8, flops)
+                print(f"[times] grouped_matmul (K8) {label} {nm} ({ne}x{m}x"
+                      f"{k})@({ne}x{k}x{n}) out {out_dtype}: {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s, "
+                      f"{nbytes(b) / ms / 1e6:.0f} GB/s of weights; bound "
+                      f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
+                      f"(f32) {plain:.4f} ms, torch.bmm {lib:.4f} ms; {card}")
+                if (label, nm) == ("decode", "gate_up"):
+                    records.append(("grouped_matmul", ms, plain, bms, by,
+                                    lib))
+        for label, (a_q, sa) in k9_in.items():
+            b_q, sb = q0["gate_up_q"], q0["gate_up_scale"]
+            _, m, k = a_q.shape
+            n = b_q.shape[2]
+            ms = time_ms(lambda: grouped_matmul_w8a8(a_q, b_q, sa, sb), 20)
+            plain = time_ms(lambda: grouped_matmul_w8a8_reference(
+                a_q, b_q, sa, sb), 2, warmup=1)
+
+            def int_mm_loop():
+                acc = torch.stack([torch._int_mm(a_q[e], b_q[e])
+                                   for e in range(ne)])
+                return (acc.float() * sa[:, :, None]
+                        * sb[:, None, :]).to(torch.bfloat16)
+
+            lib = time_ms(int_mm_loop, 10)
+            bms, by = bound(nbytes(a_q, b_q, sa, sb) + ne * m * n * 2,
+                            2 * ne * m * k * n, PEAK_INT8_OPS)
+            print(f"[times] grouped_matmul_w8a8 (K9) {label} gate_up "
+                  f"({ne}x{m}x{k})@({ne}x{k}x{n}) out bf16: {ms:.4f} ms "
+                  f"({nbytes(b_q) / ms / 1e6:.0f} GB/s of weights; bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
+                  f"(float64) {plain:.4f} ms, {ne} x torch._int_mm + "
+                  f"epilogue {lib:.4f} ms; {card}")
+            if label == "decode":
+                records.append((
+                    "grouped_matmul_w8a8", ms, plain, bms, by, None,
+                    {"library_loop_ms": lib,
+                     "library_note": f"no single PyTorch call computes it; "
+                     f"library_loop_ms is a loop of {ne} torch._int_mm "
+                     "calls plus the epilogue"}))
+    del q0, k9_in, x_in, grab
+
+    # -- path times and profiles -----------------------------------------
+    with torch.inference_mode():
+        serve1 = sorted(wall_ms(lambda: engine.serve(prompts, 1, cache=cache))
+                        for _ in range(3))[1]
+        torch.cuda.reset_peak_memory_stats()
+        serve_n = sorted(wall_ms(lambda: engine.serve(prompts, GEN_LEN,
+                                                      cache=cache))
+                         for _ in range(3))[1]
+    step_ms = (serve_n - serve1) / (GEN_LEN - 1)
+    print(f"[times] MoE Engine.serve (median of 3, host clock): prefill+first "
+          f"token {serve1:.2f} ms ({BATCH * PROMPT / serve1 * 1e3:.0f} prompt "
+          f"tokens/s); decode {step_ms:.3f} ms/step "
+          f"({BATCH / step_ms * 1e3:.1f} tokens/s); whole serve "
+          f"{serve_n:.2f} ms ({BATCH * GEN_LEN / serve_n * 1e3:.1f} generated "
+          f"tokens/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    with torch.inference_mode():
+        profile_phase("MoE Engine prefill", lambda: model.prefill(prompts,
+                                                                  cache),
+                      card, top=10)
+        profile_phase("MoE Engine decode x8", lambda: [
+            model.decode(tokens[:, 0], cache) for _ in range(8)], card,
+            top=10)
+    del model, engine, cache, mlp0, mlps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -529,8 +1054,16 @@ def main() -> int:
     from triton_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_reference,
         flash_decode_reference, gather_pages, quantize_kv)
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        AllGatherGEMMContext, ag_gemm)
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
+        grouped_matmul_w8a8_reference)
+    from triton_distributed_tpu_torch.kernels.matmul import (
+        matmul, matmul_reference)
     from triton_distributed_tpu_torch.kernels.quantized import (
         matmul_w8a8, matmul_w8a8_reference, quantize_sym)
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
     from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP, mlp_w8a8
     from triton_distributed_tpu_torch.serving import (
         DEFAULT_PREFILL_BUCKETS, ContinuousBatchingScheduler, Request,
@@ -807,6 +1340,93 @@ def main() -> int:
     bwd_case("kv_offset=-70 Sq=Sk=200 causal f32 (rows 0-69 fully masked)",
              torch.float32, 1, 8, 2, 200, 200, -70)
 
+    # K8 at the Qwen3-30B-A3B expert shapes in bf16 (random bucket rows,
+    # N(0, 1/k) weights): the 4 x 512 prefill bucket (capacity(2048) = 256
+    # rows an expert) and the decode bucket (16 rows), gate_up out bf16 and
+    # down out f32 as the MoE layer calls them; then ragged and f32 cases.
+    # K6 through ag_gemm(method="fused" | "ll") at world 1 at the Qwen3-8B
+    # MLP's gate_up shape, 2048 and 8 rows.  Held row by row
+    # (`check_rows`): bf16 out tol 2e-2, rel_l2 1e-2, floor 0.1 (one bf16
+    # rounding of an f32 sum of exact products); f32 out 1e-4, 1e-5, floor
+    # 1 (the order of the sums).
+    print("[kernels vs plain] grouped GEMM (K8) and matmul (K6): row by "
+          "row, bf16 out tol 2e-2, rel_l2 1e-2, floor 0.1; f32 out tol "
+          "1e-4, rel_l2 1e-5, floor 1")
+    gemm_tol = {torch.bfloat16: (2e-2, 1e-2, 0.1),
+                torch.float32: (1e-4, 1e-5, 1.0)}
+
+    def gemm_case(label, key, got, ref):
+        torch.cuda.synchronize()
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{label}: non-finite output")
+        errs[key] = max(errs[key], check_rows(label, got, ref,
+                                              *gemm_tol[got.dtype]))
+
+    ne, h_moe, f_moe = (MOE_FIELDS[k] for k in (
+        "num_experts", "hidden_size", "moe_intermediate_size"))
+    moe_products = (("gate_up", h_moe, 2 * f_moe, torch.bfloat16),
+                    ("down", f_moe, h_moe, torch.float32))
+    for label, cap in (("prefill", MOE_PREFILL_CAP),
+                       ("decode", MOE_DECODE_CAP)):
+        for nm, k, n, out_dtype in moe_products:
+            a, b = randn(ne, cap, k), randn(ne, k, n) * k ** -0.5
+            gemm_case(f"grouped_matmul {label} {nm} ({ne}x{cap}x{k})@"
+                      f"({ne}x{k}x{n}) out {out_dtype}", "grouped_matmul",
+                      grouped_matmul(a, b, out_dtype),
+                      grouped_matmul_reference(a, b, torch.float32))
+    a, b = randn(5, 37, 136), randn(5, 136, 200)
+    gemm_case("grouped_matmul ragged (5x37x136)@(5x136x200) bf16",
+              "grouped_matmul", grouped_matmul(a, b),
+              grouped_matmul_reference(a, b, torch.float32))
+    a, b = (torch.randn(shape, generator=gen, device=dev)
+            for shape in ((3, 70, 100), (3, 100, 77)))
+    gemm_case("grouped_matmul f32, k and n off 16-byte rows "
+              "(3x70x100)@(3x100x77)", "grouped_matmul",
+              grouped_matmul(a, b), grouped_matmul_reference(a, b))
+    k6_b = randn(MLP_HIDDEN, 2 * MLP_FFN) * MLP_HIDDEN ** -0.5
+    k6_a = {m: randn(m, MLP_HIDDEN) for m in W8A8_ROWS}
+    for m, a in k6_a.items():
+        ref = matmul_reference(a, k6_b, torch.float32)
+        outs = [ag_gemm(a, k6_b, AllGatherGEMMContext("tp", 1, method))
+                for method in ("fused", "ll")]
+        for method, out in zip(("fused", "ll"), outs):
+            gemm_case(f"matmul via ag_gemm(method={method!r}) "
+                      f"({m}x{MLP_HIDDEN})@({MLP_HIDDEN}x{2 * MLP_FFN})",
+                      "matmul", out, ref)
+        if not torch.equal(*outs):
+            raise AssertionError("ag_gemm fused and ll differ")
+    a, b = (torch.randn(shape, generator=gen, device=dev)
+            for shape in ((33, 72), (72, 40)))
+    gemm_case("matmul f32 ragged (33x72)@(72x40)", "matmul", matmul(a, b),
+              matmul_reference(a, b))
+    del a, b, ref, outs
+
+    # K9 on `MoEMLP.quantize_params` output (the expert weights of a random
+    # layer of Qwen3-30B-A3B's widths, per expert and output channel), the
+    # bucket rows quantized per token, at the w8a8 capacities (32-row
+    # alignment): 256 rows (prefill) and 32 (decode).  Bit for bit against
+    # the exact plain version, as K7.
+    k9_q = MoEMLP.quantize_params({
+        "router": None,
+        "gate_up": randn(ne, h_moe, 2 * f_moe) * h_moe ** -0.5,
+        "down": randn(ne, f_moe, h_moe) * h_moe ** -0.5})
+    for cap in (MOE_PREFILL_CAP, MOE_W8A8_DECODE_CAP):
+        for nm, k, n, out_dtype in moe_products:
+            b_q, sb = k9_q[nm + "_q"], k9_q[nm + "_scale"]
+            a_q, sa = quantize_sym(randn(ne, cap, k), 2)
+            got = grouped_matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
+            want = grouped_matmul_w8a8_reference(a_q, b_q, sa, sb,
+                                                 out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            print(f"  grouped_matmul_w8a8 {nm} ({ne}x{cap}x{k})@({ne}x{k}x"
+                  f"{n}) out {out_dtype}: {'bit-identical' if same else 'DIFFER'}"
+                  " to the exact plain version")
+            if not same:
+                raise AssertionError("grouped_matmul_w8a8 differs from its "
+                                     "plain version")
+    del k9_q, a_q, sa, got, want
+
     # -- 4. Engine path -------------------------------------------------
     cfg = ModelConfig.qwen3_8b()
     t0 = time.perf_counter()
@@ -827,18 +1447,21 @@ def main() -> int:
                 "flash_decode": flash_decode,
                 "flash_decode_paged": flash_decode_paged,
                 "matmul_w8a8": matmul_w8a8,
-                "flash_attention_bwd": flash_attention_backward}
+                "flash_attention_backward": flash_attention_backward,
+                "matmul": matmul,
+                "grouped_matmul": grouped_matmul,
+                "grouped_matmul_w8a8": grouped_matmul_w8a8}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
         """Run ``fn`` with every kernel's launch count set to 0 just before
         it, add the counts read just after to the totals of the main
         paths, and return them."""
-        for lib, attr, _ in KERNELS.values():
-            setattr(wrappers[lib], attr, 0)
+        for _, wrapper, attr, _ in KERNELS.values():
+            setattr(wrappers[wrapper], attr, 0)
         fn()
-        got = {nm: getattr(wrappers[lib], attr)
-               for nm, (lib, attr, _) in KERNELS.items()}
+        got = {nm: getattr(wrappers[wrapper], attr)
+               for nm, (_, wrapper, attr, _) in KERNELS.items()}
         for nm, n in got.items():
             total_launches[nm] += n
         return got
@@ -892,9 +1515,6 @@ def main() -> int:
                 raise AssertionError(f"{nm} logits not finite f32")
         if not torch.equal(logits_p.argmax(-1).to(torch.int32), tokens[:, 0]):
             raise AssertionError("first token != argmax of prefill logits")
-
-        def rel_l2(a, b):
-            return float((a - b).norm() / b.norm())
 
         tf_err = rel_l2(logits_d, logits_f)
         floor = rel_l2(logits_f, logits_x)
@@ -1143,6 +1763,26 @@ def main() -> int:
             if not same or not ok:
                 raise AssertionError("w8a8 layer disagrees")
 
+    # -- 6b. ag_gemm path at world 1 ----------------------------------
+    # ag_gemm(method="fused" | "ll") at world 1 is K6 (JAX: `matmul`); held
+    # row by row against the "xla" method (an f32 library product cast to
+    # bf16) on phase 3's operands.
+    for m, a in k6_a.items():
+        ref = ag_gemm(a, k6_b, AllGatherGEMMContext("tp", 1, "xla"))
+        for method in ("fused", "ll"):
+            out = []
+            launches = counted(lambda: out.append(ag_gemm(
+                a, k6_b, AllGatherGEMMContext("tp", 1, method),
+                return_gathered=True)))
+            print(f"[ag_gemm path] ag_gemm(method={method!r}) at world 1, "
+                  f"({m}x{MLP_HIDDEN})@({MLP_HIDDEN}x{2 * MLP_FFN}) bf16: "
+                  f"launches {short(launches)}; against method 'xla':")
+            gemm_case(f"ag_gemm {method} vs xla, {m} rows", "matmul",
+                      out[0][0], ref)
+            if launches != expect(matmul=1) or out[0][1] is not a:
+                raise AssertionError(f"ag_gemm {method}: launches "
+                                     f"{launches}")
+
     # -- 7. times -------------------------------------------------------
     print(f"[times] card: {card}; CUDA events, mean over back-to-back "
           "calls after warm-up")
@@ -1334,6 +1974,22 @@ def main() -> int:
                   f"(cuBLAS) {time_ms(lambda: mlp_f(x), 10):.4f} ms; {card}")
     del mlp_f, mlp_q, qparams, w8, w8_rows
 
+    # K6 at the ag_gemm path's shapes; yardstick torch.matmul (cuBLAS, bf16
+    # out, f32 accumulation).  The record is 2048 rows.
+    for m, a in k6_a.items():
+        kk, n = k6_b.shape
+        ms = time_ms(lambda: matmul(a, k6_b), 20)
+        plain = time_ms(lambda: matmul_reference(a, k6_b), 3)
+        lib = time_ms(lambda: torch.matmul(a, k6_b), 20)
+        bms, by = bound(nbytes(a, k6_b) + m * n * 2, 2 * m * n * kk)
+        print(f"[times] matmul (K6) ({m}x{kk})@({kk}x{n}) bf16: {ms:.4f} ms "
+              f"({2 * m * n * kk / ms / 1e9:.1f} TFLOP/s; bound {bms:.4f} ms "
+              f"by {by}, {bms / ms:.1%} of bound), plain (f32) {plain:.4f} "
+              f"ms, torch.matmul {lib:.4f} ms; {card}")
+        if m == W8A8_ROWS[0]:
+            records.append(("matmul", ms, plain, bms, by, lib))
+    del k6_a, k6_b
+
     # K4 (with its delta prologue) and K5 (reading K4's delta) each alone,
     # and the wrapper's pair, at both training shapes.  The plain version
     # and the yardstick, SDPA's backward (causal, GQA; its forward run
@@ -1469,16 +2125,26 @@ def main() -> int:
     train_model_gradients(cfg, dev, card)
     train_steps(model, cfg, prompts, counted, expect, short, dev, card)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. MoE path ---------------------------------------------------
+    print(f"[moe path] device memory held before the MoE path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe_path(dev, card, counted, expect, short, records, errs)
 
     kernels = []
     for nm, ms, plain, bms, by, lib, *extra in records:
-        lib_name, _, repl = KERNELS[nm]
+        lib_name, _, _, repl = KERNELS[nm]
         extra = extra[0] if extra else {}
         pair = (f" (pair {extra['pair_ms']:.4f} ms; plain and library are "
-                "the whole backward)" if extra else "")
+                "the whole backward)" if "pair_ms" in extra
+                else f" ({extra['library_note']}: "
+                f"{extra['library_loop_ms']:.4f} ms)" if extra else "")
+        lib_text = "none" if lib is None else f"{lib:.4f} ms"
         print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of bound){pair}, plain {plain:.4f} ms, "
-              f"library {lib:.4f} ms; launches on the main paths "
+              f"library {lib_text}; launches on the main paths "
               f"{total_launches[nm]}; {card}")
         kernels.append({"name": nm, "route": "cuda",
                         "source": KERNEL_SOURCES[lib_name],

@@ -15,7 +15,11 @@ keys: |got - ref| <= tol * (|ref| + rms(ref's row) + floor * rms(ref))
 rel_l2 <= rel_tol per output; tol 2e-2, rel_tol 1e-2 and floor 0.1 in
 bf16 (p and ds are rounded to bf16 before their products, as in the TPU
 kernels, and the outputs to bf16; the kernels need about 1.0e-2 and
-2.4e-3 on an H100), 1e-4, 1e-5 and floor 1 in f32.
+2.4e-3 on an H100), 1e-4, 1e-5 and floor 1 in f32.  The grouped GEMM
+(K8) and the matmul (K6, its one-group case) are held the same way (a
+row's scale is its rms): bf16 out tol 2e-2 and rel_l2 1e-2 (one bf16
+rounding of an f32 sum whose products are exact), f32 out 1e-4 and 1e-5
+(the order of the sums); the int8 grouped GEMM (K9) bit for bit, as K7.
 """
 
 import pytest
@@ -28,8 +32,15 @@ from triton_distributed_tpu_torch.kernels.flash_attention import (
 from triton_distributed_tpu_torch.kernels.flash_decode import (
     flash_decode, flash_decode_paged, flash_decode_paged_reference,
     flash_decode_reference, gather_pages, quantize_kv)
+from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+    AllGatherGEMMContext, ag_gemm)
+from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+    grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
+    grouped_matmul_w8a8_reference)
+from triton_distributed_tpu_torch.kernels.matmul import (
+    matmul, matmul_reference)
 from triton_distributed_tpu_torch.kernels.quantized import (
-    matmul_w8a8, matmul_w8a8_reference)
+    matmul_w8a8, matmul_w8a8_reference, quantize_sym)
 
 pytestmark = pytest.mark.gpu
 
@@ -575,3 +586,223 @@ def test_tiny_int8_scheduler_gpu_matches_cpu(cuda):
             outs.append([r.generated for r in
                          sorted(done, key=lambda r: r.request_id)])
     assert all(o == outs[0] for o in outs)
+
+
+# ---- the MoE slice: K6, K8, K9 -------------------------------------------
+
+GEMM_TOL = {torch.bfloat16: (2e-2, 1e-2, 0.0), torch.float32: (1e-4, 1e-5, 0.0)}
+
+#: (E, m, k, n): a decode bucket (16 rows, the 16-row tile), 64 rows (the
+#: 64-row tile), a prefill bucket (the 128-row tile), ragged m, n and k on
+#: 16-byte rows, k and n off 16-byte rows (loads by element), one group.
+GROUPED_SHAPES = [(8, 16, 256, 384), (4, 64, 128, 256), (3, 256, 512, 640),
+                  (5, 37, 136, 200), (3, 70, 100, 77), (1, 130, 64, 96)]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,m,k,n", GROUPED_SHAPES)
+def test_grouped_matmul_kernel(cuda, dtype, out_dtype, e, m, k, n):
+    """K8 against its plain version, row by row; two launches are
+    bit-identical and each counts once."""
+    gen = torch.Generator(device=cuda).manual_seed(e * 1000 + m + k + n)
+    a = _randn(gen, dtype, cuda, e, m, k)
+    b = _randn(gen, dtype, cuda, e, k, n) * k ** -0.5
+    before = grouped_matmul.launches
+    got = grouped_matmul(a, b, out_dtype)
+    again = grouped_matmul(a, b, out_dtype)
+    assert grouped_matmul.launches == before + 2
+    ref = grouped_matmul_reference(a, b, torch.float32)
+    torch.cuda.synchronize()
+    want_dtype = out_dtype or dtype
+    assert got.dtype == want_dtype and got.shape == (e, m, n)
+    assert torch.equal(got, again)
+    _assert_rows_close("grouped_matmul", got, ref, *GEMM_TOL[want_dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 1024), (200, 256, 384),
+                                   (33, 72, 40)])
+def test_matmul_kernel_and_ag_gemm(cuda, dtype, m, k, n):
+    """K6 (the one-group grouped GEMM) through `matmul` and through
+    ``ag_gemm(method="fused"|"ll")`` at world 1, each one launch counted
+    by `matmul` alone; ``"xla"`` and ``"auto"`` launch nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = _randn(gen, dtype, cuda, m, k)
+    b = _randn(gen, dtype, cuda, k, n) * k ** -0.5
+    ref = matmul_reference(a, b, torch.float32)
+    before = (matmul.launches, grouped_matmul.launches)
+    outs = [matmul(a, b)]
+    for method in ("fused", "ll"):
+        out, gathered = ag_gemm(a, b, AllGatherGEMMContext("tp", 1, method),
+                                return_gathered=True)
+        assert gathered is a
+        outs.append(out)
+    assert (matmul.launches, grouped_matmul.launches) == (before[0] + 3,
+                                                          before[1])
+    for method in ("xla", "auto"):
+        outs.append(ag_gemm(a, b, AllGatherGEMMContext("tp", 1, method)))
+    assert matmul.launches == before[0] + 3
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.dtype == dtype and out.shape == (m, n)
+        _assert_rows_close("matmul", out, ref, *GEMM_TOL[dtype])
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("e,m,k,n", [(8, 32, 256, 384), (3, 256, 512, 640),
+                                     (5, 37, 144, 200), (1, 40, 64, 96)])
+def test_grouped_matmul_w8a8_kernel(cuda, out_dtype, e, m, k, n):
+    """K9 bit for bit against its exact plain version (quantized as
+    `MoEMLP.quantize_params` does), twice, each launch counted."""
+    gen = torch.Generator(device=cuda).manual_seed(e + m + k + n)
+    a_q, sa = quantize_sym(_randn(gen, torch.float32, cuda, e, m, k), 2)
+    b_q, sb = quantize_sym(_randn(gen, torch.float32, cuda, e, k, n), 1)
+    before = grouped_matmul_w8a8.launches
+    got = grouped_matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
+    again = grouped_matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
+    assert grouped_matmul_w8a8.launches == before + 2
+    want = grouped_matmul_w8a8_reference(a_q, b_q, sa, sb,
+                                         out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    assert torch.equal(got, again)
+    # Group e alone through K7 (the same body): the same bits.
+    g = e - 1
+    assert torch.equal(matmul_w8a8(a_q[g].contiguous(), b_q[g].contiguous(),
+                                   sa[g].contiguous(), sb[g].contiguous(),
+                                   out_dtype=out_dtype), got[g])
+
+
+def test_moe_kernels_reject_unsupported_inputs(cuda):
+    a = torch.zeros(2, 16, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        grouped_matmul(a, b.float())
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        grouped_matmul(a.half(), b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_matmul(a, b.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="bad shapes"):
+        grouped_matmul(a, b[:1])
+    with pytest.raises(ValueError, match="out dtype"):
+        grouped_matmul(a, b, torch.float16)
+    with pytest.raises(ValueError, match="bad shapes"):
+        matmul(a[0], b)
+    aq = torch.zeros(2, 16, 40, device=cuda, dtype=torch.int8)
+    bq = torch.zeros(2, 40, 32, device=cuda, dtype=torch.int8)
+    sa = torch.ones(2, 16, device=cuda)
+    sb = torch.ones(2, 32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        grouped_matmul_w8a8(aq, bq, sa, sb)
+    with pytest.raises(ValueError, match="scale_b"):
+        grouped_matmul_w8a8(aq[:, :, :32].contiguous(),
+                            bq[:, :32].contiguous(), sa, sb[:, :16])
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        ag_gemm(a[0], b[0], AllGatherGEMMContext("tp", 2, "fused"))
+
+
+def _tiny_moe_pair(cuda, **kw):
+    from triton_distributed_tpu_torch import ModelConfig, Qwen3
+
+    cfg = ModelConfig.tiny_moe(dtype="float32", head_dim=64, **kw)
+    cpu = Qwen3(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Qwen3(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+def test_tiny_moe_engine_gpu_matches_cpu(cuda):
+    """The MoE slice on the card (K1, K2, K8) against the CPU (plain
+    versions), f32, greedy: same tokens, logits within 1e-3, and the exact
+    launches of `Engine.serve`: per layer one K1 for the prefill, one K2 a
+    decode step, two K8 for each of them."""
+    from triton_distributed_tpu_torch import Engine
+
+    cfg, cpu, gpu = _tiny_moe_pair(cuda)
+    ids = torch.randint(0, cfg.vocab_size, (2, 24),
+                        generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        gpu.prefill(ids.to(cuda), gpu.create_cache(2)).cpu(),
+        cpu.prefill(ids, cpu.create_cache(2)), atol=1e-3, rtol=1e-3)
+    gen, nl = 6, cfg.num_layers
+    before = (flash_attention.launches, flash_decode.launches,
+              grouped_matmul.launches, matmul.launches)
+    got = Engine(gpu).serve(ids.to(cuda), gen).cpu()
+    after = (flash_attention.launches, flash_decode.launches,
+             grouped_matmul.launches, matmul.launches)
+    assert [x - y for x, y in zip(after, before)] == [
+        nl, nl * (gen - 1), 2 * nl * gen, 0]
+    assert torch.equal(got, Engine(cpu).serve(ids, gen))
+
+
+def test_tiny_moe_scheduler_gpu_matches_cpu(cuda):
+    """The scheduler over the tiny f32 MoE model on the card and on the
+    CPU, both layouts, greedy: same tokens everywhere."""
+    from triton_distributed_tpu_torch import (
+        ContinuousBatchingScheduler, Request, SchedulerConfig)
+
+    cfg, cpu, gpu = _tiny_moe_pair(cuda)
+    gen = torch.Generator().manual_seed(2)
+    prefix = torch.randint(1, cfg.vocab_size, (16,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(1, cfg.vocab_size, (n,),
+                                      generator=gen).tolist()
+               for n in (3, 9, 20)]
+    outs = []
+    for model in (cpu, gpu):
+        for layout in ("slots", "paged"):
+            sched = ContinuousBatchingScheduler(model, SchedulerConfig(
+                num_slots=2, max_seq=64, prefill_buckets=(16, 32, 64),
+                page_size=8, kv_layout=layout))
+            done = sched.run([Request(prompt=p, max_new_tokens=6)
+                              for p in prompts])
+            outs.append([r.generated for r in
+                         sorted(done, key=lambda r: r.request_id)])
+    assert all(o == outs[0] for o in outs)
+
+
+def test_tiny_moe_grads_gpu_match_cpu(cuda):
+    """Gradients of every leaf of a tiny f32 MoE model (router, experts,
+    attention) on the card (K1, K4, K5, K8 forward, torch.bmm backward)
+    against the CPU's, within 1e-4 relative L2."""
+    import torch.nn.functional as F
+
+    cfg, cpu, gpu = _tiny_moe_pair(cuda)
+    ids = torch.randint(0, cfg.vocab_size, (2, 40),
+                        generator=torch.Generator().manual_seed(1))
+    targets = torch.tensor([3, 200])
+    before = grouped_matmul.launches
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        model.requires_grad_(True)
+        F.cross_entropy(model(ids.to(dev)), targets.to(dev)).backward()
+    assert grouped_matmul.launches == before + 2 * cfg.num_layers
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        rel = float((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm())
+        assert rel <= 1e-4, f"{name}: rel_l2 {rel:.3e}"
+
+
+def test_moe_layer_w8a8_gpu_matches_cpu(cuda):
+    """`MoEMLP` in xla and in w8a8 mode (dequantized onto K8 at world 1)
+    on the card against the CPU, f32, two K8 launches a call."""
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
+
+    def pair(mode):
+        return [MoEMLP(128, 64, 8, topk=2, mode=mode, dtype=torch.float32,
+                       device=dev) for dev in ("cpu", cuda)]
+
+    f_cpu, f_gpu = pair("xla")
+    f_cpu.init_params(torch.Generator().manual_seed(5))
+    f_gpu.load_state_dict(f_cpu.state_dict())
+    q_cpu, q_gpu = pair("w8a8")
+    qparams = MoEMLP.quantize_params(f_cpu.params())
+    q_cpu.load_state_dict(qparams)
+    q_gpu.load_state_dict(qparams)
+    x = torch.randn(40, 128, generator=torch.Generator().manual_seed(6))
+    before = grouped_matmul.launches
+    with torch.inference_mode():
+        for cpu_layer, gpu_layer in ((f_cpu, f_gpu), (q_cpu, q_gpu)):
+            torch.testing.assert_close(gpu_layer(x.to(cuda)).cpu(),
+                                       cpu_layer(x), atol=1e-4, rtol=1e-4)
+    assert grouped_matmul.launches == before + 4

@@ -43,7 +43,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 21
+    assert int(res.stdout.strip()) >= 26
 
 
 def test_training_path_runs_without_jax():
@@ -65,6 +65,35 @@ def test_training_path_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) == 2 * 8 + 2
+
+
+def test_moe_path_runs_without_jax():
+    """The MoE path (routing tables, the grouped GEMM's plain version, the
+    MoE Qwen3 through `Engine.serve` and the scheduler, `ag_gemm` at world
+    1) imports and runs with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch import (ContinuousBatchingScheduler,\n"
+        "    Engine, ModelConfig, Qwen3, Request, SchedulerConfig)\n"
+        "from triton_distributed_tpu_torch.kernels.allgather_gemm import (\n"
+        "    AllGatherGEMMContext, ag_gemm)\n"
+        "m = Qwen3(ModelConfig.tiny_moe(dtype='float32'), device='cpu')\n"
+        "m.init_params(torch.Generator().manual_seed(0))\n"
+        "ids = torch.arange(16).reshape(2, 8)\n"
+        "a = Engine(m).serve(ids, 3)\n"
+        "s = ContinuousBatchingScheduler(m, SchedulerConfig(num_slots=2,\n"
+        "    max_seq=32, prefill_buckets=(16, 32), kv_layout='paged'))\n"
+        "done = s.run([Request(prompt=list(range(1, 9)), max_new_tokens=3)])\n"
+        "x = torch.randn(4, 8)\n"
+        "y = ag_gemm(x, torch.randn(8, 5), AllGatherGEMMContext('tp', 1, 'll'))\n"
+        "print(tuple(a.shape), len(done[0].generated), tuple(y.shape))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["(2,", "3)", "3", "(4,", "5)"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -10,8 +10,10 @@ parameters carry over as they are (`load_jax_params`): matrices are
 scales (decode quantizes its new token on write; prefill logits do not
 read the cache).  The MLP runs in the ``xla`` or ``fused`` mode, as the
 JAX model's `set_mode` allows (``w8a8`` is a layer mode of `TPMLP`, not a
-model mode there either).  MoE layers, multi-GPU tensor parallelism and
-loading HF checkpoints are not ported yet.
+model mode there either).  With ``config.num_experts > 0`` every MLP is a
+`MoEMLP` (Qwen3-MoE), whose two expert products run on the grouped GEMM
+kernel; its router is f32 whatever the model's dtype.  Multi-GPU tensor
+and expert parallelism and loading HF checkpoints are not ported yet.
 
 The engine contract the serving stack drives: `create_cache`,
 `create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
@@ -35,6 +37,7 @@ from torch import nn
 
 from triton_distributed_tpu_torch.layers.tp_attn import (
     TPAttention, normal_init_, require_single_gpu, rms_norm, weight)
+from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import (
@@ -55,6 +58,13 @@ def dot_f32(a, b):
     return torch.matmul(a.float(), b.float())
 
 
+def _mlp_names(config: ModelConfig):
+    """The MLP's leaves in the JAX parameter tree."""
+    if config.is_moe:
+        return ("router", "gate_up", "down")
+    return ("gate_up", "down")
+
+
 class Qwen3Layer(nn.Module):
     def __init__(self, config: ModelConfig, mode: str, dtype, device):
         super().__init__()
@@ -66,8 +76,15 @@ class Qwen3Layer(nn.Module):
             h, config.num_heads, config.num_kv_heads, config.head_dim,
             rope_theta=config.rope_theta, qk_norm=config.qk_norm,
             dtype=dtype, device=device)
-        self.mlp = TPMLP(h, config.intermediate_size, mode=mode,
-                         dtype=dtype, device=device)
+        if config.is_moe:
+            self.mlp = MoEMLP(
+                h, config.moe_intermediate_size or config.intermediate_size,
+                config.num_experts, topk=config.num_experts_per_tok,
+                capacity_factor=config.moe_capacity_factor, mode=mode,
+                dtype=dtype, device=device)
+        else:
+            self.mlp = TPMLP(h, config.intermediate_size, mode=mode,
+                             dtype=dtype, device=device)
 
     def prefill(self, x, batch: int):
         h, kv = self.attn.prefill(rms_norm(x, self.ln1, self.eps), batch)
@@ -94,8 +111,6 @@ class Qwen3(nn.Module):
                  world_size: int = 1, device=None):
         super().__init__()
         require_single_gpu(world_size)
-        if config.is_moe:
-            raise NotImplementedError("MoE layers are not yet ported")
         if mode not in ("xla", "fused"):
             raise ValueError(f"mode {mode!r}: a Qwen3 runs 'xla' or 'fused' "
                              "(w8a8 is a TPMLP layer mode)")
@@ -122,7 +137,8 @@ class Qwen3(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Qwen3":
         """Random weights with the JAX package's distributions: N(0, 1/h)
-        matrices and embeddings, unit norms.  Returns self."""
+        matrices (the MoE router and experts too) and embeddings, unit
+        norms.  Returns self."""
         std = self.config.hidden_size ** -0.5
         for layer in self.layers:
             layer.ln1.fill_(1)
@@ -154,8 +170,8 @@ class Qwen3(nn.Module):
             if self.config.qk_norm:
                 put(layer.attn.q_norm, lp["attn"]["q_norm"])
                 put(layer.attn.k_norm, lp["attn"]["k_norm"])
-            put(layer.mlp.gate_up, lp["mlp"]["gate_up"])
-            put(layer.mlp.down, lp["mlp"]["down"])
+            for name in _mlp_names(self.config):
+                put(getattr(layer.mlp, name), lp["mlp"][name])
         put(self.embed, tree["embed"])
         put(self.ln_f, tree["ln_f"])
         if not self.config.tie_word_embeddings:
@@ -180,10 +196,10 @@ class Qwen3(nn.Module):
             if self.config.qk_norm:
                 attn["q_norm"] = get(layer.attn.q_norm)
                 attn["k_norm"] = get(layer.attn.k_norm)
+            mlp = {name: get(getattr(layer.mlp, name))
+                   for name in _mlp_names(self.config)}
             layers.append({"ln1": get(layer.ln1), "ln2": get(layer.ln2),
-                           "attn": attn,
-                           "mlp": {"gate_up": get(layer.mlp.gate_up),
-                                   "down": get(layer.mlp.down)}})
+                           "attn": attn, "mlp": mlp})
         tree = {"embed": get(self.embed), "layers": layers,
                 "ln_f": get(self.ln_f)}
         if not self.config.tie_word_embeddings:
