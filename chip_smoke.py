@@ -49,16 +49,29 @@ non-zero):
    Engine path (float and int8), and eight traced scheduler steps of each
    scheduler, with the device's busy share and the kernels that take its
    time;
-9. training path: gradients of a 2-layer model of Qwen3-8B's widths on
+9. TP path: tensor parallelism at world 4, the 4 ranks in one process on
+   the one card: K12 (``ag_gemm``) and K14 (``gemm_rs``) against their
+   plain versions row by row in both methods at the Qwen3-8B shapes
+   (prefill 512 rows a rank, decode 1), at world 2 (ragged, bf16) and 8
+   (ragged, f32), and over 100 back-to-back calls of each with fresh
+   inputs; a 2-layer f32 model of Qwen3-8B's widths at world 4, card
+   against CPU; the 8B weights resharded to world 4 (``Qwen3.reshard``) in
+   mode ``fused`` through ``Engine.serve`` of phase 4's requests with
+   exact K1/K2/K12/K14 launches, its prefill logits and 3 decode steps
+   within 3x phase 4's bf16 error of the world-1 logits; K12/K14 times
+   with bounds, plain versions and library yardsticks, world-4 prefill
+   and decode beside world 1 in alternating windows, profiles; the
+   world-4 copy freed after;
+10. training path: gradients of a 2-layer model of Qwen3-8B's widths on
    the card (kernels) in f32 and in bf16 against the CPU's f32 (plain
    versions), per leaf; then
    Qwen3-8B at full width and depth in bf16 (the same weights as phases
-   4-8, which no longer need them) takes 3 SGD steps on 4 sequences of
+   4-9, which no longer need them) takes 3 SGD steps on 4 sequences of
    512 tokens (cross-entropy of the last position's logits against seeded
    targets): loss, ms per forward+backward, tokens/s, peak memory, exact
    K1/K4/K5 launches per step, finite gradients, a falling loss; one
    traced training step;
-10. MoE path (the 8B model freed first): a 2-layer f32 model of
+11. MoE path (the 8B model freed first): a 2-layer f32 model of
    Qwen3-30B-A3B's widths, card (kernels) against CPU (plain versions):
    logits per sequence and every token's top-8 expert set; then
    Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, 8 a
@@ -99,7 +112,7 @@ KERNEL_SOURCES = {
     lib: f"triton_distributed_tpu_torch/kernels/csrc/{lib}.cu"
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
                 "matmul_w8a8", "flash_attention_bwd", "grouped_matmul",
-                "grouped_matmul_w8a8")}
+                "grouped_matmul_w8a8", "ag_gemm", "gemm_rs")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
@@ -133,6 +146,10 @@ KERNELS = {
                        _TPU + "grouped_gemm.py:71"),
     "grouped_matmul_w8a8": ("grouped_matmul_w8a8", "grouped_matmul_w8a8",
                             "launches", _TPU + "grouped_gemm.py:266"),
+    "ag_gemm": ("ag_gemm", "ag_gemm", "launches",
+                _TPU + "allgather_gemm.py:329"),
+    "gemm_rs": ("gemm_rs", "gemm_rs", "launches",
+                _TPU + "gemm_reduce_scatter.py:292"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -179,6 +196,18 @@ MOE_PREFILL_CAP, MOE_DECODE_CAP, MOE_W8A8_DECODE_CAP = 256, 16, 32
 MOE_CHECK_SHAPE, MOE_CHECK_STEPS, MOE_CHECK_REL_L2 = (2, 128), 2, 1e-4
 #: The int8 experts against the bf16 layer, relative L2 (as phase 6).
 MOE_W8A8_REL_L2 = 5e-2
+
+#: The TP path: Qwen3-8B at world 4 (4 ranks in one process on the one
+#: card); its 2-layer f32 check, card against CPU (sequences x tokens,
+#: decode steps, the bound on each sequence's logits in relative L2, f32
+#: on both sides); back-to-back calls of each collective kernel and
+#: method with fresh inputs; and the row-by-row bounds of the collective
+#: GEMMs against their plain versions (as K6 and K8: one bf16 rounding of
+#: an f32 sum; K14's partials are rounded to bf16 before their sum too).
+TP_WORLD = 4
+TP_CHECK_SHAPE, TP_CHECK_STEPS, TP_CHECK_REL_L2 = (4, 64), 3, 1e-4
+TP_REPEATS = 100
+TP_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
 
 #: Device cycles (about 50 ms at the H100's 1.98 GHz boost clock) that the
 #: stream spins before a timed run.  Every timed run below is queued by the
@@ -245,7 +274,8 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 #: breakdown (first match wins); the port's own kernels first.
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
-                      "w8a8_kernel", "grouped_bf16_", "grouped_f32_")),
+                      "w8a8_kernel", "grouped_tile_", "ag_gemm_",
+                      "gemm_rs_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("elementwise and reductions", ("elementwise", "reduce", "index",
                                     "embedding", "softmax", "cat")),
@@ -307,13 +337,9 @@ def check_close(name, got, want, atol, rtol):
     return worst
 
 
-def check_rows(name, got, want, tol, rel_tol, floor):
-    """``got`` against ``want`` with a bound that scales with each row (the
-    last dim), not with the tensor's maximum: |err| <= tol * (|ref| +
-    rms(ref's row) + floor * rms(ref)), the last term for rows whose exact
-    value is zero (a query row that sees one key: its ds cancels, leaving
-    the rounding of dp - delta); and rel_l2 <= ``rel_tol`` over the
-    tensor.  Returns max |err|."""
+def row_errors(got, want, floor):
+    """max |err|, max err / (|ref| + rms(ref's row) + floor * rms(ref))
+    and rel_l2 of ``got`` against ``want`` (see `check_rows`)."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     row = w.pow(2).mean(-1, keepdim=True).sqrt()
@@ -323,6 +349,17 @@ def check_rows(name, got, want, tol, rel_tol, floor):
     rel = float(err.norm() / w.norm()) if float(w.norm()) else float(
         err.norm())
     worst = float(err.max()) if err.numel() else 0.0
+    return worst, ratio, rel
+
+
+def check_rows(name, got, want, tol, rel_tol, floor):
+    """``got`` against ``want`` with a bound that scales with each row (the
+    last dim), not with the tensor's maximum: |err| <= tol * (|ref| +
+    rms(ref's row) + floor * rms(ref)), the last term for rows whose exact
+    value is zero (a query row that sees one key: its ds cancels, leaving
+    the rounding of dp - delta); and rel_l2 <= ``rel_tol`` over the
+    tensor.  Returns max |err|."""
+    worst, ratio, rel = row_errors(got, want, floor)
     ok = ratio <= tol and rel <= rel_tol
     print(f"  {name}: max_abs_err={worst:.3e}, max err/(|ref| + rms_row + "
           f"floor*rms)={ratio:.3e} (tol {tol}), rel_l2={rel:.3e} (tol "
@@ -1041,6 +1078,293 @@ def moe_path(dev, card: str, counted, expect, short, records,
     torch.cuda.empty_cache()
 
 
+def tp_collective_bound(op: str, world: int, rows: int, k: int, n: int,
+                        esize: int):
+    """The least time of one K12 or K14 call and what sets it: the bytes of
+    the A shards, of every chunk a rank receives (the gathered rows of
+    K12, the partials of K14), of B and of the output once each, and the
+    GEMM's operations.  ``rows``: K12's rows a rank, K14's M."""
+    if op == "ag_gemm":
+        flops = 2 * world * (world * rows) * k * n
+        moved = (world * rows * k + world * (world - 1) * rows * k
+                 + world * k * n + world * world * rows * n)
+    else:
+        mc = rows // world
+        flops = 2 * world * rows * k * n
+        moved = (world * rows * k + world * (world - 1) * mc * n
+                 + world * k * n + world * mc * n)
+    return bound(moved * esize, flops)
+
+
+def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
+            expect, short, records, errs) -> None:
+    """The TP path: Qwen3-8B at world TP_WORLD in mode ``fused``, the W
+    ranks in this process on the one card (`parallel.make_mesh`), every
+    projection of every layer on K12 (`ag_gemm`) or K14 (`gemm_rs`).
+
+    1. K12 and K14 against their plain versions, row by row in f32 from the
+       same inputs, in both methods: at the Qwen3-8B shapes of world 4
+       (prefill 512 rows a rank, decode 1), at world 2 on a ragged row
+       count in bf16 and at world 8 on a ragged one in f32; then
+       TP_REPEATS back-to-back calls of each kernel and method with fresh
+       inputs, queued before any is checked (a stale signal would let a
+       call read the last call's data);
+    2. a 2-layer f32 model of Qwen3-8B's widths at world 4, card (kernels)
+       against CPU (plain versions): prefill and decode logits;
+    3. the 8B model's weights resharded to world 4 (``model.reshard``):
+       ``Engine.serve`` of the Engine path's requests with exact launches
+       (two K12 and two K14 a layer and forward: ``fused`` in prefill,
+       ``ll`` in decode); its prefill logits and 3 decode steps (fed the
+       world-1 run's ``tokens``) within 3x the world-1 run's bf16 error
+       (``floor``) of the world-1 logits;
+    4. K12 and K14 times per method at the prefill and decode shapes with
+       their bounds, plain versions and library yardsticks; world-4 prefill
+       and decode beside world 1 in alternating windows; one traced
+       prefill and eight traced decode steps.
+
+    On one card every put is a copy inside one HBM: the times say what the
+    GEMMs and the copies cost here, not what NVLink overlap would buy.  The
+    world-4 copy of the weights and the symmetric buffers are freed at the
+    end."""
+    from triton_distributed_tpu_torch import Engine, Qwen3
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        AllGatherGEMMContext, ag_gemm, ag_gemm_plain)
+    from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+        GEMMReduceScatterContext, gemm_rs, gemm_rs_plain)
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+    from triton_distributed_tpu_torch.parallel import make_mesh
+
+    w, nl = TP_WORLD, cfg.num_layers
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, d = cfg.hidden_size, cfg.head_dim
+    qkv_loc = (cfg.num_heads + 2 * cfg.num_kv_heads) * d // w
+    o_loc = cfg.num_heads * d // w
+    f_loc = cfg.intermediate_size // w
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def run(op, world, method, a, b):
+        if op == "ag_gemm":
+            return ag_gemm(a, b, AllGatherGEMMContext("tp", world, method))
+        return gemm_rs(a, b, GEMMReduceScatterContext("tp", world, method))
+
+    def plain(op, a, b):
+        return (ag_gemm_plain if op == "ag_gemm" else gemm_rs_plain)(a, b)
+
+    def operands(op, world, rows, k, n, dtype):
+        """K12: rows a rank; K14: M.  b scaled so that outputs are about 1."""
+        scale = (k if op == "ag_gemm" else world * k) ** -0.5
+        return randn(world, rows, k, dtype=dtype), randn(
+            world, k, n, dtype=dtype) * scale
+
+    # -- 1. kernels vs plain
+    print(f"[tp path] K12 ag_gemm and K14 gemm_rs against their plain "
+          f"versions (f32 from the same inputs), row by row; bf16 tol "
+          f"{TP_TOL[bf16]}, f32 {TP_TOL[f32]}; the ranks of a world in one "
+          "launch on the one card")
+    m_pre, m_dec = BATCH * PROMPT // w, BATCH // w
+    cases = [
+        ("prefill QKV", "ag_gemm", w, m_pre, h, qkv_loc, bf16),
+        ("prefill gate_up", "ag_gemm", w, m_pre, h, 2 * f_loc, bf16),
+        ("decode QKV", "ag_gemm", w, m_dec, h, qkv_loc, bf16),
+        ("decode gate_up", "ag_gemm", w, m_dec, h, 2 * f_loc, bf16),
+        ("prefill O", "gemm_rs", w, BATCH * PROMPT, o_loc, h, bf16),
+        ("prefill down", "gemm_rs", w, BATCH * PROMPT, f_loc, h, bf16),
+        ("decode O", "gemm_rs", w, BATCH, o_loc, h, bf16),
+        ("decode down", "gemm_rs", w, BATCH, f_loc, h, bf16),
+        ("ragged", "ag_gemm", 2, 100, 1024, 768, bf16),
+        ("ragged", "gemm_rs", 2, 2 * 100, 1024, 768, bf16),
+        ("ragged f32", "ag_gemm", 8, 37, 512, 384, f32),
+        ("ragged f32", "gemm_rs", 8, 8 * 37, 512, 384, f32),
+    ]
+    timed = {}
+    for label, op, world, rows, k, n, dtype in cases:
+        a, b = operands(op, world, rows, k, n, dtype)
+        ref = plain(op, a.float(), b.float())
+        for method in ("fused", "ll"):
+            out = run(op, world, method, a, b)
+            torch.cuda.synchronize()
+            e = check_rows(f"{op} {label} world {world} {method} "
+                           f"a{tuple(a.shape)} b{tuple(b.shape)} {dtype}",
+                           out, ref, *TP_TOL[dtype], 0.0)
+            errs[op] = max(errs[op], e)
+        if world == w:
+            timed[(op, label)] = (a, b, rows, k, n)
+        del ref
+    for op, rows in (("ag_gemm", 16), ("gemm_rs", w * 16)):
+        for method in ("fused", "ll"):
+            ins = [operands(op, w, rows, 1024, 512, bf16)
+                   for _ in range(TP_REPEATS)]
+            outs = [run(op, w, method, a, b) for a, b in ins]
+            torch.cuda.synchronize()
+            worst = [row_errors(o, plain(op, a.float(), b.float()), 0.0)
+                     for (a, b), o in zip(ins, outs)]
+            ratio = max(x[1] for x in worst)
+            rel = max(x[2] for x in worst)
+            ok = ratio <= TP_TOL[bf16][0] and rel <= TP_TOL[bf16][1]
+            print(f"  {op} {method} world {w}: {TP_REPEATS} back-to-back "
+                  f"calls with fresh inputs, queued before any check: worst "
+                  f"err/(|ref| + rms_row)={ratio:.3e}, worst rel_l2="
+                  f"{rel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{op} {method}: a back-to-back call "
+                                     "disagrees with its plain version")
+            del ins, outs
+
+    # -- 2. card vs CPU, 2 layers in f32
+    two = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    card_m = Qwen3(two, mesh=make_mesh(w)).init_params(
+        torch.Generator(device=dev).manual_seed(9))
+    cpu_m = Qwen3(two, mesh=make_mesh(w, device="cpu"))
+    cpu_m.load_state_dict(card_m.state_dict())
+    b, s = TP_CHECK_SHAPE
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    runs, feed = {}, []
+    before = (ag_gemm.launches, gemm_rs.launches)
+    with torch.inference_mode():
+        for tag, m, dd in (("card", card_m, dev), ("CPU", cpu_m, "cpu")):
+            cache = m.create_cache(b, max_seq=s + TP_CHECK_STEPS)
+            logits = [m.prefill(ids.to(dd), cache)]
+            for step in range(TP_CHECK_STEPS):
+                if m is card_m:
+                    feed.append(logits[-1].argmax(-1).to(torch.int32))
+                logits.append(m.decode(feed[step].to(dd), cache))
+            runs[tag] = [lg.float().cpu() for lg in logits]
+    launched = (ag_gemm.launches - before[0], gemm_rs.launches - before[1])
+    worst = max(rel_l2(g[i], c[i]) for g, c in zip(runs["card"], runs["CPU"])
+                for i in range(b))
+    n_calls = 2 * two.num_layers * (1 + TP_CHECK_STEPS)
+    ok = worst <= TP_CHECK_REL_L2 and launched == (n_calls, n_calls)
+    print(f"[tp path] 2-layer f32 model of Qwen3-8B's widths at world {w}, "
+          f"{b} x {s} tokens + {TP_CHECK_STEPS} decode steps, card (K12, "
+          f"K14 in f32) vs CPU (plain versions): worst per-sequence logits "
+          f"rel_l2 {worst:.3e} (bound {TP_CHECK_REL_L2}); K12, K14 launches "
+          f"{launched} (want {n_calls} each) {'ok' if ok else 'FAIL'}; "
+          f"{card}")
+    if not ok:
+        raise AssertionError("TP 2-layer card vs CPU check failed")
+    del card_m, cpu_m, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. Qwen3-8B at world 4
+    t0 = time.perf_counter()
+    model4 = model.reshard(w)
+    torch.cuda.synchronize()
+    print(f"[tp path] Qwen3-8B resharded to world {w} (mode "
+          f"{model4.mode!r}, {w} ranks in one process on the one card) in "
+          f"{time.perf_counter() - t0:.1f} s; device memory held "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    engine4 = Engine(model4)
+    cache4 = model4.create_cache(BATCH, max_seq=CACHE_SEQ)
+    served, t_serve = [], []
+    ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
+    torch.cuda.reset_peak_memory_stats()
+    launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
+        engine4.serve(prompts, GEN_LEN, cache=cache4)))))
+    ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
+    tokens4 = served[0]
+    print(f"[tp path] Engine.serve at world {w}, {BATCH} requests x {PROMPT} "
+          f"prompt tokens, gen_len {GEN_LEN}, greedy: {t_serve[0]:.1f} ms "
+          f"(first call); launches {short(launches)}, of which ll: K12 "
+          f"{ll[0]}, K14 {ll[1]}; tokens equal to the world-1 run's: "
+          f"{int((tokens4 == tokens).sum())} of {tokens.numel()}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
+                  ag_gemm=2 * nl * GEN_LEN, gemm_rs=2 * nl * GEN_LEN)
+    if launches != want or ll != (2 * nl * (GEN_LEN - 1),) * 2:
+        raise AssertionError(f"TP launch counts {launches}, ll {ll} != "
+                             f"{want}")
+    if tokens4.shape != (BATCH, GEN_LEN) or not bool(
+            ((tokens4 >= 0) & (tokens4 < cfg.vocab_size)).all()):
+        raise AssertionError("world-4 tokens: bad shape or outside the "
+                             "vocabulary")
+    with torch.inference_mode():
+        c1 = model.create_cache(BATCH, max_seq=CACHE_SEQ)
+        c4 = model4.create_cache(BATCH, max_seq=CACHE_SEQ)
+        pairs = [("prefill", model.prefill(prompts, c1),
+                  model4.prefill(prompts, c4))]
+        for step in range(3):
+            pairs.append((f"decode step {step}",
+                          model.decode(tokens[:, step], c1),
+                          model4.decode(tokens[:, step], c4)))
+        for label, l1, l4 in pairs:
+            rel = rel_l2(l4, l1)
+            ok = bool(l4.isfinite().all()) and rel <= 3 * floor
+            agree = float((l4.argmax(-1) == l1.argmax(-1)).float().mean())
+            print(f"[tp path] world {w} against world 1, {label} (the "
+                  f"world-1 run's tokens): logits rel_l2 {rel:.3e} "
+                  f"(tolerance {3 * floor:.3e}, 3x the world-1 bf16 error), "
+                  f"max_abs_err {float((l4 - l1).abs().max()):.4f}, argmax "
+                  f"agreement {agree:.2f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"world-{w} {label} logits disagree")
+    del pairs
+
+    # -- 4. times
+    print(f"[times] K12 ag_gemm / K14 gemm_rs at world {w} on one card "
+          "(every put a copy inside one HBM, no NVLink); CUDA events; "
+          f"library: one bf16 cuBLAS product, GEMM only, no gather or "
+          f"scatter; {card}")
+    for (op, label), (a, b, rows, k, n) in timed.items():
+        ms = {method: time_ms(lambda: run(op, w, method, a, b), 20)
+              for method in ("fused", "ll")}
+        plain_ms = time_ms(lambda: plain(op, a, b), 3)
+        if op == "ag_gemm":
+            full = a.reshape(-1, k)
+            lib = time_ms(lambda: torch.matmul(full, b), 20)
+            lib_name = "torch.matmul of the gathered A with the stacked B"
+        else:
+            lib = time_ms(lambda: torch.bmm(a, b).view(w, w, -1, n).sum(0),
+                          20)
+            lib_name = "torch.bmm + sum over the ranks"
+        bms, by = tp_collective_bound(op, w, rows, k, n, a.element_size())
+        print(f"[times] {op} {label} a{tuple(a.shape)} b{tuple(b.shape)}: "
+              f"fused {ms['fused']:.4f} ms, ll {ms['ll']:.4f} ms (bound "
+              f"{bms:.4f} ms by {by}, {bms / ms['fused']:.1%} / "
+              f"{bms / ms['ll']:.1%} of bound), plain {plain_ms:.4f} ms, "
+              f"{lib_name} {lib:.4f} ms; {card}")
+        if label in ("prefill gate_up", "prefill down"):
+            records.append((op, ms["fused"], plain_ms, bms, by, lib,
+                            {"method": "fused", "shape": label,
+                             "ll_ms": ms["ll"],
+                             "library_note": lib_name + ", no gather or "
+                             "scatter (one card: the collective's copies "
+                             "stay in one HBM)"}))
+    del timed
+
+    window = {"world 1": [], f"world {w}": []}
+    with torch.inference_mode():
+        for label in ("world 1", f"world {w}", f"world {w}", "world 1"):
+            mdl, c = (model, c1) if label == "world 1" else (model4, c4)
+            pre = wall_ms(lambda: mdl.prefill(prompts, c))
+            c.set_offset(PROMPT + 1)
+            mdl.decode(tokens[:, 0], c)
+            dec = wall_ms(lambda: [mdl.decode(tokens[:, 0], c)
+                                   for _ in range(8)]) / 8
+            window[label].append((pre, dec))
+    print(f"[times] Qwen3-8B prefill ({BATCH} x {PROMPT}, last-position "
+          f"logits) ms and decode ms/step ({BATCH} rows at {PROMPT + 1} "
+          f"positions, 8-step windows), host clock, in the order world 1, "
+          f"world {w}, world {w}, world 1: "
+          + "; ".join(f"{label} prefill {a[0]:.2f}, {b_[0]:.2f}, decode "
+                      f"{a[1]:.2f}, {b_[1]:.2f}"
+                      for label, (a, b_) in window.items())
+          + f" (world {w}: {w} ranks on the one card); {card}")
+    with torch.inference_mode():
+        profile_phase(f"TP world {w} prefill",
+                      lambda: model4.prefill(prompts, c4), card)
+        profile_phase(f"TP world {w} decode x8", lambda: [
+            model4.decode(tokens[:, 0], c4) for _ in range(8)], card)
+    del model4, engine4, cache4, c4, c1, served
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1056,6 +1380,8 @@ def main() -> int:
         flash_decode_reference, gather_pages, quantize_kv)
     from triton_distributed_tpu_torch.kernels.allgather_gemm import (
         AllGatherGEMMContext, ag_gemm)
+    from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+        gemm_rs)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
         grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
         grouped_matmul_w8a8_reference)
@@ -1450,7 +1776,8 @@ def main() -> int:
                 "flash_attention_backward": flash_attention_backward,
                 "matmul": matmul,
                 "grouped_matmul": grouped_matmul,
-                "grouped_matmul_w8a8": grouped_matmul_w8a8}
+                "grouped_matmul_w8a8": grouped_matmul_w8a8,
+                "ag_gemm": ag_gemm, "gemm_rs": gemm_rs}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
@@ -2112,13 +2439,18 @@ def main() -> int:
         profile_phase(f"scheduler {label} x8",
                       lambda: [sched.step() for _ in range(8)], card)
 
-    # -- 9. training path ---------------------------------------------
-    # The serving phases are done: free their caches and schedulers, and
-    # let the training phase move the weights.
+    # -- 9. TP path ----------------------------------------------------
+    # The serving phases are done: free their caches and schedulers.  The
+    # TP path runs on the same weights, resharded; then the training phase
+    # moves them.
     del kept, sched, cache, cache_q, c, mdl, model_q, engine_q, engine
     del layers, layers_q, kc, vc, kq, vq, ksq, vsq
     gc.collect()
     torch.cuda.empty_cache()
+    tp_path(model, cfg, prompts, tokens, floor, dev, card, counted, expect,
+            short, records, errs)
+
+    # -- 10. training path --------------------------------------------
     print(f"[training path] device memory held before training: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (the bf16 "
           f"weights: {n_params * 2 / 2**30:.2f} GiB)")
@@ -2128,7 +2460,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10. MoE path ---------------------------------------------------
+    # -- 11. MoE path ---------------------------------------------------
     print(f"[moe path] device memory held before the MoE path: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     moe_path(dev, card, counted, expect, short, records, errs)
@@ -2139,6 +2471,9 @@ def main() -> int:
         extra = extra[0] if extra else {}
         pair = (f" (pair {extra['pair_ms']:.4f} ms; plain and library are "
                 "the whole backward)" if "pair_ms" in extra
+                else f" ({extra['method']} at {extra['shape']}; ll "
+                f"{extra['ll_ms']:.4f} ms; library: {extra['library_note']})"
+                if "ll_ms" in extra
                 else f" ({extra['library_note']}: "
                 f"{extra['library_loop_ms']:.4f} ms)" if extra else "")
         lib_text = "none" if lib is None else f"{lib:.4f} ms"

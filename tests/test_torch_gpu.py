@@ -20,6 +20,10 @@ kernels, and the outputs to bf16; the kernels need about 1.0e-2 and
 row's scale is its rms): bf16 out tol 2e-2 and rel_l2 1e-2 (one bf16
 rounding of an f32 sum whose products are exact), f32 out 1e-4 and 1e-5
 (the order of the sums); the int8 grouped GEMM (K9) bit for bit, as K7.
+The collective GEMMs at world W (K12 `ag_gemm`, K14 `gemm_rs`, W ranks in
+one launch on the one card) are held the same way against their plain
+versions in f32 from the same inputs; K14's bf16 partials are rounded to
+bf16 before their sum, which the bf16 bound covers.
 """
 
 import pytest
@@ -33,7 +37,9 @@ from triton_distributed_tpu_torch.kernels.flash_decode import (
     flash_decode, flash_decode_paged, flash_decode_paged_reference,
     flash_decode_reference, gather_pages, quantize_kv)
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-    AllGatherGEMMContext, ag_gemm)
+    AllGatherGEMMContext, ag_gemm, ag_gemm_plain)
+from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+    GEMMReduceScatterContext, gemm_rs, gemm_rs_plain)
 from triton_distributed_tpu_torch.kernels.grouped_gemm import (
     grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
     grouped_matmul_w8a8_reference)
@@ -699,7 +705,7 @@ def test_moe_kernels_reject_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="scale_b"):
         grouped_matmul_w8a8(aq[:, :, :32].contiguous(),
                             bq[:, :32].contiguous(), sa, sb[:, :16])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="want a_shard"):
         ag_gemm(a[0], b[0], AllGatherGEMMContext("tp", 2, "fused"))
 
 
@@ -806,3 +812,104 @@ def test_moe_layer_w8a8_gpu_matches_cpu(cuda):
             torch.testing.assert_close(gpu_layer(x.to(cuda)).cpu(),
                                        cpu_layer(x), atol=1e-4, rtol=1e-4)
     assert grouped_matmul.launches == before + 4
+
+
+# ---- tensor parallelism at world W: K12, K14 ------------------------------
+
+#: (world, m, k, n): Qwen3-8B's QKV at a 64-row shard (the 128-row tile,
+#: the ring), a decode row a rank (16-row padding, the 64-row tile in ll),
+#: ragged rows at world 2, world 8, and k and n off 16-byte rows at an odd
+#: world (loads and copies by element).
+TP_SHAPES = [(4, 64, 256, 384), (4, 1, 512, 256), (2, 37, 136, 200),
+             (8, 16, 128, 96), (3, 5, 100, 77)]
+
+
+@pytest.mark.parametrize("method", ["fused", "ll"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,n", TP_SHAPES)
+def test_ag_gemm_kernel(cuda, method, dtype, world, m, k, n):
+    """K12 against its plain version, row by row, over 5 back-to-back calls
+    with fresh inputs (stale signals would show); the gathered A exactly;
+    one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(world * 1000 + m + k + n)
+    ctx = AllGatherGEMMContext("tp", world, method)
+    before = ag_gemm.launches
+    for _ in range(5):
+        a = _randn(gen, dtype, cuda, world, m, k)
+        b = _randn(gen, dtype, cuda, world, k, n) * k ** -0.5
+        out, gathered = ag_gemm(a, b, ctx, return_gathered=True)
+        ref = ag_gemm_plain(a.float(), b.float())
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (world, world * m, n)
+        assert torch.equal(gathered, a.reshape(1, world * m, k).expand(
+            world, -1, -1))
+        _assert_rows_close("ag_gemm", out, ref, *GEMM_TOL[dtype])
+    assert ag_gemm.launches == before + 5
+
+
+@pytest.mark.parametrize("method", ["fused", "ll"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,n", TP_SHAPES)
+def test_gemm_rs_kernel(cuda, method, dtype, world, m, k, n):
+    """K14 against its plain version (f32 partials, summed in f32), row by
+    row, over 5 back-to-back calls with fresh inputs; one launch a call.
+    ``m`` rows a chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(world * 1000 + m + k + n)
+    ctx = GEMMReduceScatterContext("tp", world, method)
+    before = gemm_rs.launches
+    for _ in range(5):
+        a = _randn(gen, dtype, cuda, world, world * m, k)
+        b = _randn(gen, dtype, cuda, world, k, n) * (world * k) ** -0.5
+        out = gemm_rs(a, b, ctx)
+        ref = gemm_rs_plain(a.float(), b.float())
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (world, m, n)
+        _assert_rows_close("gemm_rs", out, ref, *GEMM_TOL[dtype])
+    assert gemm_rs.launches == before + 5
+
+
+def test_tp_kernels_reject_unsupported_inputs(cuda):
+    a = torch.zeros(4, 16, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(4, 64, 32, device=cuda, dtype=torch.bfloat16)
+    ag, rs = (AllGatherGEMMContext("tp", 4, "fused"),
+              GEMMReduceScatterContext("tp", 4, "fused"))
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        ag_gemm(a, b.float(), ag)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm_rs(a, b.transpose(1, 2).contiguous().transpose(1, 2), rs)
+    with pytest.raises(ValueError, match="W | M"):
+        gemm_rs(a[:, :15], b, rs)
+    with pytest.raises(ValueError, match="want a_shard"):
+        ag_gemm(a[:2], b, ag)
+
+
+def test_tiny_tp_model_gpu_matches_cpu(cuda):
+    """A tiny f32 Qwen3 at world 4 in mode fused: the card (K12, K14, K1,
+    K2) against the CPU (plain versions): prefill logits within 1e-3, then
+    `Engine.serve` with the same greedy tokens and the exact launches: per
+    layer and forward two K12 and two K14, ll in decode."""
+    from triton_distributed_tpu_torch import Engine, ModelConfig, Qwen3
+    from triton_distributed_tpu_torch.parallel import make_mesh
+
+    cfg = ModelConfig.tiny(dtype="float32", head_dim=64)
+    cpu = Qwen3(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)).reshard(4)
+    gpu = Qwen3(cfg, mesh=make_mesh(4, device=cuda))
+    gpu.load_state_dict(cpu.state_dict())
+    # 96 rows a rank: 384 gathered rows take the ring ("fused") in
+    # prefill; a decode row a rank takes "ll".
+    ids = torch.randint(0, cfg.vocab_size, (4, 96),
+                        generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        gpu.prefill(ids.to(cuda), gpu.create_cache(4)).cpu(),
+        cpu.prefill(ids, cpu.create_cache(4)), atol=1e-3, rtol=1e-3)
+    gen, nl = 6, cfg.num_layers
+    counters = (ag_gemm, gemm_rs)
+    before = [c.launches for c in counters] + [c.ll_launches
+                                                for c in counters]
+    got = Engine(gpu).serve(ids.to(cuda), gen).cpu()
+    after = [c.launches for c in counters] + [c.ll_launches
+                                               for c in counters]
+    assert [x - y for x, y in zip(after, before)] == [
+        2 * nl * gen, 2 * nl * gen, 2 * nl * (gen - 1), 2 * nl * (gen - 1)]
+    assert torch.equal(got, Engine(cpu).serve(ids, gen))

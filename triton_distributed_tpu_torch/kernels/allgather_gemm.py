@@ -1,67 +1,187 @@
-"""AllGather-GEMM at world 1 (port of `triton_distributed_tpu/kernels/
-allgather_gemm.py` `AllGatherGEMMContext` and `ag_gemm` for
-``world_size == 1``).
+"""AllGather-GEMM (port of `triton_distributed_tpu/kernels/allgather_gemm.py`
+`AllGatherGEMMContext` and `ag_gemm`).
 
-With one device there is nothing to gather: ``method="fused"`` or
-``"ll"`` runs the matmul kernel (`kernels.matmul.matmul`, K6), and
+At world 1 there is nothing to gather: ``method="fused"`` or ``"ll"`` runs
+the matmul kernel (`kernels.matmul.matmul`, K6) on ``(m, k) @ (k, n)``, and
 ``"xla"`` (what ``"auto"`` picks at world 1) a library product with an f32
-result cast back, as the JAX package's ``xla_dot`` does.  The ring and
-one-shot kernels, the hierarchical and torus contexts, the fault-injection
-fields and the observability event belong to the multi-GPU slice:
-``world_size > 1`` raises.
+result cast back, as the JAX package's ``xla_dot`` does.
+
+At world W > 1 the operands are rank-stacked (`parallel.mesh`): the row
+shards ``a_shard`` (W, m, k) and the weight column shards ``b`` (W, k,
+n_loc); every rank gets ``all_gather(a) @ b_r``, so the result is (W, W*m,
+n_loc).  On the card that is one launch of ``csrc/ag_gemm.cu`` (K12) over
+every rank: ``"fused"`` the ring that multiplies each chunk as it arrives
+(JAX `_ag_gemm_fused_kernel`), ``"ll"`` the one-shot push then one GEMM
+(`_ag_gemm_ll_kernel`); ``"xla"`` gathers by reshape and runs a library
+product.  Both kernel methods reduce the whole of k for every row, so the
+choice does not change the result.  Rows are padded to the row tile and
+sliced back, as the JAX wrapper does.  ``"auto"`` takes the JAX shape-only
+rule: ``"ll"`` while the padded gathered rows are at most 256, else
+``"fused"``; the model-driven `choose_ll_or_fused` rests on the TPU's ICI
+constants and waits for a model of this card's.  The hierarchical and torus
+contexts, the fault-injection fields and the observability event are not
+ported.
+
+On a CUDA tensor `ag_gemm` launches the kernel or raises; on a CPU tensor
+it computes the plain version, `ag_gemm_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
 import torch
 
+from triton_distributed_tpu_torch import collective_ids as cids
+from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.matmul import matmul
+from triton_distributed_tpu_torch.language.core import symmetric_buffers
+from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
 
 METHODS = ("auto", "fused", "ll", "xla")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"ag_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, ctypes.c_uint64, ctypes.POINTER(_I), _P]}
+
+
+def round_up_rows(m: int, dtype) -> int:
+    """Rows padded to the row tile of the dtype: 16 for 2-byte elements
+    (the bf16 ``mma`` tile), 8 for 4-byte and 32 for 1-byte (a copy of
+    `triton_distributed_tpu/kernels/matmul.py` `round_up_rows` :277, whose
+    numbers the ``"auto"`` rule counts in)."""
+    rows = {1: 32, 2: 16, 4: 8}[torch.empty((), dtype=dtype).element_size()]
+    return (m + rows - 1) // rows * rows
 
 
 @dataclasses.dataclass(frozen=True)
 class AllGatherGEMMContext:
-    """The fields a world-1 caller sets.  ``method``: "auto" | "fused" |
-    "ll" | "xla"."""
+    """``method``: "auto" | "fused" | "ll" | "xla".  ``collective_id``
+    keys the instance's symmetric buffers and signals; concurrent
+    instances need distinct ids (`collective_ids`)."""
 
     axis: str
     world_size: int
     method: str = "auto"
+    collective_id: int = cids.AG_GEMM
+
+    #: "auto" picks the one-shot ll method up to this many (padded)
+    #: gathered rows: the decode regime.
+    LL_MAX_GATHERED_ROWS = 256
 
     def resolve_method(self, m: int, dtype, k: Optional[int] = None,
                        n: Optional[int] = None) -> str:
-        """Pick xla / ll / fused: a named method as it is; "auto" is
-        "xla" at world 1, where there is no communication to overlap."""
+        """Pick xla / ll / fused: a named method as it is; "auto" is "xla"
+        at world 1, where there is no communication to overlap, else the
+        shape-only rule (k and n do not enter it)."""
         if self.method not in METHODS:
             raise ValueError(f"method {self.method!r} not in {METHODS}")
         if self.method != "auto":
             return self.method
         if self.world_size <= 1:
             return "xla"
-        raise _multi_gpu(self.world_size)
+        rows = self.world_size * round_up_rows(m, dtype)
+        return "ll" if rows <= self.LL_MAX_GATHERED_ROWS else "fused"
 
 
-def _multi_gpu(world: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"ag_gemm at world_size={world}: the multi-GPU AllGather-GEMM "
-        "kernels are not yet ported (only world_size=1)")
+def ag_gemm_plain(a_shard, b):
+    """The plain version at world W: gather by reshape, an f32 product
+    with every rank's shard of b, cast to a's dtype.  a_shard (W, m, k),
+    b (W, k, n) -> (W, W*m, n)."""
+    full = a_shard.reshape(-1, a_shard.shape[-1])
+    return torch.matmul(full.float(), b.float()).to(a_shard.dtype)
 
 
 def ag_gemm(a_shard, b, ctx: AllGatherGEMMContext,
             return_gathered: bool = False):
-    """out = all_gather(a_shard) @ b, at world 1 a_shard @ b, in a_shard's
-    dtype.  With ``return_gathered`` also returns the gathered A (at world
-    1, a_shard itself)."""
-    if ctx.world_size > 1:
-        raise _multi_gpu(ctx.world_size)
-    m, k = a_shard.shape
-    method = ctx.resolve_method(m, a_shard.dtype, k=k, n=b.shape[1])
-    if method in ("fused", "ll"):
-        out = matmul(a_shard, b)
-    else:
-        out = torch.matmul(a_shard.float(), b.float()).to(a_shard.dtype)
-    return (out, a_shard) if return_gathered else out
+    """out = all_gather(a_shard) @ b in a_shard's dtype (f32 accumulation).
+
+    World 1: a_shard (m, k), b (k, n) -> (m, n); the gathered A is a_shard
+    itself.  World W: a_shard (W, m, k), b (W, k, n) -> (W, W*m, n), and
+    the gathered A (W, W*m, k) (every rank's copy).  The kernel takes bf16
+    or f32, both operands alike and contiguous, at most 8 ranks; anything
+    else raises.  Each launch of K12 adds one to ``ag_gemm.launches`` (and
+    an ``ll`` launch also to ``ag_gemm.ll_launches``)."""
+    if ctx.world_size <= 1:
+        m, k = a_shard.shape
+        method = ctx.resolve_method(m, a_shard.dtype, k=k, n=b.shape[1])
+        if method in ("fused", "ll"):
+            out = matmul(a_shard, b)
+        else:
+            out = torch.matmul(a_shard.float(), b.float()).to(a_shard.dtype)
+        return (out, a_shard) if return_gathered else out
+    world = ctx.world_size
+    if (a_shard.dim() != 3 or b.dim() != 3 or a_shard.shape[0] != world
+            or b.shape[0] != world or a_shard.shape[2] != b.shape[1]):
+        raise ValueError(f"ag_gemm at world {world}: want a_shard (W, m, k) "
+                         f"and b (W, k, n), got {tuple(a_shard.shape)} and "
+                         f"{tuple(b.shape)}")
+    _, m, k = a_shard.shape
+    method = ctx.resolve_method(m, a_shard.dtype, k=k, n=b.shape[2])
+    if method == "xla" or a_shard.device.type == "cpu":
+        out = ag_gemm_plain(a_shard, b)
+        if not return_gathered:
+            return out
+        full = a_shard.reshape(1, world * m, k)
+        return out, full.expand(world, -1, -1).clone()
+    return _launch(a_shard, b, ctx, method, return_gathered)
+
+
+ag_gemm.launches = 0
+ag_gemm.ll_launches = 0
+
+
+def _launch(a_shard, b, ctx, method, return_gathered):
+    world, m, k = a_shard.shape
+    n = b.shape[2]
+    _check(a_shard, b, world)
+    mp = round_up_rows(m, a_shard.dtype)
+    a_p = a_shard
+    if mp != m:
+        a_p = a_shard.new_zeros((world, mp, k))
+        a_p[:, :m] = a_shard
+    inst = symmetric_buffers("ag_gemm", ctx.collective_id, method,
+                             a_shard.dtype, world, a_shard.device)
+    gathered = inst.buffer("gathered", (world, mp, k), a_shard.dtype)
+    out = torch.empty((world, world, mp, n), dtype=a_shard.dtype,
+                      device=a_shard.device)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("ag_gemm", _SIGNATURES)
+    rc = lib.ag_gemm(
+        a_p.data_ptr(), b.data_ptr(), out.data_ptr(), inst.peers(gathered),
+        inst.signal_peers(), world, 0, world, int(method == "ll"),
+        _build.DTYPE_CODES[a_shard.dtype], mp, n, k, inst.epoch,
+        ctypes.byref(blocks),
+        torch.cuda.current_stream(a_shard.device).cuda_stream)
+    _build.check(lib, rc, f"ag_gemm ({method}) kernel launch")
+    inst.advance(blocks.value)
+    ag_gemm.launches += 1
+    if method == "ll":
+        ag_gemm.ll_launches += 1
+    if mp != m:
+        out = out[:, :, :m]
+    out = out.reshape(world, world * m, n)
+    if not return_gathered:
+        return out
+    # A copy: the instance's buffer is the next call's.
+    return out, gathered[:, :, :m].clone().reshape(world, world * m, k)
+
+
+def _check(a, b, world):
+    who = "ag_gemm"
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{who}: a on {a.device}, b on {b.device}; want "
+                         "one CUDA device")
+    if a.dtype not in _build.DTYPE_CODES or b.dtype != a.dtype:
+        raise ValueError(f"{who}: a is {a.dtype} and b {b.dtype}; want both "
+                         "bfloat16 or both float32")
+    if not a.is_contiguous() or not b.is_contiguous():
+        raise ValueError(f"{who}: operands must be contiguous")
+    if world > MAX_WORLD:
+        raise ValueError(f"{who}: world {world} > {MAX_WORLD}")
+    if 0 in a.shape or 0 in b.shape:
+        raise ValueError(f"{who}: empty operand a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)}")

@@ -4,10 +4,11 @@ Port of `triton_distributed_tpu/kernels/matmul.py` `matmul` (the Pallas
 `_matmul_kernel`): on the card it is the grouped GEMM kernel
 (``csrc/grouped_matmul.cu``) with one group, launched by this wrapper and
 counted apart from `grouped_matmul`.  The TPU block sizes (`MatmulConfig`,
-`matmul_config_space`) and the Mosaic tiling helpers (`round_up_rows`,
-`pad_lanes`, `pad_contraction_lanes`) do not carry over; the in-kernel
-forms (`emit_matmul`, `emit_chunked_matmul`) wait for the fused multi-GPU
-kernels.
+`matmul_config_space`) and the Mosaic tiling helpers (`pad_lanes`,
+`pad_contraction_lanes`) do not carry over (`round_up_rows` has a copy in
+`kernels.allgather_gemm`); the in-kernel forms (`emit_matmul`,
+`emit_chunked_matmul`) are the tile body ``csrc/gemm_tile.cuh`` that the
+collective GEMMs (K12, K14) run.
 
 On a CUDA tensor `matmul` launches the kernel or raises; on a CPU tensor
 it computes the plain version, `matmul_reference`.

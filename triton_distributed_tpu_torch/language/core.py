@@ -1,0 +1,98 @@
+"""The host half of the device-side communication primitives (port of
+`triton_distributed_tpu/language/core.py`).
+
+The primitives themselves are device functions in ``kernels/csrc/dl.cuh``:
+``rank``, ``num_ranks`` and ``peer_id`` (JAX :35-52), ``put`` / ``put_nbi``
+(:70-92), ``notify`` (:129), ``signal_wait_until`` / ``wait`` (:153-165),
+``barrier_all`` (:193), ``entry_barrier`` (:223) and ``barrier_neighbors``
+(:364), over a table of peer pointers, with the memory scope a template
+parameter.  What the host keeps for them lives here: each collective
+instance's symmetric buffers and signal words, and its epoch.
+
+Signal words are monotonic counters that no call resets.  In every call of
+an instance each of its signal words receives the same multiple of P adds,
+P being the blocks a rank of that launch; the instance's ``epoch`` is the
+sum of P over its calls so far.  A kernel is handed the epoch before its
+call, adds its own P and waits for that multiple of the sum, so a signal of
+a later call cannot satisfy a wait early and no stale signal of an earlier
+call is left to clear.  With one process per GPU the same holds: each
+process makes the same calls with the same P, and the kernels' entry
+barrier keeps a rank from writing into a peer that has not yet entered the
+call, i.e. is still reading its buffers in the last one.  A method's
+barrier adds differ from another method's, so each (collective id, method)
+pair keys its own instance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+#: Counters a rank holds (``dl.cuh`` SIGNAL_WORDS): the entry barrier, the
+#: rank-local barrier, then one arrival counter per source rank (8 ranks at
+#: most).
+SIGNAL_WORDS = 10
+
+
+class SymmetricBuffers:
+    """Every rank's buffers and signal words of one collective instance,
+    on one device: rank r's copy of a buffer is row r of a rank-stacked
+    tensor, reached by the kernels through a table of per-rank pointers."""
+
+    def __init__(self, world: int, device):
+        self.world = world
+        self.device = torch.device(device)
+        self.signals = torch.zeros((world, SIGNAL_WORDS), dtype=torch.int64,
+                                   device=self.device)
+        #: The sum, over this instance's calls so far, of the blocks a rank.
+        self.epoch = 0
+        self._buffers: dict[str, torch.Tensor] = {}
+
+    def buffer(self, name: str, shape, dtype) -> torch.Tensor:
+        """The rank-stacked buffer ``name`` as (world, *shape), kept across
+        calls (its contents are the last call's) and grown when a call
+        needs more."""
+        numel = math.prod(shape)
+        buf = self._buffers.get(name)
+        if buf is None or buf.dtype != dtype or buf.shape[1] < numel:
+            buf = torch.empty((self.world, numel), dtype=dtype,
+                              device=self.device)
+            self._buffers[name] = buf
+        return buf[:, :numel].view(self.world, *shape)
+
+    @staticmethod
+    def peers(t: torch.Tensor):
+        """The ctypes table of rank r's pointer ``t[r]`` for every rank."""
+        return (ctypes.c_void_p * t.shape[0])(
+            *(t[r].data_ptr() for r in range(t.shape[0])))
+
+    def signal_peers(self):
+        return self.peers(self.signals)
+
+    def advance(self, blocks: int) -> None:
+        """Count a launched call of ``blocks`` blocks a rank."""
+        self.epoch += blocks
+
+
+_instances: dict[tuple, SymmetricBuffers] = {}
+
+
+def symmetric_buffers(op: str, collective_id: int, method: str, dtype,
+                      world: int, device) -> SymmetricBuffers:
+    """The instance of collective ``collective_id`` running ``op``'s
+    ``method`` at ``world`` on ``device`` in ``dtype``, made at first use.
+    Sequential calls share an instance; concurrent ones need distinct ids
+    (`collective_ids`)."""
+    key = (op, collective_id, method, dtype, world, torch.device(device))
+    inst = _instances.get(key)
+    if inst is None:
+        inst = _instances[key] = SymmetricBuffers(world, device)
+    return inst
+
+
+def release_symmetric_buffers() -> None:
+    """Drop every instance and its device memory (the next call of a
+    collective starts a fresh instance at epoch 0)."""
+    _instances.clear()

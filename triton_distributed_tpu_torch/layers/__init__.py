@@ -1,1 +1,2 @@
-"""Attention and MLP layers at world_size 1."""
+"""Attention, MLP and MoE layers, at world 1 and (dense layers) at
+world W."""

@@ -28,7 +28,7 @@ from triton_distributed_tpu_torch.kernels.grouped_gemm import (
     grouped_matmul_diff)
 from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    normal_init_, require_single_gpu, weight)
+    normal_init_, require_ported, weight)
 from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
 
 MODES = ("xla", "fused", "w8a8")
@@ -71,7 +71,7 @@ class MoEMLP(nn.Module):
                  mode: str = "fused", world_size: int = 1, *,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        require_single_gpu(world_size)
+        require_ported(world_size, "moe")
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         self.hidden = hidden

@@ -1,16 +1,27 @@
-"""MLP layer (port of `triton_distributed_tpu/layers/tp_mlp.py` at
-``world_size == 1``): up-projection to [gate | up], gated SiLU,
-down-projection.  At world 1 the ``xla`` and ``fused`` modes compute the
-same plain products (the JAX package's AllGather-GEMM and
-GEMM-ReduceScatter reduce to dots there).  The ``w8a8`` mode holds int8
-weights with per-output-channel scales (`TPMLP.quantize_params`) and runs
-both projections on the int8 GEMM kernel (`kernels.quantized.matmul_w8a8`),
-with the activations quantized per row on the fly.  The ``xla`` and
-``fused`` modes differentiate through ``torch.matmul`` (at world 1 the JAX
-package's `ag_gemm_diff`/`gemm_rs_diff` are dots); ``w8a8`` has no
-backward and refuses a gradient, as the JAX layer's ``training`` assert
-does.  The ``fused_ar`` mode and multi-GPU tensor parallelism are not
-ported yet."""
+"""MLP layer (port of `triton_distributed_tpu/layers/tp_mlp.py`):
+up-projection to [gate | up], gated SiLU, down-projection.
+
+At world 1 the ``xla`` and ``fused`` modes compute the same plain products
+(the JAX package's AllGather-GEMM and GEMM-ReduceScatter reduce to dots
+there) and differentiate through ``torch.matmul`` (at world 1 the JAX
+package's `ag_gemm_diff`/`gemm_rs_diff` are dots).  The ``w8a8`` mode holds
+int8 weights with per-output-channel scales (`TPMLP.quantize_params`) and
+runs both projections on the int8 GEMM kernel
+(`kernels.quantized.matmul_w8a8`), with the activations quantized per row
+on the fly; it has no backward and refuses a gradient, as the JAX layer's
+``training`` assert does.
+
+At world W > 1 (gate/up column-parallel, down row-parallel, one process
+holding every rank: `parallel.mesh`) the weights are rank-stacked,
+``gate_up`` (W, hidden, 2 ffn_loc) with columns [gate_r | up_r] and
+``down`` (W, ffn_loc, hidden), and x is row-sharded (W, M/W, hidden).
+``fused`` (JAX `_fwd_fused` :111) is `ag_gemm` (K12), gated SiLU, then
+`gemm_rs` (K14), whose partials are rounded to x's dtype before their sum;
+``xla`` (JAX `_fwd_xla` :102) runs their ``"xla"`` method: gather by
+reshape, a library product, and the f32 partials summed unrounded
+(`gemm_rs_nonoverlap`, as JAX `_psum_scatter_rows` :93).  ``w8a8``,
+``fused_ar`` (which needs K17 at any world) and training at world > 1
+raise `NotImplementedError` naming their kernels."""
 
 from __future__ import annotations
 
@@ -19,10 +30,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from triton_distributed_tpu_torch import collective_ids as cids
+from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+    AllGatherGEMMContext, ag_gemm)
+from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+    GEMMReduceScatterContext, gemm_rs)
 from triton_distributed_tpu_torch.kernels.quantized import (
     matmul_w8a8, quantize_sym)
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    normal_init_, require_single_gpu, weight)
+    UNPORTED_AT_WORLD, collective_method, normal_init_, require_ported,
+    weight)
 
 MODES = ("xla", "fused", "w8a8")
 
@@ -54,22 +71,39 @@ def mlp_w8a8(x, gate_up_q, gate_up_scale, down_q, down_scale,
 
 
 class TPMLP(nn.Module):
-    """Weights: ``gate_up`` (hidden, 2 ffn) as [gate | up], ``down``
-    (ffn, hidden); in ``w8a8`` mode their int8 forms ``gate_up_q``,
-    ``down_q`` with f32 per-output-channel scales ``gate_up_scale``
-    (2 ffn,), ``down_scale`` (hidden,) instead."""
+    """Weights at world 1: ``gate_up`` (hidden, 2 ffn) as [gate | up],
+    ``down`` (ffn, hidden); in ``w8a8`` mode their int8 forms
+    ``gate_up_q``, ``down_q`` with f32 per-output-channel scales
+    ``gate_up_scale`` (2 ffn,), ``down_scale`` (hidden,) instead.  At world
+    W: ``gate_up`` (W, hidden, 2 ffn_loc) as [gate_r | up_r] and ``down``
+    (W, ffn_loc, hidden)."""
 
     def __init__(self, hidden: int, ffn: int, mode: str = "fused",
                  world_size: int = 1, *, dtype=torch.bfloat16, device=None):
         super().__init__()
-        require_single_gpu(world_size)
+        if mode == "fused_ar":
+            raise NotImplementedError(
+                f"TPMLP(mode='fused_ar'): {UNPORTED_AT_WORLD['fused_ar']}, "
+                "not yet ported")
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES} (the others are "
                              "not ported yet)")
+        if mode == "w8a8":
+            require_ported(world_size, "w8a8")
+        if ffn % world_size:
+            raise ValueError(f"ffn={ffn} does not split over "
+                             f"world_size={world_size}")
         self.hidden = hidden
         self.ffn = ffn
         self.mode = mode
-        if mode == "w8a8":
+        self.world_size = world_size
+        if world_size > 1:
+            f_loc = ffn // world_size
+            self.gate_up = weight(world_size, hidden, 2 * f_loc, dtype=dtype,
+                                  device=device)
+            self.down = weight(world_size, f_loc, hidden, dtype=dtype,
+                               device=device)
+        elif mode == "w8a8":
             self.gate_up_q = weight(hidden, 2 * ffn, dtype=torch.int8,
                                     device=device)
             self.gate_up_scale = weight(2 * ffn, dtype=torch.float32,
@@ -129,6 +163,10 @@ class TPMLP(nn.Module):
         return self
 
     def forward(self, x):
+        """x (M, hidden) -> (M, hidden); at world W x (W, M/W, hidden) ->
+        the same rows (W, M/W, hidden)."""
+        if self.world_size > 1:
+            return self._forward_tp(x)
         if self.mode == "w8a8":
             if torch.is_grad_enabled() and x.requires_grad:
                 raise NotImplementedError(
@@ -137,3 +175,13 @@ class TPMLP(nn.Module):
             return mlp_w8a8(x, *(getattr(self, n) for n in QUANTIZED))
         return torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
                             self.down)
+
+    def _forward_tp(self, x):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.gate_up.requires_grad):
+            require_ported(self.world_size, "grad")
+        w, method = self.world_size, collective_method(self.mode)
+        h = ag_gemm(x, self.gate_up, AllGatherGEMMContext(
+            "tp", w, method, collective_id=cids.TP_MLP_AG))
+        return gemm_rs(gated_silu(h), self.down, GEMMReduceScatterContext(
+            "tp", w, method, collective_id=cids.TP_MLP_RS))

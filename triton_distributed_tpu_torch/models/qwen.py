@@ -1,5 +1,4 @@
-"""Qwen3 dense model on one GPU (port of
-`triton_distributed_tpu/models/qwen.py` `Qwen3` at ``world == 1``).
+"""Qwen3 model (port of `triton_distributed_tpu/models/qwen.py` `Qwen3`).
 
 The JAX model is a parameter pytree plus pure per-device functions; here
 the parameters live in the module.  Layouts are the JAX package's, so its
@@ -12,8 +11,21 @@ read the cache).  The MLP runs in the ``xla`` or ``fused`` mode, as the
 JAX model's `set_mode` allows (``w8a8`` is a layer mode of `TPMLP`, not a
 model mode there either).  With ``config.num_experts > 0`` every MLP is a
 `MoEMLP` (Qwen3-MoE), whose two expert products run on the grouped GEMM
-kernel; its router is f32 whatever the model's dtype.  Multi-GPU tensor
-and expert parallelism and loading HF checkpoints are not ported yet.
+kernel; its router is f32 whatever the model's dtype.  Loading HF
+checkpoints is not ported yet.
+
+Tensor parallelism: ``Qwen3(config, mode, mesh=make_mesh(W))`` runs the
+JAX model's per-device bodies for a world of W (`prefill_shard` :242,
+`decode_shard` :302, `decode_paged_shard` :266) with every rank in this
+process (`parallel.mesh`): the embedding rows are sliced per rank into the
+rank-stacked (W, M/W, hidden) activations, every projection of the dense
+layers goes through AllGather-GEMM or GEMM-ReduceScatter (K12 and K14 in
+mode ``fused``), the final all-gather of rows is a reshape, and the
+vocab-sharded head (JAX ``P(None, tp)``: rank r's columns r V/W ..)
+concatenates to the one (hidden, V) product, kept whole here.  Decode needs
+a batch that W divides.  `reshard` moves a world-1 model's weights into the
+world-W layout, so the same weights run at both.  MoE models, training and
+the scheduler at world > 1 are refused.
 
 The engine contract the serving stack drives: `create_cache`,
 `create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
@@ -36,12 +48,13 @@ import torch
 from torch import nn
 
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    TPAttention, normal_init_, require_single_gpu, rms_norm, weight)
+    TPAttention, normal_init_, require_ported, rms_norm, weight)
 from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedKVCache)
+from triton_distributed_tpu_torch.parallel.mesh import MeshContext
 from triton_distributed_tpu_torch.utils.platform import resolve_device
 
 
@@ -65,8 +78,52 @@ def _mlp_names(config: ModelConfig):
     return ("gate_up", "down")
 
 
+def _stack_columns(w, world: int):
+    """The JAX global layout's column shards, (in, W * c) -> (W, in, c)."""
+    return w.reshape(w.shape[0], world, -1).transpose(0, 1)
+
+
+def _stack_rows(w, world: int):
+    """The JAX global layout's row shards, (W * r, out) -> (W, r, out)."""
+    return w.reshape(world, -1, w.shape[-1])
+
+
+def _global_columns(w):
+    """The inverse of `_stack_columns`: (W, in, c) -> (in, W * c)."""
+    return w.transpose(0, 1).reshape(w.shape[1], -1)
+
+
+def _tp_layout(name: str, tree_leaf, world: int):
+    """A JAX world-W leaf -> the port's rank-stacked tensor."""
+    if name in ("wqkv", "gate_up"):
+        return _stack_columns(tree_leaf, world)
+    if name in ("wo", "down"):
+        return _stack_rows(tree_leaf, world)
+    return tree_leaf
+
+
+def _jax_layout(name: str, t, world: int):
+    """The port's rank-stacked tensor -> the JAX world-W leaf."""
+    if world == 1:
+        return t
+    if name in ("wqkv", "gate_up"):
+        return _global_columns(t)
+    if name in ("wo", "down"):
+        return t.reshape(-1, t.shape[-1])
+    return t
+
+
+def _interleave(parts, world: int):
+    """World-1 column blocks (e.g. [q | k | v]) -> each rank's columns of
+    every block side by side, rank-stacked: (W, in, sum of c_i / W).  As
+    the JAX `load_hf_weights` interleaves wqkv and `_interleave_gate_up`
+    gate_up."""
+    return torch.cat([_stack_columns(p, world) for p in parts], dim=2)
+
+
 class Qwen3Layer(nn.Module):
-    def __init__(self, config: ModelConfig, mode: str, dtype, device):
+    def __init__(self, config: ModelConfig, mode: str, dtype, device,
+                 world_size: int = 1):
         super().__init__()
         h = config.hidden_size
         self.eps = config.rms_norm_eps
@@ -75,7 +132,7 @@ class Qwen3Layer(nn.Module):
         self.attn = TPAttention(
             h, config.num_heads, config.num_kv_heads, config.head_dim,
             rope_theta=config.rope_theta, qk_norm=config.qk_norm,
-            dtype=dtype, device=device)
+            world_size=world_size, mode=mode, dtype=dtype, device=device)
         if config.is_moe:
             self.mlp = MoEMLP(
                 h, config.moe_intermediate_size or config.intermediate_size,
@@ -84,7 +141,8 @@ class Qwen3Layer(nn.Module):
                 dtype=dtype, device=device)
         else:
             self.mlp = TPMLP(h, config.intermediate_size, mode=mode,
-                             dtype=dtype, device=device)
+                             world_size=world_size, dtype=dtype,
+                             device=device)
 
     def prefill(self, x, batch: int):
         h, kv = self.attn.prefill(rms_norm(x, self.ln1, self.eps), batch)
@@ -104,24 +162,35 @@ class Qwen3Layer(nn.Module):
 
 
 class Qwen3(nn.Module):
-    """Weights are allocated uninitialised on ``device`` (default CUDA);
-    fill them with `init_params` or `load_jax_params`."""
+    """Weights are allocated uninitialised on ``device`` (default CUDA), or
+    on ``mesh``'s device for a world of ``mesh.world_size`` ranks; fill them
+    with `init_params` or `load_jax_params`."""
 
     def __init__(self, config: ModelConfig, mode: str = "fused",
-                 world_size: int = 1, device=None):
+                 device=None, mesh: Optional[MeshContext] = None):
         super().__init__()
-        require_single_gpu(world_size)
         if mode not in ("xla", "fused"):
             raise ValueError(f"mode {mode!r}: a Qwen3 runs 'xla' or 'fused' "
                              "(w8a8 is a TPMLP layer mode)")
+        world = 1 if mesh is None else mesh.world_size
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        if config.is_moe:
+            require_ported(world, "moe")
         self.config = config
+        self.mode = mode
+        self.mesh = mesh
+        self.world_size = world
         self.device = resolve_device(device)
         self.dtype = getattr(torch, config.dtype)
         dev, dt = self.device, self.dtype
         h, vocab = config.hidden_size, config.vocab_size
         self.embed = weight(vocab, h, dtype=dt, device=dev)
         self.layers = nn.ModuleList(
-            Qwen3Layer(config, mode, dt, dev)
+            Qwen3Layer(config, mode, dt, dev, world)
             for _ in range(config.num_layers))
         self.ln_f = weight(h, dtype=dt, device=dev)
         if not config.tie_word_embeddings:
@@ -154,9 +223,16 @@ class Qwen3(nn.Module):
     @torch.no_grad()
     def load_jax_params(self, tree) -> "Qwen3":
         """Copy the JAX package's parameter pytree (`Qwen3.init_params`
-        layout, leaves as numpy arrays) into this module.  Returns self."""
-        def put(dst, src):
+        layout, leaves as numpy arrays) into this module.  At world W the
+        tree is the JAX world-W model's: ``wqkv`` and ``gate_up`` put each
+        rank's columns together ([q_r | k_r | v_r], [gate_r | up_r]), and
+        ``wo``/``down`` are row-sharded.  Returns self."""
+        w = self.world_size
+
+        def put(dst, src, name=""):
             src = torch.from_numpy(np.array(src, dtype=np.float32))
+            if w > 1:
+                src = _tp_layout(name, src, w)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"shape {tuple(src.shape)} != "
                                  f"{tuple(dst.shape)}")
@@ -165,13 +241,13 @@ class Qwen3(nn.Module):
         for layer, lp in zip(self.layers, tree["layers"], strict=True):
             put(layer.ln1, lp["ln1"])
             put(layer.ln2, lp["ln2"])
-            put(layer.attn.wqkv, lp["attn"]["wqkv"])
-            put(layer.attn.wo, lp["attn"]["wo"])
+            put(layer.attn.wqkv, lp["attn"]["wqkv"], "wqkv")
+            put(layer.attn.wo, lp["attn"]["wo"], "wo")
             if self.config.qk_norm:
                 put(layer.attn.q_norm, lp["attn"]["q_norm"])
                 put(layer.attn.k_norm, lp["attn"]["k_norm"])
             for name in _mlp_names(self.config):
-                put(getattr(layer.mlp, name), lp["mlp"][name])
+                put(getattr(layer.mlp, name), lp["mlp"][name], name)
         put(self.embed, tree["embed"])
         put(self.ln_f, tree["ln_f"])
         if not self.config.tie_word_embeddings:
@@ -185,18 +261,20 @@ class Qwen3(nn.Module):
         parameter tree's ``lm_head`` is ``embed.T``; the gradient tree has
         no ``lm_head``, because the one tensor's gradient (the gather's and
         the head's together) is under ``embed``."""
-        def get(t):
+        def get(t, name=""):
             if grad:
                 t = t.grad if t.grad is not None else torch.zeros_like(t)
-            return t.detach().float().cpu().numpy()
+            return _jax_layout(name, t.detach(),
+                               self.world_size).float().cpu().numpy()
 
         layers = []
         for layer in self.layers:
-            attn = {"wqkv": get(layer.attn.wqkv), "wo": get(layer.attn.wo)}
+            attn = {"wqkv": get(layer.attn.wqkv, "wqkv"),
+                    "wo": get(layer.attn.wo, "wo")}
             if self.config.qk_norm:
                 attn["q_norm"] = get(layer.attn.q_norm)
                 attn["k_norm"] = get(layer.attn.k_norm)
-            mlp = {name: get(getattr(layer.mlp, name))
+            mlp = {name: get(getattr(layer.mlp, name), name)
                    for name in _mlp_names(self.config)}
             layers.append({"ln1": get(layer.ln1), "ln2": get(layer.ln2),
                            "attn": attn, "mlp": mlp})
@@ -207,6 +285,50 @@ class Qwen3(nn.Module):
         elif not grad:
             tree["lm_head"] = tree["embed"].T
         return tree
+
+    @torch.no_grad()
+    def reshard(self, world: int) -> "Qwen3":
+        """A world-``world`` model (``mesh=make_mesh(world)`` on this
+        model's device) holding this world-1 model's weights: rank r gets
+        the query heads r H/W .., their KV heads, the ffn columns r F/W ..
+        of gate and of up, and the matching rows of ``wo`` and ``down`` (as
+        the JAX `load_hf_weights` interleaves them, `_interleave_gate_up`).
+        The norms, the embedding and the head are shared, not copied."""
+        from triton_distributed_tpu_torch.parallel.mesh import make_mesh
+        if self.world_size != 1:
+            raise ValueError(f"reshard: the model is at world "
+                             f"{self.world_size}, not 1")
+        cfg = self.config
+        out = Qwen3(cfg, self.mode, mesh=make_mesh(world, device=self.device))
+        d = cfg.head_dim
+        split = [cfg.num_heads * d, cfg.num_kv_heads * d,
+                 cfg.num_kv_heads * d]
+        for src, dst in zip(self.layers, out.layers, strict=True):
+            dst.ln1, dst.ln2 = src.ln1, src.ln2
+            dst.attn.wqkv.copy_(_interleave(
+                torch.split(src.attn.wqkv, split, dim=1), world))
+            dst.attn.wo.copy_(_stack_rows(src.attn.wo, world))
+            if cfg.qk_norm:
+                dst.attn.q_norm = src.attn.q_norm
+                dst.attn.k_norm = src.attn.k_norm
+            dst.mlp.gate_up.copy_(_interleave(
+                torch.chunk(src.mlp.gate_up, 2, dim=1), world))
+            dst.mlp.down.copy_(_stack_rows(src.mlp.down, world))
+        out.embed, out.ln_f = self.embed, self.ln_f
+        if not cfg.tie_word_embeddings:
+            out.lm_head_w = self.lm_head_w
+        return out
+
+    def _shard(self, x):
+        """Global rows (M, hidden) -> the ranks' (W, M/W, hidden) (the
+        JAX bodies' per-rank ``dynamic_slice`` of the embedded rows); at
+        world 1, x itself."""
+        return x if self.world_size == 1 else self.mesh.shard_rows(x)
+
+    def _gather(self, x):
+        """The ranks' rows -> the global (M, hidden) (JAX ``all_gather``,
+        ``tiled=True``); at world 1, x itself."""
+        return x if self.world_size == 1 else self.mesh.gather_rows(x)
 
     def create_cache(self, batch: int, max_seq: Optional[int] = None):
         cfg = self.config
@@ -239,12 +361,12 @@ class Qwen3(nn.Module):
 
     def _prefill(self, input_ids, cache: Optional[KVCache]):
         b, s = input_ids.shape
-        x = self.embed[input_ids.long()].reshape(b * s, -1)
+        x = self._shard(self.embed[input_ids.long()].reshape(b * s, -1))
         for li, layer in enumerate(self.layers):
             x, (k, v) = layer.prefill(x, b)
             if cache is not None:
                 cache.write_prefill(li, k, v)
-        x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
+        x = self._gather(rms_norm(x, self.ln_f, self.config.rms_norm_eps))
         last = x.reshape(b, s, -1)[:, -1]
         if cache is not None:
             cache.set_offset(s)
@@ -255,12 +377,12 @@ class Qwen3(nn.Module):
         """tokens: (B,).  Writes each row's position ``cache.offset`` in
         place and advances the offset by one.  Returns f32 logits (B, V).
         (JAX: `Qwen3.make_decode_fn`.)"""
-        x = self.embed[tokens.long()]
+        x = self._decode_rows(tokens)
         for li, layer in enumerate(self.layers):
             k, v, ks, vs = cache.layer(li)
             x = layer.decode(x, (k, v), cache.offset,
                              None if ks is None else (ks, vs))
-        x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
+        x = self._gather(rms_norm(x, self.ln_f, self.config.rms_norm_eps))
         cache.inc_offset(1)
         return dot_f32(x, self.lm_head)
 
@@ -270,11 +392,21 @@ class Qwen3(nn.Module):
         to its page for position ``cache.offset``, attention reads through
         ``cache.page_table``, and every offset advances by one.  Returns
         f32 logits (B, V).  (JAX: `Qwen3.make_paged_decode_fn`.)"""
-        x = self.embed[tokens.long()]
+        x = self._decode_rows(tokens)
         for li, layer in enumerate(self.layers):
             k, v, ks, vs = cache.layer(li)
             x = layer.decode_paged(x, (k, v), cache.page_table, cache.offset,
                                    None if ks is None else (ks, vs))
-        x = rms_norm(x, self.ln_f, self.config.rms_norm_eps)
+        x = self._gather(rms_norm(x, self.ln_f, self.config.rms_norm_eps))
         cache.inc_offset(1)
         return dot_f32(x, self.lm_head)
+
+    def _decode_rows(self, tokens):
+        """The decode step's embedded rows, sharded over the ranks: at
+        world W the batch must split evenly (JAX `decode_shard` slices
+        B / W rows a rank)."""
+        if tokens.shape[0] % self.world_size:
+            raise ValueError(f"decode batch {tokens.shape[0]} does not split "
+                             f"over world_size={self.world_size}: a rank "
+                             "takes B / W rows")
+        return self._shard(self.embed[tokens.long()])

@@ -109,6 +109,11 @@ class ContinuousBatchingScheduler:
                  clock_advance: Optional[Callable[[float], None]] = None):
         self.model = model
         self.config = cfg = config or SchedulerConfig()
+        if getattr(model, "world_size", 1) > 1:
+            raise NotImplementedError(
+                f"a model at world_size={model.world_size}: the scheduler "
+                "at world > 1 is a later slice of the port (no JAX test "
+                "holds it there yet)")
         if cfg.spec_k:
             raise NotImplementedError(
                 "spec_k: speculative decoding (make_spec_verify_fn, "
