@@ -82,7 +82,24 @@ non-zero):
    phase 5's traffic through both scheduler layouts with equal tokens;
    layer 0's experts quantized and run on K9 against the bf16 layer; K8
    and K9 times on layer 0's weights; prefill, decode, tokens/s, peak
-   memory and profiles.
+   memory and profiles;
+12. collective path (last: the device holds the least here): the
+   collective library at world W on the one card, K15 (``all_gather``),
+   K16 (``reduce_scatter``), K17 (``all_reduce``) and K18
+   (``barrier_all_on_axis``, ``broadcast``): every method at world 2, 4
+   and 8 in bf16 and f32 bit for bit against its plain version, on ragged
+   and aligned shapes (the fallbacks taken), under a straggler rank and
+   for_correctness, and over 100 back-to-back calls each; the main path
+   with exact launches: ``TPMLP(4096, 12288, mode="fused_ar")`` at world 4
+   on 2048 and 4 rows (bit for bit against its plain version after the same
+   bf16 partials, within 3x the xla layer's bf16 error of the fused and xla
+   layers, the ranks' copies equal), `SpFlashDecodeAttention` at world 4 on
+   Qwen3-8B's heads over 32,768 tokens (B = 1, ragged B = 4), int8 and
+   paged SP decode against world-1 decode, ``ops.reduce_scatter``,
+   ``ops.broadcast`` and the barrier; times of every method at the
+   fused_ar and SP payloads with bounds, plain versions and library
+   yardsticks, the ``auto`` sweep, fused_ar against fused, SP decode
+   against world-1 decode.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -112,7 +129,8 @@ KERNEL_SOURCES = {
     lib: f"triton_distributed_tpu_torch/kernels/csrc/{lib}.cu"
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
                 "matmul_w8a8", "flash_attention_bwd", "grouped_matmul",
-                "grouped_matmul_w8a8", "ag_gemm", "gemm_rs")}
+                "grouped_matmul_w8a8", "ag_gemm", "gemm_rs", "all_gather",
+                "reduce_scatter", "all_reduce", "common_ops")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
@@ -121,7 +139,9 @@ _TPU = "triton_distributed_tpu/kernels/"
 #: libraries with an int8 cache; their wrappers count them apart.  K4 and
 #: K5 launch as a pair from one wrapper, which counts each kernel apart (and
 #: the pair in ``launches``).  K6 is K8's library with one group, launched
-#: and counted by its own wrapper, `matmul`.
+#: and counted by its own wrapper, `matmul`.  K18 is two kernels of one
+#: library, the barrier and the broadcast, counted together by their
+#: module (`kernels.common_ops.launches`).
 KERNELS = {
     "flash_attention": ("flash_attention", "flash_attention", "launches",
                         _TPU + "flash_attention.py:564"),
@@ -150,6 +170,14 @@ KERNELS = {
                 _TPU + "allgather_gemm.py:329"),
     "gemm_rs": ("gemm_rs", "gemm_rs", "launches",
                 _TPU + "gemm_reduce_scatter.py:292"),
+    "all_gather": ("all_gather", "all_gather", "launches",
+                   _TPU + "allgather.py:301"),
+    "reduce_scatter": ("reduce_scatter", "reduce_scatter", "launches",
+                       _TPU + "reduce_scatter.py:295"),
+    "all_reduce": ("all_reduce", "all_reduce", "launches",
+                   _TPU + "allreduce.py:373"),
+    "barrier_broadcast": ("common_ops", "common_ops", "launches",
+                          _TPU + "common_ops.py:91"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -1365,6 +1393,527 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     torch.cuda.empty_cache()
 
 
+#: The collective path: K15-K18 against their plain versions at these
+#: worlds, on a ragged shape (rows off any tile, columns off 8) and an
+#: aligned one (rows a rank x columns; K16 takes world x rows); TP_REPEATS
+#: back-to-back calls of each method; a straggler rank of about 1 ms of
+#: cycles (the H100's 1.98 GHz boost clock).
+COLL_WORLDS = (2, 4, 8)
+COLL_SHAPES = ((37, 1001), (64, 1024))
+COLL_STRAGGLER = (1, 2_000_000)
+COLL_METHODS = (("all_gather", "ring"), ("all_gather", "push_all"),
+                ("all_gather", "bidir_ring"),
+                ("reduce_scatter", "scatter_reduce"),
+                ("reduce_scatter", "ring"), ("all_reduce", "one_shot"),
+                ("all_reduce", "two_shot"), ("all_reduce", "ring"),
+                ("all_reduce", "chain"), ("barrier", None),
+                ("broadcast", None))
+#: The TPU kernel each method replaces (`triton_distributed_tpu/kernels/`);
+#: the ring all-reduce is K16's ring, then K15's ring.
+COLL_SITES = {
+    ("all_gather", "ring"): "allgather.py:301",
+    ("all_gather", "push_all"): "allgather.py:301",
+    ("all_gather", "bidir_ring"): "allgather.py:283",
+    ("reduce_scatter", "scatter_reduce"): "reduce_scatter.py:295",
+    ("reduce_scatter", "ring"): "reduce_scatter.py:314",
+    ("all_reduce", "one_shot"): "allreduce.py:373",
+    ("all_reduce", "two_shot"): "allreduce.py:352",
+    ("all_reduce", "chain"): "allreduce.py:330",
+    ("all_reduce", "ring"): "reduce_scatter.py:314 + allgather.py:301",
+    ("barrier", None): "common_ops.py:52",
+    ("broadcast", None): "common_ops.py:91",
+}
+#: ``TPMLP(mode="fused_ar")`` at Qwen3-8B's MLP widths and world 4: a
+#: prefill bucket's rows and a decode batch's.
+FUSED_AR_ROWS = (2048, 4)
+#: SpFlashDecodeAttention at world 4 on Qwen3-8B's attention geometry:
+#: 32 query and 8 KV heads of 128 over the model's native 32,768-token
+#: context (8,192 a rank); B = 4 with ragged totals, two shards empty for
+#: the first row; pages of 16.
+SP_WORLD, SP_CONTEXT, SP_PAGE = 4, 32768, 16
+SP_RAGGED = (1, 8193, 16384, 32768)
+#: Rows (x 4096 bf16 columns) a rank of the `auto` sweep: 8 KiB to 32 MiB.
+SWEEP_ROWS = (1, 4, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def collective_bound(op: str, world: int, shard_bytes: int):
+    """The least time of one K15-K18 call on rank-stacked x of
+    ``shard_bytes`` a rank and what sets it: each rank's input read once,
+    every chunk a rank must receive written once, each output written once
+    (`tp_collective_bound`'s count; a copy or a sum is bound by bytes), a
+    chunk received into the output counted once, as output.  all_gather:
+    W x in, W W x out; reduce_scatter: W x in, (W - 1) / W x received a
+    rank, x / W out a rank; all_reduce: the least any method receives, the
+    reduce-scatter half's (W - 1) / W x a rank (the all-gather half's
+    chunks land in the output), and W x out; broadcast: the root's x in, W
+    x out; the barrier: W x in and out."""
+    s, w = shard_bytes, world
+    moved = {
+        "all_gather": w * s + w * w * s,
+        "reduce_scatter": w * s + (w - 1) * s + s,
+        "all_reduce": w * s + (w - 1) * s + w * s,
+        "broadcast": s + w * s,
+        "barrier": 2 * w * s,
+    }[op]
+    return bound(moved, 0)
+
+
+def collective_path(dev, card: str, counted, expect, short, records,
+                    errs) -> None:
+    """The collective path: the collective library at world W, the W ranks
+    in this process on the one card (`parallel.make_mesh`).
+
+    1. K15 (`all_gather`), K16 (`reduce_scatter`), K17 (`all_reduce`) and
+       K18 (`barrier_all_on_axis`, `broadcast`) against their plain
+       versions, bit for bit (copies, and f32 sums in each method's fixed
+       order and rounding): every method at world 2, 4 and 8 in bf16 and
+       f32, on a ragged and an aligned shape (the two-shot's and the ring
+       all-reduce's fallback to one-shot, the bidirectional ring's to the
+       ring, taken on the ragged one), under a straggler rank and with
+       for_correctness, and TP_REPEATS back-to-back calls of each with
+       fresh inputs, queued before any is checked;
+    2. the main path, with every launch count set to 0 before and read
+       after: ``TPMLP(4096, 12288, mode="fused_ar", world_size=4)`` on
+       FUSED_AR_ROWS replicated rows, `SpFlashDecodeAttention` at world 4
+       over the 32,768-token context (B = 1 and ragged B = 4),
+       `sp_flash_decode` over an int8 cache and `sp_flash_decode_paged`,
+       and `ops.reduce_scatter`, `ops.broadcast` and `barrier_all_on_axis`;
+       one K17 a layer call, one decode kernel and one K15 a decode call;
+    3. the layer against its plain version bit for bit (the same bf16
+       partials), against the ``fused`` (K12, K14) and ``xla`` layers in
+       relative L2 within 3x the xla layer's bf16 error against an f32
+       reference, its four ranks' copies equal; the decodes against
+       world-1 decode over the whole cache;
+    4. times: every method at the fused_ar payloads and the SP payload with
+       bounds, plain versions and library yardsticks, the `auto` sweep
+       (PERF.md takes the cutoffs from it), fused_ar against fused in
+       alternating windows, SP decode against world-1 decode.
+
+    On one card every put is a copy inside one HBM: the times say what the
+    protocol and the copies cost here, not what NVLink would."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch import ops
+    from triton_distributed_tpu_torch.kernels import common_ops
+    from triton_distributed_tpu_torch.kernels import flash_decode as fd_mod
+    from triton_distributed_tpu_torch.kernels.allgather import (
+        AllGatherContext, all_gather, all_gather_reference)
+    from triton_distributed_tpu_torch.kernels.allreduce import (
+        AllReduceContext, all_reduce, all_reduce_reference, resolve)
+    from triton_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, quantize_kv, sp_flash_decode,
+        sp_flash_decode_paged)
+    from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+        ReduceScatterContext, reduce_scatter, reduce_scatter_reference)
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+    from triton_distributed_tpu_torch.layers.sp_flash_decode_layer import (
+        SpFlashDecodeAttention)
+    from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP, gated_silu
+    from triton_distributed_tpu_torch.parallel import make_mesh
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(777)
+    t_phase = time.perf_counter()
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def call(op, method, world, x, root=None, **faults):
+        """(the kernel's result, a function computing its plain version)."""
+        if op == "all_gather":
+            return (all_gather(x, AllGatherContext("tp", world, method,
+                                                   **faults)),
+                    lambda: all_gather_reference(x))
+        if op == "reduce_scatter":
+            return (reduce_scatter(x, ReduceScatterContext(
+                "tp", world, method, **faults)),
+                lambda: reduce_scatter_reference(x, method))
+        if op == "all_reduce":
+            ctx = AllReduceContext("tp", world, method, **faults)
+            return all_reduce(x, ctx), lambda: all_reduce_reference(
+                x, resolve(x, ctx))
+        if op == "barrier":
+            return (common_ops.barrier_all_on_axis(x, **faults),
+                    lambda: common_ops.barrier_reference(x))
+        return (common_ops.broadcast(x, root, "tp", world, **faults),
+                lambda: common_ops.broadcast_reference(x, int(root)))
+
+    def operand(op, world, m, n, dtype):
+        return randn(world, world * m if op == "reduce_scatter" else m, n,
+                     dtype=dtype)
+
+    def root_for(op, world, i):
+        """Broadcast roots cycle over the ranks, every other one a 0-d
+        device tensor."""
+        if op != "broadcast":
+            return None
+        r = i % world
+        return torch.tensor(r, device=dev) if i % 2 else r
+
+    def check_exact(label, got, want):
+        ok = got.dtype == want.dtype and got.shape == want.shape and bool(
+            torch.equal(got, want))
+        if not ok:
+            err = float((got.float() - want.float()).abs().max())
+            print(f"  {label}: FAIL, max_abs_err {err:.3e} (want 0)")
+            raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                 "version")
+
+    # -- 1. kernels vs plain, bit for bit
+    n_checked = 0
+    t0 = time.perf_counter()
+    for world in COLL_WORLDS:
+        for dtype in (bf16, f32):
+            for m, n in COLL_SHAPES:
+                runs = []
+                for i, (op, method) in enumerate(COLL_METHODS):
+                    x = operand(op, world, m, n, dtype)
+                    runs.append((op, method, *call(
+                        op, method, world, x, root_for(op, world, i))))
+                torch.cuda.synchronize()
+                for op, method, got, plain in runs:
+                    check_exact(f"{op} {method} world {world} {dtype} "
+                                f"({m}, {n})", got, plain())
+                    n_checked += 1
+    print(f"[collective path] K15-K18, every method at world "
+          f"{'/'.join(map(str, COLL_WORLDS))} in bf16 and f32 on rows x "
+          f"columns {COLL_SHAPES} a rank (K16: world x rows; the ragged "
+          f"shape takes the two-shot's and the ring all-reduce's fallback to "
+          f"one-shot and the bidirectional ring's to the ring): {n_checked} "
+          f"calls bit for bit equal to their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
+    w = SP_WORLD
+    for label, faults in (("straggler", {"straggler": COLL_STRAGGLER}),
+                          ("for_correctness", {"for_correctness": True})):
+        runs = []
+        for i, (op, method) in enumerate(COLL_METHODS):
+            x = operand(op, w, *COLL_SHAPES[1], bf16)
+            runs.append((op, method, *call(op, method, w, x,
+                                           root_for(op, w, i), **faults)))
+        torch.cuda.synchronize()
+        for op, method, got, plain in runs:
+            check_exact(f"{op} {method} {label}", got, plain())
+    print(f"[collective path] every method at world {w} in bf16 under a "
+          f"straggler (rank {COLL_STRAGGLER[0]} spins {COLL_STRAGGLER[1]} "
+          f"cycles, about 1 ms) and under for_correctness (rank r spins "
+          f"(r + 1) x 100000 cycles): bit for bit ok")
+    for i, (op, method) in enumerate(COLL_METHODS):
+        ins = [operand(op, w, *COLL_SHAPES[1], bf16)
+               for _ in range(TP_REPEATS)]
+        outs = [call(op, method, w, x, root_for(op, w, i + j))
+                for j, x in enumerate(ins)]
+        torch.cuda.synchronize()
+        for got, plain in outs:
+            check_exact(f"{op} {method} back-to-back", got, plain())
+        del ins, outs
+    print(f"[collective path] every method at world {w}: {TP_REPEATS} "
+          f"back-to-back calls with fresh inputs, queued before any check: "
+          f"bit for bit ok")
+    for nm in ("all_gather", "reduce_scatter", "all_reduce",
+               "barrier_broadcast"):
+        errs[nm] = 0.0
+
+    # -- 2. the main path
+    h, ffn = MLP_HIDDEN, MLP_FFN
+    mlps = {mode: TPMLP(h, ffn, mode=mode, world_size=w, device=dev)
+            for mode in ("fused_ar", "fused", "xla")}
+    mlps["fused_ar"].init_params(torch.Generator(device=dev).manual_seed(11))
+    for mode in ("fused", "xla"):
+        mlps[mode].load_state_dict(mlps["fused_ar"].state_dict())
+    xs = {m: randn(m, h) for m in FUSED_AR_ROWS}
+    cfg8 = dict(heads=32, kv_heads=8, d=128)
+    s_loc = SP_CONTEXT // w
+    layer = SpFlashDecodeAttention("sp", w, cfg8["heads"], cfg8["kv_heads"],
+                                   cfg8["d"], s_loc)
+
+    def kv(b):
+        return (randn(b, cfg8["kv_heads"], SP_CONTEXT, cfg8["d"]),
+                randn(b, cfg8["kv_heads"], SP_CONTEXT, cfg8["d"]))
+
+    def shards(t):
+        """(B, Hkv, S, ...) -> the contiguous layout's (W, B, Hkv, S/W,
+        ...)."""
+        return t.reshape(*t.shape[:2], w, s_loc, *t.shape[3:]).movedim(
+            2, 0).contiguous()
+
+    q1, q4 = randn(1, cfg8["heads"], cfg8["d"]), randn(4, cfg8["heads"],
+                                                       cfg8["d"])
+    k1, v1 = kv(1)
+    k4, v4 = kv(4)
+    total1 = torch.tensor([SP_CONTEXT], dtype=torch.int32, device=dev)
+    total4 = torch.tensor(SP_RAGGED, dtype=torch.int32, device=dev)
+    ranks = torch.arange(w, device=dev)[:, None]
+    local1 = layer.local_kv_len(total1[None], ranks).to(torch.int32)
+    local4 = layer.local_kv_len(total4[None], ranks).to(torch.int32)
+    k1s, v1s, k4s, v4s = shards(k1), shards(v1), shards(k4), shards(v4)
+    k1q, v1q, ks1, vs1 = quantize_kv(k1, v1)
+    k1qs, v1qs, ks1s, vs1s = (shards(t) for t in (k1q, v1q, ks1, vs1))
+    # Paged: rank r's shard of each row in its own pool, pages shuffled.
+    t_pages = s_loc // SP_PAGE
+    tables, pools_k, pools_v, n_pages = [], [], [], 1 + 4 * t_pages
+    for r in range(w):
+        table, _ = shuffled_table(gen, local4[r].tolist(), SP_PAGE, t_pages,
+                                  dev)
+        tables.append(table)
+        pools_k.append(scatter_to_pool(k4s[r], table, n_pages, SP_PAGE, 0.0))
+        pools_v.append(scatter_to_pool(v4s[r], table, n_pages, SP_PAGE, 0.0))
+    tables = torch.stack(tables)
+    pools_k, pools_v = torch.stack(pools_k), torch.stack(pools_v)
+    mesh = make_mesh(w, device=dev)
+    rs_in = randn(w, w * 64, 1024)
+    bc_in = randn(w, 64, 1024)
+    got, gathers = {}, []
+
+    def capturing_all_gather(payload, ctx):
+        """The SP decodes' K15 call, its (input, output) kept to be held
+        against `all_gather_reference` at the main path's payload."""
+        out = all_gather(payload, ctx)
+        gathers.append((payload, out))
+        return out
+
+    def main_path():
+        with torch.inference_mode():
+            for m, x in xs.items():
+                got[("fused_ar", m)] = mlps["fused_ar"](x)
+            got["sp1"] = layer(q1, k1s, v1s, total1)
+            got["sp4"] = layer(q4, k4s, v4s, total4)
+            got["sp1_int8"] = sp_flash_decode(q1, k1qs, v1qs, local1,
+                                              k_scale=ks1s, v_scale=vs1s)
+            got["sp4_paged"] = sp_flash_decode_paged(q4, pools_k, pools_v,
+                                                     tables, local4)
+            got["rs"] = ops.reduce_scatter(rs_in, mesh)
+            got["bc"] = ops.broadcast(bc_in, 2, mesh)
+            got["barrier"] = common_ops.barrier_all_on_axis(bc_in)
+        torch.cuda.synchronize()
+
+    fd_mod.all_gather = capturing_all_gather
+    try:
+        launches = counted(main_path)
+    finally:
+        fd_mod.all_gather = all_gather
+    want = expect(all_reduce=len(FUSED_AR_ROWS), flash_decode=2,
+                  flash_decode_int8=1, flash_decode_paged=1, all_gather=4,
+                  reduce_scatter=1, barrier_broadcast=2)
+    print(f"[collective path] main path: TPMLP(fused_ar) at {FUSED_AR_ROWS} "
+          f"rows, SP decode B=1 and B=4 (layer), int8 and paged, "
+          f"ops.reduce_scatter, ops.broadcast, barrier_all_on_axis; "
+          f"launches {short(launches)}")
+    if launches != want:
+        raise AssertionError(f"collective path launches {short(launches)} "
+                             f"!= {short(want)}")
+    check_exact("ops.reduce_scatter", got["rs"],
+                reduce_scatter_reference(rs_in))
+    check_exact("ops.broadcast", got["bc"],
+                common_ops.broadcast_reference(bc_in, 2))
+    check_exact("barrier_all_on_axis", got["barrier"], bc_in)
+
+    # -- 3. the layer and the decodes against their references
+    with torch.inference_mode():
+        for m, x in xs.items():
+            out = got[("fused_ar", m)]
+            mlp = mlps["fused_ar"]
+            partial = torch.matmul(gated_silu(torch.matmul(x, mlp.gate_up)),
+                                   mlp.down)
+            ctx = AllReduceContext("tp", w)
+            method = resolve(partial, ctx).value
+            check_exact(f"TPMLP fused_ar {m} rows vs plain ({method})",
+                        out, all_reduce_reference(partial, method))
+            same = bool(torch.equal(out, out[:1].expand_as(out)))
+            xf = x.float()
+            ref = sum((F.silu(xf @ g[:, :ffn // w].float())
+                       * (xf @ g[:, ffn // w:].float())) @ d.float()
+                      for g, d in zip(mlp.gate_up, mlp.down))
+            fused = mlps["fused"](x.reshape(w, m // w, h)).reshape(m, h)
+            xla = mlps["xla"](x.reshape(w, m // w, h)).reshape(m, h)
+            floor = rel_l2(xla, ref)
+            rels = {"xla": rel_l2(out[0], xla), "fused": rel_l2(out[0], fused),
+                    "f32": rel_l2(out[0], ref)}
+            ok = same and all(v <= 3 * floor for v in rels.values())
+            print(f"[collective path] TPMLP({h}, {ffn}, fused_ar, world {w}) "
+                  f"on {m} rows: auto all-reduce {method}, bit for bit equal "
+                  f"to its plain version, ranks' copies equal {same}; rel_l2 "
+                  f"vs xla {rels['xla']:.3e}, vs fused {rels['fused']:.3e}, "
+                  f"vs f32 {rels['f32']:.3e} (bound {3 * floor:.3e}, 3x the "
+                  f"xla layer's bf16 error {floor:.3e}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("fused_ar layer check failed")
+        refs = {"sp1": flash_decode(q1, k1, v1, total1)[0],
+                "sp4": flash_decode(q4, k4, v4, total4)[0],
+                "sp1_int8": flash_decode(q1, k1q, v1q, total1, k_scale=ks1,
+                                         v_scale=vs1)[0]}
+        refs["sp4_paged"] = refs["sp4"]
+    # Each SP decode three ways: (a) its K15 call at the main path's payload
+    # (W x B*H rows of D + 1 f32, padded to 16 bytes) bit for bit against
+    # the plain all-gather; (b) its output against an f64 LSE combine of the
+    # partials it gathered, each shard gated by its own filled length, to
+    # within one bf16 rounding (2^-8 |ref|, doubled for the f32 combine's
+    # own rounding before it), which a dropped, mis-weighted or unmasked
+    # shard breaks on most elements; (c) end to end against
+    # world-1 decode over the whole cache, row-scaled (`check_rows`: tol
+    # 5e-2 of |ref| + the row's rms, rel_l2 1e-2), room for the shards'
+    # partials being rounded to bf16 once more than world-1's output.
+    lens = {"sp1": local1, "sp4": local4, "sp1_int8": local1,
+            "sp4_paged": local4}
+    if len(gathers) != len(refs):
+        raise AssertionError(f"SP decodes made {len(gathers)} K15 calls, "
+                             f"want {len(refs)}")
+    d = cfg8["d"]
+    for (key, ref), (payload, gathered) in zip(refs.items(), gathers):
+        out = got[key]
+        check_exact(f"K15 push_all on the SP payload {key} "
+                    f"{tuple(payload.shape)} f32", gathered,
+                    all_gather_reference(payload))
+        b = ref.shape[0]
+        parts = payload.double().reshape(w, b, cfg8["heads"], -1)
+        live = (lens[key] > 0)[..., None]                   # (W, B, 1)
+        lse = torch.where(live, parts[..., d], float("-inf"))
+        wts = torch.exp(lse - lse.max(0).values)
+        comb = (wts[..., None] * torch.where(live[..., None], parts[..., :d],
+                                             0.0)).sum(0)
+        comb = comb / wts.sum(0)[..., None]
+        err = (out[0].double() - comb).abs()
+        lim = 2.0 ** -7 * comb.abs() + 1e-6 * comb.pow(2).mean().sqrt()
+        ok = bool((err <= lim).all())
+        print(f"  SP decode {key}: K15 on its payload "
+              f"{tuple(payload.shape)} bit for bit equal to its plain "
+              f"version; output against the f64 LSE combine of the "
+              f"gathered partials: max_abs_err {float(err.max()):.3e}, "
+              f"max err/(2^-7 |ref|) {float((err / lim).max()):.3f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"SP decode {key}: combine disagrees with "
+                                 "the LSE combine of its partials")
+        same = bool(torch.equal(out, out[:1].expand_as(out)))
+        e = check_rows(f"SP decode {key} world {w} vs world-1 decode "
+                       f"(ranks' copies equal {same})", out[0], ref,
+                       5e-2, 1e-2, 0.1)
+        if not same or not bool(out.isfinite().all()):
+            raise AssertionError(f"SP decode {key}: ranks differ or non-"
+                                 "finite")
+        errs["flash_decode"] = max(errs["flash_decode"], e)
+    del refs, gathers
+
+    # -- 4. times
+    print(f"[times] K15-K18 at world {w} on one card (every put a copy "
+          f"inside one HBM, no NVLink); CUDA events; bounds count each "
+          f"rank's x read once, every chunk it must receive and each output "
+          f"written once at 3.35 TB/s; {card}")
+    libraries = {
+        "all_gather": ("x.reshape(1, W*m, n).expand(W, -1, -1).contiguous()",
+                       lambda x: x.reshape(1, -1, x.shape[-1]).expand(
+                           w, -1, -1).contiguous()),
+        "reduce_scatter": ("x.view(W, W, m, n).sum(0, dtype=f32).to(x.dtype)",
+                           lambda x: x.view(w, w, -1, x.shape[-1]).sum(
+                               0, dtype=f32).to(x.dtype)),
+        "all_reduce": ("x.sum(0, dtype=f32).to(x.dtype).expand(W, m, n)"
+                       ".contiguous()",
+                       lambda x: x.sum(0, dtype=f32).to(x.dtype).expand(
+                           w, -1, -1).contiguous()),
+        "broadcast": ("x[root].expand(W, m, n).contiguous()",
+                      lambda x: x[2].expand(w, -1, -1).contiguous()),
+        "barrier": ("x.clone()", lambda x: x.clone()),
+    }
+    payloads = [(f"{m}x{h} bf16", m, h, bf16) for m in FUSED_AR_ROWS]
+    payloads.append(("SP payload 32x132 f32", 32, 132, f32))
+    rows_by_op = {}
+    for label, m, n, dtype in payloads:
+        for op in ("all_gather", "reduce_scatter", "all_reduce", "broadcast",
+                   "barrier"):
+            if op == "reduce_scatter" and label.startswith("SP"):
+                continue
+            x = randn(w, m, n, dtype=dtype)
+            shard = x[0].numel() * x.element_size()
+            methods = [mt for o, mt in COLL_METHODS if o == op]
+            root = 2 if op == "broadcast" else None
+            ms = {mt: time_ms(lambda: call(op, mt, w, x, root)[0], 20)
+                  for mt in methods}
+            plain = time_ms(lambda: call(op, methods[0], w, x, root)[1](), 5)
+            lib_name, lib_fn = libraries[op]
+            lib = time_ms(lambda: lib_fn(x), 20)
+            bms, by = collective_bound(op, w, shard)
+            times = ", ".join(f"{mt or op} {t:.4f} ms ({bms / t:.1%} of "
+                              "bound)" for mt, t in ms.items())
+            print(f"[times] {op} world {w} x{tuple(x.shape)} {label}: "
+                  f"{times}; bound {bms:.4f} ms by {by}; plain {plain:.4f} "
+                  f"ms; library ({lib_name}) {lib:.4f} ms; {card}")
+            rows_by_op[(op, label)] = (ms, plain, bms, by, lib, lib_name)
+    # K15-K17 records: the method `auto` takes at the prefill payload;
+    # K18's: the broadcast, the barrier's time beside it.
+    m0 = f"{FUSED_AR_ROWS[0]}x{h} bf16"
+    auto = {"all_gather": AllGatherContext("tp", w).resolve_method(
+                FUSED_AR_ROWS[0] * h * 2).value,
+            "reduce_scatter": ReduceScatterContext(
+                "tp", w).resolve_method().value,
+            "all_reduce": resolve(xs[FUSED_AR_ROWS[0]].expand(w, -1, -1),
+                                  AllReduceContext("tp", w)).value,
+            "broadcast": None}
+    for op, method in auto.items():
+        ms, plain, bms, by, lib, lib_name = rows_by_op[(op, m0)]
+        extra = {"method": method or "broadcast", "shape": m0,
+                 "replaces": _TPU + COLL_SITES[(op, method)],
+                 "method_ms": {mt or op: t for mt, t in ms.items()},
+                 "library_note": lib_name + " (one card: no NVLink)"}
+        if op == "broadcast":
+            extra["barrier_ms"] = rows_by_op[("barrier", m0)][0][None]
+            extra["barrier_replaces"] = _TPU + COLL_SITES[("barrier", None)]
+        records.append(("barrier_broadcast" if op == "broadcast" else op,
+                        ms[method], plain, bms, by, lib, extra))
+
+    print(f"[times] auto sweep at world {w}, bf16 x (rows, {h}) a rank, ms "
+          f"per method (CUDA events); {card}")
+    for rows in SWEEP_ROWS:
+        line = []
+        for op in ("all_gather", "reduce_scatter", "all_reduce"):
+            x = operand(op, w, rows, h, bf16)
+            for o, mt in COLL_METHODS:
+                if o == op:
+                    t = time_ms(lambda: call(op, mt, w, x)[0], 10)
+                    line.append(f"{op}.{mt} {t:.4f}")
+            del x
+        print(f"[sweep] {rows} rows ({rows * h * 2} bytes a rank): "
+              + ", ".join(line))
+
+    window = {"fused_ar": [], "fused": []}
+    with torch.inference_mode():
+        for m, x in xs.items():
+            xr = x.reshape(w, m // w, h)
+            for mode in ("fused_ar", "fused", "fused", "fused_ar"):
+                arg = x if mode == "fused_ar" else xr
+                window[mode].append((m, time_ms(lambda: mlps[mode](arg),
+                                                10)))
+    print(f"[times] TPMLP({h}, {ffn}) at world {w}, ms per call (CUDA "
+          f"events) in the order fused_ar, fused, fused, fused_ar for each "
+          f"row count: " + "; ".join(
+              f"{mode} " + ", ".join(f"{m} rows {t:.4f}" for m, t in ts)
+              for mode, ts in window.items()) + f"; {card}")
+    with torch.inference_mode():
+        t_sp = time_ms(lambda: layer(q1, k1s, v1s, total1), 20)
+        t_w1 = time_ms(lambda: flash_decode(q1, k1, v1, total1), 20)
+        q_ranks = q1.expand(w, -1, -1).contiguous()
+        t_local = time_ms(lambda: flash_decode(
+            q_ranks, k1s.reshape(w, cfg8["kv_heads"], s_loc, cfg8["d"]),
+            v1s.reshape(w, cfg8["kv_heads"], s_loc, cfg8["d"]),
+            local1.reshape(w)), 20)
+        t_sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            q1[:, :, None], k1, v1, enable_gqa=True), 20)
+    bms, by = bound(nbytes(q1, k1, v1) + nbytes(q1),
+                    4 * cfg8["heads"] * SP_CONTEXT * cfg8["d"])
+    print(f"[times] SP decode B=1 over {SP_CONTEXT} tokens (Qwen3-8B heads, "
+          f"world {w}, {s_loc} a rank): layer {t_sp:.4f} ms (K2 over every "
+          f"shard in one launch {t_local:.4f} ms, then K15 and the combine); "
+          f"world-1 flash_decode {t_w1:.4f} ms; bound {bms:.4f} ms by {by} "
+          f"({bms / t_sp:.1%} / {bms / t_w1:.1%} of bound); SDPA (library) "
+          f"{t_sdpa:.4f} ms; {card}")
+    del mlps, xs, got, k1, v1, k4, v4, k1s, v1s, k4s, v4s, pools_k, pools_v
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[collective path] the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s (host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1382,6 +1931,11 @@ def main() -> int:
         AllGatherGEMMContext, ag_gemm)
     from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
         gemm_rs)
+    from triton_distributed_tpu_torch.kernels import common_ops
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.kernels.allreduce import all_reduce
+    from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+        reduce_scatter)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
         grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
         grouped_matmul_w8a8_reference)
@@ -1777,7 +2331,9 @@ def main() -> int:
                 "matmul": matmul,
                 "grouped_matmul": grouped_matmul,
                 "grouped_matmul_w8a8": grouped_matmul_w8a8,
-                "ag_gemm": ag_gemm, "gemm_rs": gemm_rs}
+                "ag_gemm": ag_gemm, "gemm_rs": gemm_rs,
+                "all_gather": all_gather, "reduce_scatter": reduce_scatter,
+                "all_reduce": all_reduce, "common_ops": common_ops}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
@@ -2465,15 +3021,24 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     moe_path(dev, card, counted, expect, short, records, errs)
 
+    # -- 12. collective path -------------------------------------------
+    print(f"[collective path] device memory held: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    collective_path(dev, card, counted, expect, short, records, errs)
+
     kernels = []
     for nm, ms, plain, bms, by, lib, *extra in records:
         lib_name, _, _, repl = KERNELS[nm]
-        extra = extra[0] if extra else {}
+        extra = dict(extra[0]) if extra else {}
+        repl = extra.pop("replaces", repl)
         pair = (f" (pair {extra['pair_ms']:.4f} ms; plain and library are "
                 "the whole backward)" if "pair_ms" in extra
                 else f" ({extra['method']} at {extra['shape']}; ll "
                 f"{extra['ll_ms']:.4f} ms; library: {extra['library_note']})"
                 if "ll_ms" in extra
+                else f" ({extra['method']} at {extra['shape']}; methods "
+                f"{extra['method_ms']}; library: {extra['library_note']})"
+                if "method_ms" in extra
                 else f" ({extra['library_note']}: "
                 f"{extra['library_loop_ms']:.4f} ms)" if extra else "")
         lib_text = "none" if lib is None else f"{lib:.4f} ms"

@@ -913,3 +913,211 @@ def test_tiny_tp_model_gpu_matches_cpu(cuda):
     assert [x - y for x, y in zip(after, before)] == [
         2 * nl * gen, 2 * nl * gen, 2 * nl * (gen - 1), 2 * nl * (gen - 1)]
     assert torch.equal(got, Engine(cpu).serve(ids, gen))
+
+
+# ---- the collective library at world W: K15, K16, K17, K18 ---------------
+
+#: (world, rows a rank, columns): rows off the row tile and columns off 8
+#: (copies and sums by element), a row count that splits over the ranks
+#: and one that does not (two-shot and the ring fall back to one-shot),
+#: world 1 (one-shot is a copy, the chain returns x).
+COLL_SHAPES = [(2, 37, 100), (4, 64, 128), (4, 6, 77), (8, 16, 64),
+               (8, 13, 40), (3, 9, 96), (1, 5, 24)]
+COLL_METHODS = {
+    "all_gather": ("ring", "push_all", "bidir_ring"),
+    "reduce_scatter": ("scatter_reduce", "ring"),
+    "all_reduce": ("one_shot", "two_shot", "ring", "chain"),
+}
+
+
+def _collective(op, method, world, x, **faults):
+    """Run ``op`` by ``method`` on x and its plain version; the plain one
+    in the method the kernel path resolves to (fallbacks included)."""
+    from triton_distributed_tpu_torch.kernels import allgather as ag
+    from triton_distributed_tpu_torch.kernels import allreduce as ar
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+
+    if op == "all_gather":
+        ctx = ag.AllGatherContext("tp", world, method, **faults)
+        return ag.all_gather(x, ctx), ag.all_gather_reference(x)
+    if op == "reduce_scatter":
+        ctx = rs.ReduceScatterContext("tp", world, method, **faults)
+        plain = method if world > 1 else "scatter_reduce"
+        return (rs.reduce_scatter(x, ctx),
+                rs.reduce_scatter_reference(x, plain))
+    ctx = ar.AllReduceContext("tp", world, method, **faults)
+    return ar.all_reduce(x, ctx), ar.all_reduce_reference(
+        x, ar.resolve(x, ctx))
+
+
+def _cases():
+    for op, methods in COLL_METHODS.items():
+        for method in methods:
+            for world, m, n in COLL_SHAPES:
+                if op == "reduce_scatter" and method == "ring" and world < 2:
+                    continue
+                yield op, method, world, m, n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op,method,world,m,n", list(_cases()))
+def test_collective_kernel_bit_exact(cuda, op, method, dtype, world, m, n):
+    """Each K15-K17 method against its plain version, bit for bit (copies,
+    and f32 sums in the method's fixed order and rounding), over 5
+    back-to-back calls with fresh inputs, queued before any check (a stale
+    signal would let a call read the last call's data)."""
+    gen = torch.Generator(device=cuda).manual_seed(world * 100 + m + n)
+    rows = world * m if op == "reduce_scatter" else m
+    ins = [_randn(gen, dtype, cuda, world, rows, n) for _ in range(5)]
+    runs = [_collective(op, method, world, x) for x in ins]
+    torch.cuda.synchronize()
+    for got, want in runs:
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want), (op, method, world, m, n)
+
+
+@pytest.mark.parametrize("op,method", [
+    (op, method) for op, ms in COLL_METHODS.items() for method in ms])
+def test_collective_kernel_under_faults(cuda, op, method):
+    """A straggler rank (about 1 ms of cycles) and for_correctness's
+    staggered start leave every method's result bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    world, m, n = 4, 32, 64
+    rows = world * m if op == "reduce_scatter" else m
+    for faults in ({"straggler": (1, 2_000_000)},
+                   {"for_correctness": True}):
+        x = _randn(gen, torch.bfloat16, cuda, world, rows, n)
+        got, want = _collective(op, method, world, x, **faults)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (op, method, faults)
+
+
+def test_collective_launch_counts(cuda):
+    """One launch of the op's own kernel a call, counted by method; the
+    ring all-reduce launches K16 and K15 and no K17; the chain at world 1
+    launches nothing."""
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.kernels.allreduce import all_reduce
+    from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+        reduce_scatter)
+
+    x = torch.ones(4, 8, 32, device=cuda)
+    counts = lambda: (all_gather.launches, reduce_scatter.launches,  # noqa
+                      all_reduce.launches)
+    before = counts()
+    for method in COLL_METHODS["all_reduce"]:
+        _collective("all_reduce", method, 4, x)
+    _collective("all_reduce", "chain", 1, x[:1])
+    _collective("all_gather", "push_all", 4, x)
+    _collective("reduce_scatter", "ring", 4, x)
+    got = tuple(a - b for a, b in zip(counts(), before))
+    assert got == (2, 2, 3), got
+    assert all_reduce.method_launches["two_shot"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_barrier_and_broadcast_kernels(cuda, dtype, world):
+    """K18: the barrier returns x, and the broadcast every rank's copy of
+    the root's x, for every root (an int or a 0-d device tensor), bit for
+    bit; one launch each, counted in ``common_ops.launches`` and by
+    kernel."""
+    from triton_distributed_tpu_torch.kernels import common_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(world)
+    before = common_ops.launches
+    by_kernel = dict(common_ops.method_launches)
+    runs = []
+    for root in range(world):
+        x = _randn(gen, dtype, cuda, world, 7, 33)
+        r = torch.tensor(root, device=cuda) if root % 2 else root
+        runs.append((common_ops.broadcast(x, r, "tp", world),
+                     common_ops.broadcast_reference(x, root)))
+        runs.append((common_ops.barrier_all_on_axis(
+            x, straggler=(root, 100_000)), x.clone()))
+    torch.cuda.synchronize()
+    for got, want in runs:
+        assert torch.equal(got, want)
+    assert common_ops.launches == before + 2 * world
+    for fn in ("barrier_all_on_axis", "broadcast"):
+        assert common_ops.method_launches[fn] == by_kernel.get(fn, 0) + world
+
+
+def test_sp_flash_decode_kernels(cuda):
+    """SP decode at world 4 (one K2, K2q or K3 launch over every rank's
+    shard, then one K15) against world-1 decode over the whole cache, on
+    ragged totals that leave shards empty, dense, int8 and paged."""
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.kernels.flash_decode import (
+        sp_flash_decode, sp_flash_decode_paged)
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    world, b, h, hkv, d, s_loc, ps = 4, 4, 8, 2, 128, 64, 16
+    q = _randn(gen, torch.bfloat16, cuda, b, h, d)
+    k = _randn(gen, torch.bfloat16, cuda, b, hkv, world * s_loc, d)
+    v = _randn(gen, torch.bfloat16, cuda, b, hkv, world * s_loc, d)
+    total = torch.tensor([1, 65, 128, 256], dtype=torch.int32, device=cuda)
+    ranks = torch.arange(world, device=cuda)[:, None]
+    local = (total[None] - ranks * s_loc).clamp(0, s_loc).to(torch.int32)
+    shard = lambda t: t.reshape(b, hkv, world, s_loc, d).permute(  # noqa
+        2, 0, 1, 3, 4).contiguous()
+    want, _ = flash_decode(q, k, v, total)
+    kq, vq, ks, vs = quantize_kv(k, v)
+    want_q, _ = flash_decode(q, kq, vq, total, k_scale=ks, v_scale=vs)
+    before = (flash_decode.launches, flash_decode.int8_launches,
+              flash_decode_paged.launches, all_gather.launches)
+    got = sp_flash_decode(q, shard(k), shard(v), local.contiguous())
+    sscale = lambda t: t.reshape(b, hkv, world, s_loc).permute(  # noqa
+        2, 0, 1, 3).contiguous()
+    got_q = sp_flash_decode(q, shard(kq), shard(vq), local.contiguous(),
+                            k_scale=sscale(ks), v_scale=sscale(vs))
+    # Paged: each rank's shard in its own pool of pages of 16, shuffled.
+    t = s_loc // ps
+    perm = 1 + torch.randperm(b * t, generator=torch.Generator().manual_seed(
+        4)).to(cuda)
+    table = perm.reshape(b, t).to(torch.int32)
+    pools = []
+    for src in (shard(k), shard(v)):
+        pool = torch.zeros(world, 1 + b * t, hkv, ps, d, device=cuda,
+                           dtype=torch.bfloat16)
+        blocks = src.reshape(world, b, hkv, t, ps, d).transpose(2, 3)
+        pool[:, table.reshape(-1).long()] = blocks.reshape(
+            world, b * t, hkv, ps, d)
+        pools.append(pool)
+    tables = table.expand(world, b, t).contiguous()
+    got_p = sp_flash_decode_paged(q, pools[0], pools[1], tables,
+                                  local.contiguous())
+    torch.cuda.synchronize()
+    after = (flash_decode.launches, flash_decode.int8_launches,
+             flash_decode_paged.launches, all_gather.launches)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 1, 3)
+    for g, w in ((got, want), (got_q, want_q), (got_p, want)):
+        assert g.shape == (world, b, h, d)
+        for r in range(world):
+            torch.testing.assert_close(g[r].float(), w.float(),
+                                       **OUT_TOL[torch.bfloat16])
+        assert torch.equal(g, g[:1].expand_as(g))
+
+
+def test_tp_mlp_fused_ar_kernel(cuda):
+    """`TPMLP(mode="fused_ar")` at world 4 on the card: one K17 launch a
+    call, every rank's copy equal, and the result against the layer on the
+    CPU (plain versions) within 1e-4 in f32."""
+    from triton_distributed_tpu_torch.kernels.allreduce import all_reduce
+    from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
+
+    cpu = TPMLP(128, 512, mode="fused_ar", world_size=4,
+                dtype=torch.float32, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    gpu = TPMLP(128, 512, mode="fused_ar", world_size=4,
+                dtype=torch.float32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    before = all_reduce.launches
+    for m in (4, 64):
+        x = torch.randn(m, 128, generator=torch.Generator().manual_seed(m))
+        with torch.inference_mode():
+            got = gpu(x.to(cuda))
+            want = cpu(x)
+        assert torch.equal(got, got[:1].expand_as(got))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert all_reduce.launches == before + 2

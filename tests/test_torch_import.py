@@ -159,7 +159,58 @@ def test_tp_path_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["(4,", "3)", "(4,", "8,", "5)", "(4,",
-                                  "2,", "6)", "18", "10"]
+                                  "2,", "6)", "18", "18"]
+
+
+def test_collective_path_runs_without_jax():
+    """The collective library (K15-K18 wrappers and their plain
+    versions, `ops`, the SP decode and its layer, the low-latency
+    all-gather, `TPMLP(mode="fused_ar")`) imports and runs with JAX
+    blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch import ops\n"
+        "from triton_distributed_tpu_torch.kernels import common_ops\n"
+        "from triton_distributed_tpu_torch.kernels.allgather import (\n"
+        "    AllGatherContext, all_gather)\n"
+        "from triton_distributed_tpu_torch.kernels.allreduce import (\n"
+        "    AllReduceContext, all_reduce)\n"
+        "from triton_distributed_tpu_torch.kernels.reduce_scatter import (\n"
+        "    ReduceScatterContext, reduce_scatter)\n"
+        "from triton_distributed_tpu_torch.kernels.low_latency_allgather "
+        "import (\n"
+        "    create_fast_allgather_context, fast_allgather_packed)\n"
+        "from triton_distributed_tpu_torch.layers.sp_flash_decode_layer "
+        "import (\n"
+        "    SpFlashDecodeAttention)\n"
+        "from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP\n"
+        "from triton_distributed_tpu_torch.parallel import make_mesh\n"
+        "x = torch.randn(4, 8, 16)\n"
+        "a = all_gather(x, AllGatherContext('tp', 4, 'ring'))\n"
+        "r = reduce_scatter(x, ReduceScatterContext('tp', 4, 'ring'))\n"
+        "s = all_reduce(x, AllReduceContext('tp', 4, 'chain'))\n"
+        "b = common_ops.broadcast(x, 2, 'tp', 4)\n"
+        "o = ops.all_reduce(x, make_mesh(4, device='cpu'))\n"
+        "p = fast_allgather_packed([x, x[:, :1]],\n"
+        "    create_fast_allgather_context('tp', 4))\n"
+        "att = SpFlashDecodeAttention('sp', 4, 8, 2, 64, 16)\n"
+        "d = att(torch.randn(2, 8, 64), torch.randn(4, 2, 2, 16, 64),\n"
+        "        torch.randn(4, 2, 2, 16, 64), torch.tensor([40, 5]))\n"
+        "m = TPMLP(16, 32, mode='fused_ar', world_size=4,\n"
+        "          dtype=torch.float32, device='cpu')\n"
+        "print(tuple(a.shape), tuple(r.shape), tuple(s.shape),\n"
+        "      bool(b[0].equal(x[2])), tuple(o.shape), tuple(p[1].shape),\n"
+        "      tuple(d.shape), tuple(m(torch.randn(3, 16)).shape))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        "(4,", "32,", "16)", "(4,", "2,", "16)", "(4,", "8,", "16)", "True",
+        "(4,", "8,", "16)", "(4,", "4,", "16)", "(4,", "2,", "8,", "64)",
+        "(4,", "3,", "16)"]
 
 
 def test_world_size_above_one_raises():

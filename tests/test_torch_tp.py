@@ -437,8 +437,11 @@ def test_unported_at_world_above_one_raises():
         MoEMLP(64, 32, 4, world_size=2, device="cpu")
     with pytest.raises(NotImplementedError, match="K13"):
         TPMLP(64, 32, mode="w8a8", world_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="K17"):
-        TPMLP(64, 32, mode="fused_ar", world_size=2, device="cpu")
+    # fused_ar runs on K17 now: it builds at world 2 and sums its ranks.
+    ar = TPMLP(64, 32, mode="fused_ar", world_size=2, dtype=torch.float32,
+               device="cpu")
+    assert ar.gate_up.shape == (2, 64, 32) and ar.down.shape == (2, 16, 64)
+    assert ar(torch.zeros(3, 64)).shape == (2, 3, 64)
     m = Qwen3(ModelConfig.tiny(dtype="float32"), mesh=mesh).init_params(
         torch.Generator().manual_seed(0))
     m.requires_grad_(True)

@@ -8,7 +8,12 @@
 //   (K14's `ll` body; K16's scatter kernel later);
 // - `reduce_sum`: port of reduce_scatter.py `_emit_reduce_sum` (:94), the
 //   f32 sum over the ranks' partials in rank order 0 .. W-1, cast to the
-//   output type.
+//   output type (`reduce_sum_to` stores it to several ranks at once);
+// - `add_into`: port of reduce_scatter.py `emit_add_into` (:120), one
+//   f32 add of two chunks rounded to their type, over a block's range;
+// - `Faults` and `inject_faults`: the contexts' straggler and
+//   for_correctness knobs (language/core.py :304, :331);
+// - `launch_cooperative`: the launch of every collective kernel.
 // Every block of a rank calls them with its share (blockIdx.x of
 // gridDim.x).
 #pragma once
@@ -62,16 +67,18 @@ __device__ __forceinline__ float load1_cg(const float* p) {
   return __ldcg(p);
 }
 
-// out[i] = sum over w = 0 .. world-1 of src[w * elems + i], each term
-// widened to f32 and added in that order, the sum cast to T: block
-// ``part`` of ``parts`` takes its share of the elements.
+// outs[o][i] = sum over w = 0 .. world-1 of src[w * elems + i] for each
+// of the ``nouts`` destinations, each term widened to f32 and added in
+// that order, the sum cast to T: block ``part`` of ``parts`` takes its
+// share of the elements.
 template <typename T>
-__device__ __forceinline__ void reduce_sum(const T* src, T* out, int world,
-                                           size_t elems, int part,
-                                           int parts) {
-  const bool vec = elems % 8 == 0 &&
-                   (reinterpret_cast<uintptr_t>(src) |
-                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+__device__ __forceinline__ void reduce_sum_to(const T* src, T* const* outs,
+                                              int nouts, int world,
+                                              size_t elems, int part,
+                                              int parts) {
+  uintptr_t align = reinterpret_cast<uintptr_t>(src);
+  for (int o = 0; o < nouts; ++o) align |= reinterpret_cast<uintptr_t>(outs[o]);
+  const bool vec = elems % 8 == 0 && align % 16 == 0;
   const size_t unit = vec ? 8 : 1;
   const size_t units = elems / unit;
   const size_t share = (units + parts - 1) / parts;
@@ -87,13 +94,117 @@ __device__ __forceinline__ void reduce_sum(const T* src, T* out, int world,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[j] = acc[j] + v[j];
       }
-      store8(out + i * 8, acc);
+      for (int o = 0; o < nouts; ++o) store8(outs[o] + i * 8, acc);
     } else {
       float acc = load1_cg(src + i);
       for (int w = 1; w < world; ++w) acc = acc + load1_cg(src + w * elems + i);
-      store1(out + i, acc);
+      for (int o = 0; o < nouts; ++o) store1(outs[o] + i, acc);
     }
   }
+}
+
+// out[i] = sum over w of src[w * elems + i] (`reduce_sum_to` with one
+// destination).
+template <typename T>
+__device__ __forceinline__ void reduce_sum(const T* src, T* out, int world,
+                                           size_t elems, int part,
+                                           int parts) {
+  reduce_sum_to(src, &out, 1, world, elems, part, parts);
+}
+
+// The elements [lo, hi) of a chunk that block ``part`` of ``parts`` owns:
+// whole units of 8 elements (so a bf16 or f32 range starts 16-byte aligned
+// when the chunk does), the last block also the tail.  A method whose
+// block copies what it computed (the rings, the chain) uses the same range
+// for both, so no block reads another's unsynchronised stores.
+struct Range {
+  size_t lo, hi;
+};
+
+__device__ __forceinline__ Range block_range(size_t elems, int part,
+                                             int parts) {
+  const size_t units = elems / 8;
+  const size_t share = (units + parts - 1) / parts;
+  const size_t a = (size_t)part * share, b = a + share;
+  Range r{(a < units ? a : units) * 8, (b < units ? b : units) * 8};
+  if (part == parts - 1) r.hi = elems;
+  return r;
+}
+
+// dst[i] = T(float(a[i]) + float(b[i])) over ``r`` (dst may alias a): the
+// JAX `emit_add_into`, one rounded f32 add a hop.
+template <typename T>
+__device__ __forceinline__ void add_into(T* dst, const T* a, const T* b,
+                                         Range r) {
+  const bool vec = (reinterpret_cast<uintptr_t>(dst + r.lo) |
+                    reinterpret_cast<uintptr_t>(a + r.lo) |
+                    reinterpret_cast<uintptr_t>(b + r.lo)) % 16 == 0;
+  const size_t nvec = vec ? (r.hi - r.lo) / 8 : 0;
+  for (size_t v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const size_t i = r.lo + v * 8;
+    float fa[8], fb[8];
+    load8_cg(a + i, fa);
+    load8_cg(b + i, fb);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) fa[j] = fa[j] + fb[j];
+    store8(dst + i, fa);
+  }
+  for (size_t i = r.lo + nvec * 8 + threadIdx.x; i < r.hi; i += blockDim.x)
+    store1(dst + i, load1_cg(a + i) + load1_cg(b + i));
+}
+
+// A block's share of a copy of elements ``r`` (its own range, by its own
+// threads) from ``src`` to ``dst``.
+template <typename T>
+__device__ __forceinline__ void put_range(T* dst, const T* src, Range r) {
+  dl::put_nbi(dst + r.lo, src + r.lo, (r.hi - r.lo) * sizeof(T), 0, 1);
+}
+
+// The contexts' fault injection: rank ``straggler`` (none when negative)
+// spins ``cycles`` before it communicates; with ``for_correctness`` every
+// rank spins (rank + 1) * 100000 cycles first.
+struct Faults {
+  int straggler;
+  long long cycles;
+  int for_correctness;
+};
+
+__device__ __forceinline__ void inject_faults(const dl::Team& t,
+                                              const Faults& f) {
+  dl::maybe_straggle(t, f.straggler, f.cycles);
+  dl::correctness_delay(t, f.for_correctness != 0);
+}
+
+//: Threads of a collective block.
+constexpr int COMM_THREADS = 256;
+
+// One cooperative launch of ``fn`` with P blocks a rank for ``ranks``
+// ranks (gridDim = (P, ranks)): P is ``want`` (at least 1), at most as
+// many as can be resident together with every other rank's, so a block
+// that spins on a peer never starves it; a grid that cannot be resident
+// is refused.  P goes to ``*blocks``.  Returns a cudaError_t code.
+inline int launch_cooperative(void* fn, void** args, int ranks, int want,
+                              int* blocks, cudaStream_t s) {
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, COMM_THREADS,
+                                                      0);
+  if (e != cudaSuccess) return (int)e;
+  const int fit = occ * sms / ranks;
+  if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int P = want < 1 ? 1 : (want < fit ? want : fit);
+  *blocks = P;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(P, ranks),
+                                          dim3(COMM_THREADS), args, 0, s);
+}
+
+// Blocks a rank for a step that moves ``bytes``: one per 32 KiB.
+inline int blocks_for(size_t bytes) {
+  const size_t p = (bytes + (32u << 10) - 1) / (32u << 10);
+  return p > 4096 ? 4096 : (int)p;
 }
 
 // One-shot push all-gather: this rank's ``bytes``-byte shard goes to slot

@@ -2,7 +2,8 @@
 // triton_distributed_tpu/language/core.py (`dl`): rank / num_ranks /
 // peer_id (:35-52), put / put_nbi (:70-92), notify (:129),
 // signal_wait_until / wait (:153-165), barrier_all (:193), entry_barrier
-// (:223) and barrier_neighbors (:364).
+// (:223), barrier_neighbors (:364), emit_broadcast (:247), and the fault
+// injection of maybe_straggle (:304) and correctness_delay (:331).
 //
 // A collective runs over a team of `world` ranks.  Every rank owns the same
 // symmetric buffers and signal words; a device function reaches rank p's
@@ -44,11 +45,17 @@ namespace dl {
 constexpr int MAX_RANKS = 8;
 
 //: Signal words of one rank (`language/core.py` SIGNAL_WORDS): the entry
-//: barrier, a rank-local barrier, then one arrival counter per source rank.
+//: barrier, a rank-local barrier, then 2 * MAX_RANKS arrival counters.  A
+//: method names its arrival words: one per source rank, per chunk, per
+//: ring step or per step's ack, the second bank (ARRIVAL_WORD + MAX_RANKS
+//: ..) for a second phase or direction.  Each word a method waits on
+//: receives one add from each block of its signaller in every call, so a
+//: wait's target is always the instance's epoch plus this call's blocks.
 constexpr int BARRIER_WORD = 0;
 constexpr int LOCAL_WORD = 1;
 constexpr int ARRIVAL_WORD = 2;
-constexpr int SIGNAL_WORDS = ARRIVAL_WORD + MAX_RANKS;
+constexpr int ARRIVAL_WORDS = 2 * MAX_RANKS;
+constexpr int SIGNAL_WORDS = ARRIVAL_WORD + ARRIVAL_WORDS;
 
 #ifndef TDT_SPIN_BUDGET_CYCLES
 //: About 10 s at the H100's 1.98 GHz boost clock.
@@ -257,6 +264,55 @@ __device__ __forceinline__ void barrier_rank(const Team& t, Symm<u64> sig,
   u64* word = sig[rank(t)] + LOCAL_WORD;
   signal_after_puts<S>(&word, 1);
   wait<S>(word, 1, 0, target, "barrier_rank");
+}
+
+// Broadcast: the root's ``bytes`` from ``src`` into every rank's ``dst``
+// (its own included, the JAX body's local copy), then one add to word
+// ``word`` of every rank, the root's own too, so that each rank's word
+// sees the same adds in every call whichever rank is the root; every rank
+// then waits on its own word.  ``root`` is data, read by the caller from
+// device memory, not a compile-time choice.  Callers run the entry barrier
+// before it when ``dst`` may still be read by the previous call.  (JAX
+// `dl.emit_broadcast`.)
+template <Scope S = Scope::gpu>
+__device__ __forceinline__ void emit_broadcast(const Team& t, int root,
+                                               const void* src,
+                                               Symm<char> dst, size_t bytes,
+                                               Symm<u64> sig, int word,
+                                               u64 target) {
+  const int me = rank(t);
+  if (me == root) {
+    for (int p = 0; p < t.world; ++p)
+      put_nbi(dst[p], src, bytes, blockIdx.x, gridDim.x);
+    u64* words[MAX_RANKS];
+    for (int p = 0; p < t.world; ++p) words[p] = sig[p] + word;
+    signal_after_puts<S>(words, t.world);
+  }
+  wait<S>(sig[me] + word, 1, 0, target, "broadcast arrival");
+}
+
+// Spin ``cycles`` SM clock cycles (the TPU's `pl.delay`).
+__device__ __forceinline__ void spin_cycles(long long cycles) {
+  const long long t0 = clock64();
+  while (clock64() - t0 < cycles) {
+  }
+}
+
+// Fault injection, before a collective communicates: every block of rank
+// ``straggler`` spins ``cycles`` (JAX `dl.maybe_straggle`; no straggler
+// when it is negative).
+__device__ __forceinline__ void maybe_straggle(const Team& t, int straggler,
+                                               long long cycles) {
+  if (straggler >= 0 && rank(t) == straggler && cycles > 0)
+    spin_cycles(cycles);
+}
+
+// Every rank spins (rank + 1) * ``cycles``: staggered arrivals widen the
+// race windows so that an ordering fault shows on every run (JAX
+// `dl.correctness_delay`, the reference's ``for_correctness``).
+__device__ __forceinline__ void correctness_delay(const Team& t, bool enabled,
+                                                  long long cycles = 100000) {
+  if (enabled) spin_cycles((rank(t) + 1) * cycles);
 }
 
 }  // namespace dl

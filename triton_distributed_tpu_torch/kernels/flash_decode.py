@@ -8,8 +8,15 @@ as the hand-written CUDA kernels ``csrc/flash_decode.cu`` and
 (``csrc/decode_body.cuh``) and so agree bit for bit on the same logical
 K/V.  Both take a float cache or an int8 one with per-token f32 scales
 (``k_scale``/``v_scale``, from `quantize_kv`): the K scale multiplies the
-scores, the V scale the softmax weights.  The sequence-parallel forms are
-not ported yet.
+scores, the V scale the softmax weights.
+
+The sequence-parallel forms, `sp_flash_decode` and `sp_flash_decode_paged`
+(JAX :416, :440), hold the KV cache split over W ranks along the sequence
+(`parallel.mesh`: rank-stacked shards), run the local kernel over every
+rank's shard in ONE launch (the ranks as extra batch rows), gather each
+rank's packed (out, lse) with one K15 push all-gather, and combine them
+with LSE weights in plain torch (`combine_partials`, JAX :352; the JAX
+combine is `jnp` code, outside Pallas).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version (`flash_decode_reference`,
@@ -23,7 +30,10 @@ from typing import Optional
 
 import torch
 
+from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels.allgather import (
+    AllGatherContext, AllGatherMethod, all_gather)
 from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 
 NEG_INF = -1e30
@@ -270,3 +280,108 @@ def _check(name, q, k, v, kv_len, k_scale, v_scale):
             or kv_len.device != q.device or not kv_len.is_contiguous()):
         raise ValueError(f"{name}: kv_len must be a contiguous (B,) int32 "
                          "tensor on q's device")
+
+
+# ---- sequence-parallel decode --------------------------------------------
+
+def combine_partials(outs, lses):
+    """LSE-weighted combine of per-shard decode partials (JAX
+    `combine_partials`): outs (R, ..., D), lses (R, ...) -> (..., D).
+
+    An empty shard (lse about -inf) may carry garbage partials, so its out
+    is zeroed by its OWN lse: not by the relative weight (when every shard
+    is empty each weight is exp(0) = 1 and the garbage would pass) and not
+    by finiteness (a live shard's NaN must propagate)."""
+    m = lses.max(0, keepdim=True).values
+    w = torch.exp(lses - m)
+    denom = w.sum(0)
+    outs = torch.where((lses > NEG_INF / 2)[..., None], outs,
+                       torch.zeros((), dtype=outs.dtype, device=outs.device))
+    num = (w[..., None] * outs.float()).sum(0)
+    return (num / denom.clamp_min(1e-30)[..., None]).to(outs.dtype)
+
+
+def _sp_gather_combine(out, lse, kv_len_local, q, axis: str,
+                       collective_id: int):
+    """The distributed tail of both SP decodes (JAX `_sp_gather_combine`):
+    empty shards' lse set to -inf, each rank's (out, lse) packed into one
+    f32 row of D + 1 values padded to 16 bytes (the kernel's copy unit; the
+    JAX package pads to 128 lanes for Mosaic), one K15 push all-gather, the
+    combine.  out (W, B, H, D), lse (W, B, H), kv_len_local (W, B) ->
+    (W, B, H, D) in q's dtype, every rank's copy."""
+    world, b, h, d = out.shape
+    lse = torch.where(kv_len_local[..., None] > 0, lse,
+                      torch.full((), NEG_INF, device=lse.device))
+    dp = (d + 1 + 3) // 4 * 4
+    payload = torch.zeros((world, b * h, dp), dtype=torch.float32,
+                          device=out.device)
+    payload[..., :d] = out.float().reshape(world, b * h, d)
+    payload[..., d] = lse.reshape(world, b * h)
+    ctx = AllGatherContext(axis, world, AllGatherMethod.PUSH_ALL,
+                           collective_id)
+    gathered = all_gather(payload, ctx)          # (W, W * B * H, dp)
+    g = gathered.reshape(world, world, b, h, dp).transpose(0, 1)
+    return combine_partials(g[..., :d], g[..., d]).to(q.dtype)
+
+
+def sp_flash_decode(q, k_shard, v_shard, kv_len_local, axis: str = "sp", *,
+                    k_scale=None, v_scale=None,
+                    scale: Optional[float] = None,
+                    collective_id: int = cids.FLASH_DECODE_AG):
+    """Sequence-parallel decode over the W ranks of ``axis`` (JAX
+    `sp_flash_decode`).  q (B, H, D), replicated; k_shard, v_shard (W, B,
+    Hkv, S_loc, D): rank r's shard of every row's cache, float, or int8
+    with ``k_scale``/``v_scale`` (W, B, Hkv, S_loc); kv_len_local (W, B)
+    int32: the positions of rank r's shard that are filled.  Returns (W, B,
+    H, D): every rank's copy of the combined output.
+
+    One launch of the decode kernel (K2, or K2q with an int8 cache) over
+    every rank's shard, then one K15 launch: `flash_decode` and
+    `all_gather` count them."""
+    world, b = k_shard.shape[:2]
+    qq = q.unsqueeze(0).expand(world, *q.shape).reshape(world * b,
+                                                        *q.shape[1:])
+
+    def rows(t):
+        return None if t is None else t.reshape(world * b, *t.shape[2:])
+
+    out, lse = flash_decode(qq.contiguous(), rows(k_shard), rows(v_shard),
+                            rows(kv_len_local), k_scale=rows(k_scale),
+                            v_scale=rows(v_scale), scale=scale)
+    return _sp_gather_combine(out.reshape(world, *q.shape),
+                              lse.reshape(world, *q.shape[:2]),
+                              kv_len_local, q, axis, collective_id)
+
+
+def sp_flash_decode_paged(q, k_pool, v_pool, page_table, kv_len_local,
+                          axis: str = "sp", *, k_scale=None, v_scale=None,
+                          scale: Optional[float] = None,
+                          collective_id: int = cids.FLASH_DECODE_AG):
+    """Sequence-parallel decode over paged shards (JAX
+    `sp_flash_decode_paged`): rank r holds a pool k_pool[r], v_pool[r] (W,
+    P, Hkv, page, D) (int8 with ``k_scale``/``v_scale`` (W, P, Hkv, page))
+    and a table page_table[r] (W, B, T) int32 of its own pages covering its
+    kv_len_local[r] (W, B) positions.  Returns (W, B, H, D) as
+    `sp_flash_decode`.
+
+    One launch of the paged kernel (K3, or K3q) over every rank's pool (the
+    pools stacked into one, each rank's table offset by its first page),
+    then one K15 launch."""
+    world, p = k_pool.shape[:2]
+    b = page_table.shape[1]
+    qq = q.unsqueeze(0).expand(world, *q.shape).reshape(world * b,
+                                                        *q.shape[1:])
+    first = torch.arange(world, dtype=torch.int32,
+                         device=page_table.device) * p
+    table = (page_table + first[:, None, None]).reshape(world * b, -1)
+
+    def pool(t):
+        return None if t is None else t.reshape(world * p, *t.shape[2:])
+
+    out, lse = flash_decode_paged(
+        qq.contiguous(), pool(k_pool), pool(v_pool), table.contiguous(),
+        kv_len_local.reshape(world * b), k_scale=pool(k_scale),
+        v_scale=pool(v_scale), scale=scale)
+    return _sp_gather_combine(out.reshape(world, *q.shape),
+                              lse.reshape(world, *q.shape[:2]),
+                              kv_len_local, q, axis, collective_id)

@@ -4,9 +4,10 @@
 The primitives themselves are device functions in ``kernels/csrc/dl.cuh``:
 ``rank``, ``num_ranks`` and ``peer_id`` (JAX :35-52), ``put`` / ``put_nbi``
 (:70-92), ``notify`` (:129), ``signal_wait_until`` / ``wait`` (:153-165),
-``barrier_all`` (:193), ``entry_barrier`` (:223) and ``barrier_neighbors``
-(:364), over a table of peer pointers, with the memory scope a template
-parameter.  What the host keeps for them lives here: each collective
+``barrier_all`` (:193), ``entry_barrier`` (:223), ``emit_broadcast``
+(:247), ``maybe_straggle`` (:304), ``correctness_delay`` (:331) and
+``barrier_neighbors`` (:364), over a table of peer pointers, with the
+memory scope a template parameter.  What the host keeps for them lives here: each collective
 instance's symmetric buffers and signal words, and its epoch.
 
 Signal words are monotonic counters that no call resets.  In every call of
@@ -31,9 +32,19 @@ import math
 import torch
 
 #: Counters a rank holds (``dl.cuh`` SIGNAL_WORDS): the entry barrier, the
-#: rank-local barrier, then one arrival counter per source rank (8 ranks at
-#: most).
-SIGNAL_WORDS = 10
+#: rank-local barrier, then two banks of 8 arrival counters (a source rank,
+#: a chunk or a ring step each; the second bank for a second phase,
+#: direction or the acks).
+SIGNAL_WORDS = 18
+
+
+def fault_args(straggler, for_correctness: bool):
+    """The kernels' fault-injection arguments (``dl.cuh``
+    `maybe_straggle`, `correctness_delay`): (straggler rank or -1, its
+    cycles, 0 or 1) from a context's ``straggler`` (None or (rank,
+    cycles)) and ``for_correctness``."""
+    rank, cycles = straggler if straggler is not None else (-1, 0)
+    return int(rank), int(cycles), int(bool(for_correctness))
 
 
 class SymmetricBuffers:

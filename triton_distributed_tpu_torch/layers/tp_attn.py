@@ -26,8 +26,7 @@ run every rank's heads in one launch at the global head count, the GQA
 grouping kept, and the KV cache keeps its global (B, Hkv, S, D) layout.
 Decode needs a batch that the ranks split evenly.  What is still unported
 at world > 1 raises `NotImplementedError` naming its kernel
-(`require_ported`): the MoE layers, the ``w8a8`` and ``fused_ar`` modes,
-and training.
+(`require_ported`): the MoE layers, the ``w8a8`` mode and training.
 """
 
 from __future__ import annotations
@@ -50,7 +49,6 @@ UNPORTED_AT_WORLD = {
     "moe": "the MoE layers need K10 (moe_reduce_rs_fused) and K11 "
            "(ag_group_gemm)",
     "w8a8": "the w8a8 mode needs K13 (ag_gemm_w8a8)",
-    "fused_ar": "the fused_ar mode needs K17 (all_reduce)",
     "grad": "training needs the training duals (ag_gemm_diff, gemm_rs_diff: "
             "their backwards are the dual fused kernels)",
 }
@@ -85,6 +83,29 @@ def weight(*shape, dtype, device) -> nn.Parameter:
     `load_jax_params`), frozen until ``requires_grad_(True)``."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def stack_columns(w, world: int):
+    """The JAX global layout's column shards, (in, W * c) -> (W, in, c)."""
+    return w.reshape(w.shape[0], world, -1).transpose(0, 1)
+
+
+def stack_rows(w, world: int):
+    """The JAX global layout's row shards, (W * r, out) -> (W, r, out)."""
+    return w.reshape(world, -1, w.shape[-1])
+
+
+def tp_layout(name: str, leaf, world: int):
+    """A JAX world-W weight -> the port's rank-stacked tensor: ``wqkv`` and
+    ``gate_up`` column-sharded, ``wo`` and ``down`` row-sharded, anything
+    else (and everything at world 1) as it is."""
+    if world == 1:
+        return leaf
+    if name in ("wqkv", "gate_up"):
+        return stack_columns(leaf, world)
+    if name in ("wo", "down"):
+        return stack_rows(leaf, world)
+    return leaf
 
 
 def rope_cos_sin(positions, dim: int, theta: float = 1e6,

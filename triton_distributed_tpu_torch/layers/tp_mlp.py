@@ -19,9 +19,15 @@ holding every rank: `parallel.mesh`) the weights are rank-stacked,
 `gemm_rs` (K14), whose partials are rounded to x's dtype before their sum;
 ``xla`` (JAX `_fwd_xla` :102) runs their ``"xla"`` method: gather by
 reshape, a library product, and the f32 partials summed unrounded
-(`gemm_rs_nonoverlap`, as JAX `_psum_scatter_rows` :93).  ``w8a8``,
-``fused_ar`` (which needs K17 at any world) and training at world > 1
-raise `NotImplementedError` naming their kernels."""
+(`gemm_rs_nonoverlap`, as JAX `_psum_scatter_rows` :93).  ``w8a8`` and
+training at world > 1 raise `NotImplementedError` naming their kernels.
+
+``fused_ar`` (JAX `_fwd_fused_ar` :167) takes x replicated, (M, hidden) at
+every world: each rank's gate_up and down products are library products
+(JAX computes them with ``jnp.dot``, outside Pallas), the partial rounded
+to x's dtype, then `kernels.allreduce.all_reduce` (K17) sums the partials,
+at world 1 too, as JAX does.  At world W it returns every rank's copy,
+(W, M, hidden).  It has no backward."""
 
 from __future__ import annotations
 
@@ -33,15 +39,16 @@ from torch import nn
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
     AllGatherGEMMContext, ag_gemm)
+from triton_distributed_tpu_torch.kernels.allreduce import (
+    AllReduceContext, all_reduce)
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     GEMMReduceScatterContext, gemm_rs)
 from triton_distributed_tpu_torch.kernels.quantized import (
     matmul_w8a8, quantize_sym)
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    UNPORTED_AT_WORLD, collective_method, normal_init_, require_ported,
-    weight)
+    collective_method, normal_init_, require_ported, tp_layout, weight)
 
-MODES = ("xla", "fused", "w8a8")
+MODES = ("xla", "fused", "fused_ar", "w8a8")
 
 #: The w8a8 mode's parameters, as `TPMLP.quantize_params` names them.
 QUANTIZED = ("gate_up_q", "gate_up_scale", "down_q", "down_scale")
@@ -81,10 +88,6 @@ class TPMLP(nn.Module):
     def __init__(self, hidden: int, ffn: int, mode: str = "fused",
                  world_size: int = 1, *, dtype=torch.bfloat16, device=None):
         super().__init__()
-        if mode == "fused_ar":
-            raise NotImplementedError(
-                f"TPMLP(mode='fused_ar'): {UNPORTED_AT_WORLD['fused_ar']}, "
-                "not yet ported")
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES} (the others are "
                              "not ported yet)")
@@ -162,9 +165,34 @@ class TPMLP(nn.Module):
             dst.copy_(src)
         return self
 
+    @torch.no_grad()
+    def load_jax_params(self, params) -> "TPMLP":
+        """Copy the JAX layer's global weights (tensors or numpy arrays)
+        into a float layer: ``gate_up`` (hidden, 2 ffn) whose columns are
+        each rank's [gate_r | up_r] in rank order, and ``down`` (ffn,
+        hidden) row-sharded, as the JAX layer is called on them under
+        ``shard_map`` (P(None, axis), P(axis, None)).  Returns self."""
+        if self.mode == "w8a8":
+            raise ValueError("load_jax_params: a w8a8 layer takes "
+                             "load_quantized")
+        for name in ("gate_up", "down"):
+            dst = getattr(self, name)
+            src = params[name]
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.array(src, dtype=np.float32))
+            src = tp_layout(name, src, self.world_size)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: {tuple(src.shape)} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+        return self
+
     def forward(self, x):
         """x (M, hidden) -> (M, hidden); at world W x (W, M/W, hidden) ->
-        the same rows (W, M/W, hidden)."""
+        the same rows (W, M/W, hidden), and in ``fused_ar`` mode x (M,
+        hidden) replicated -> (W, M, hidden), every rank's copy."""
+        if self.mode == "fused_ar":
+            return self._forward_fused_ar(x)
         if self.world_size > 1:
             return self._forward_tp(x)
         if self.mode == "w8a8":
@@ -175,6 +203,19 @@ class TPMLP(nn.Module):
             return mlp_w8a8(x, *(getattr(self, n) for n in QUANTIZED))
         return torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
                             self.down)
+
+    def _forward_fused_ar(self, x):
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.gate_up.requires_grad):
+            raise NotImplementedError(
+                "TPMLP(mode='fused_ar') has no backward: training runs the "
+                "'xla' or 'fused' mode")
+        w = self.world_size
+        partial = torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
+                               self.down)
+        out = all_reduce(partial.reshape(w, *x.shape), AllReduceContext(
+            "tp", w, collective_id=cids.TP_MLP_AR))
+        return out if w > 1 else out[0]
 
     def _forward_tp(self, x):
         if torch.is_grad_enabled() and (x.requires_grad

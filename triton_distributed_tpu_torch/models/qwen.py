@@ -48,7 +48,8 @@ import torch
 from torch import nn
 
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    TPAttention, normal_init_, require_ported, rms_norm, weight)
+    TPAttention, normal_init_, require_ported, rms_norm, stack_columns,
+    stack_rows, tp_layout, weight)
 from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
@@ -78,28 +79,9 @@ def _mlp_names(config: ModelConfig):
     return ("gate_up", "down")
 
 
-def _stack_columns(w, world: int):
-    """The JAX global layout's column shards, (in, W * c) -> (W, in, c)."""
-    return w.reshape(w.shape[0], world, -1).transpose(0, 1)
-
-
-def _stack_rows(w, world: int):
-    """The JAX global layout's row shards, (W * r, out) -> (W, r, out)."""
-    return w.reshape(world, -1, w.shape[-1])
-
-
 def _global_columns(w):
-    """The inverse of `_stack_columns`: (W, in, c) -> (in, W * c)."""
+    """The inverse of `stack_columns`: (W, in, c) -> (in, W * c)."""
     return w.transpose(0, 1).reshape(w.shape[1], -1)
-
-
-def _tp_layout(name: str, tree_leaf, world: int):
-    """A JAX world-W leaf -> the port's rank-stacked tensor."""
-    if name in ("wqkv", "gate_up"):
-        return _stack_columns(tree_leaf, world)
-    if name in ("wo", "down"):
-        return _stack_rows(tree_leaf, world)
-    return tree_leaf
 
 
 def _jax_layout(name: str, t, world: int):
@@ -118,7 +100,7 @@ def _interleave(parts, world: int):
     every block side by side, rank-stacked: (W, in, sum of c_i / W).  As
     the JAX `load_hf_weights` interleaves wqkv and `_interleave_gate_up`
     gate_up."""
-    return torch.cat([_stack_columns(p, world) for p in parts], dim=2)
+    return torch.cat([stack_columns(p, world) for p in parts], dim=2)
 
 
 class Qwen3Layer(nn.Module):
@@ -231,8 +213,7 @@ class Qwen3(nn.Module):
 
         def put(dst, src, name=""):
             src = torch.from_numpy(np.array(src, dtype=np.float32))
-            if w > 1:
-                src = _tp_layout(name, src, w)
+            src = tp_layout(name, src, w)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"shape {tuple(src.shape)} != "
                                  f"{tuple(dst.shape)}")
@@ -307,13 +288,13 @@ class Qwen3(nn.Module):
             dst.ln1, dst.ln2 = src.ln1, src.ln2
             dst.attn.wqkv.copy_(_interleave(
                 torch.split(src.attn.wqkv, split, dim=1), world))
-            dst.attn.wo.copy_(_stack_rows(src.attn.wo, world))
+            dst.attn.wo.copy_(stack_rows(src.attn.wo, world))
             if cfg.qk_norm:
                 dst.attn.q_norm = src.attn.q_norm
                 dst.attn.k_norm = src.attn.k_norm
             dst.mlp.gate_up.copy_(_interleave(
                 torch.chunk(src.mlp.gate_up, 2, dim=1), world))
-            dst.mlp.down.copy_(_stack_rows(src.mlp.down, world))
+            dst.mlp.down.copy_(stack_rows(src.mlp.down, world))
         out.embed, out.ln_f = self.embed, self.ln_f
         if not cfg.tie_word_embeddings:
             out.lm_head_w = self.lm_head_w
