@@ -83,7 +83,21 @@ non-zero):
    layer 0's experts quantized and run on K9 against the bf16 layer; K8
    and K9 times on layer 0's weights; prefill, decode, tokens/s, peak
    memory and profiles;
-12. collective path (last: the device holds the least here): the
+12. MoE TP path (the world-1 MoE model freed first): K11
+   (``ag_group_gemm``), its int8 form, K10 (``moe_reduce_rs_fused``, bf16
+   and int8 weights) and K13 (``ag_gemm_w8a8``) against their plain
+   versions at world 2, 4 and 8 (the int8 GEMMs bit for bit, the rest row
+   by row) on Qwen3-30B-A3B's prefill and decode chunks and three edge
+   routings, and over 100 back-to-back calls each; a 2-layer f32 model of
+   its widths at world 4, card against CPU; Qwen3-30B-A3B built at world
+   4 in mode ``fused`` through ``Engine.serve`` of 4 x 512 prompt tokens
+   to 32 with exact K11/K10/K12/K14/K1/K2/K8 launches, every layer's
+   fused output within 3x the xla layer's bf16 error of an f32 reference
+   where the local and gathered routings agree; ``MoEMLP(mode="w8a8")``
+   and ``TPMLP(4096, 12288, mode="w8a8")`` at world 4 within 5% of bf16;
+   kernel times with bounds, plain versions and library yardsticks,
+   world-4 prefill and decode, a traced prefill;
+13. collective path (last: the device holds the least here): the
    collective library at world W on the one card, K15 (``all_gather``),
    K16 (``reduce_scatter``), K17 (``all_reduce``) and K18
    (``barrier_all_on_axis``, ``broadcast``): every method at world 2, 4
@@ -130,7 +144,8 @@ KERNEL_SOURCES = {
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
                 "matmul_w8a8", "flash_attention_bwd", "grouped_matmul",
                 "grouped_matmul_w8a8", "ag_gemm", "gemm_rs", "all_gather",
-                "reduce_scatter", "all_reduce", "common_ops")}
+                "reduce_scatter", "all_reduce", "common_ops", "ag_group_gemm",
+                "moe_reduce_rs", "ag_gemm_w8a8")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
@@ -178,6 +193,14 @@ KERNELS = {
                    _TPU + "allreduce.py:373"),
     "barrier_broadcast": ("common_ops", "common_ops", "launches",
                           _TPU + "common_ops.py:91"),
+    "ag_group_gemm": ("ag_group_gemm", "ag_group_gemm", "launches",
+                      _TPU + "allgather_group_gemm.py:172"),
+    "ag_group_gemm_w8a8": ("ag_group_gemm", "ag_group_gemm_w8a8", "launches",
+                           _TPU + "allgather_group_gemm.py:297"),
+    "moe_reduce_rs_fused": ("moe_reduce_rs", "moe_reduce_rs_fused",
+                            "launches", _TPU + "moe_reduce_rs.py:396"),
+    "ag_gemm_w8a8": ("ag_gemm_w8a8", "ag_gemm_w8a8", "launches",
+                     _TPU + "allgather_gemm.py:440"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -303,7 +326,7 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
                       "w8a8_kernel", "grouped_tile_", "ag_gemm_",
-                      "gemm_rs_")),
+                      "gemm_rs_", "ag_group_gemm_", "moe_reduce_rs_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("elementwise and reductions", ("elementwise", "reduce", "index",
                                     "embedding", "softmax", "cat")),
@@ -652,11 +675,24 @@ class RouterTap:
         from triton_distributed_tpu_torch.layers.moe_mlp import route
 
         x = args[0]
-        ids, _ = route(x, mlp.router, mlp.topk)
-        r = route_capacity(ids, mlp.num_experts, mlp.capacity(x.shape[0]))
-        self.calls.append((ids.sort(dim=-1).values,
-                           (r.slot_of_pair < 0).sum(-1)))
-        self.counts.append(r.counts)
+        if x.dim() == 3:
+            # World W: every chunk of mc rows routed with its own capacity
+            # (the ids are a row's own, wherever it is routed).
+            from triton_distributed_tpu_torch.kernels.moe_utils import (
+                histogram, plan_chunks)
+            w, mc, h = x.shape
+            ids, wts = route(x.reshape(-1, h), mlp.router, mlp.topk)
+            plan = plan_chunks(ids, wts, w, mlp.num_experts,
+                               mlp.capacity(mc))
+            slots = plan.slot_of_pair.reshape(ids.shape)
+            counts = histogram(ids, mlp.num_experts)
+        else:
+            ids, _ = route(x, mlp.router, mlp.topk)
+            r = route_capacity(ids, mlp.num_experts,
+                               mlp.capacity(x.shape[0]))
+            slots, counts = r.slot_of_pair, r.counts
+        self.calls.append((ids.sort(dim=-1).values, (slots < 0).sum(-1)))
+        self.counts.append(counts)
 
     def __enter__(self):
         self._handles = [m.register_forward_pre_hook(self._hook)
@@ -1102,6 +1138,640 @@ def moe_path(dev, card: str, counted, expect, short, records,
             model.decode(tokens[:, 0], cache) for _ in range(8)], card,
             top=10)
     del model, engine, cache, mlp0, mlps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+#: The MoE TP path: Qwen3-30B-A3B (MOE_FIELDS) at world MOE_TP_WORLD in mode
+#: ``fused``.  Its kernels are checked at these worlds on a prefill chunk
+#: (512 rows a rank: capacity 64, blocks of 64) and a decode chunk (16 rows:
+#: capacity 16, 32 in w8a8) under random routing, and at world 4 on the
+#: prefill chunk under three routings of their own: two experts only (the
+#: rest empty), every pair to one expert, and experts filled to whole
+#: blocks.  The 2-layer f32 check's shape (64 rows a rank: the fused kernels
+#: in prefill; a decode row a rank takes the xla path) and decode steps.
+#: The W8A8 entry points: `MoEMLP` on 2048 and 64 rows, `TPMLP(4096, 12288)`
+#: (W8A8_ROWS) against their bf16 layers within MOE_W8A8_REL_L2.
+MOE_TP_WORLD = 4
+MOE_TP_WORLDS = (2, 4, 8)
+MOE_TP_ROWS = {"prefill": 512, "decode": 16}
+MOE_TP_CASES = ("two experts", "one expert", "whole blocks")
+MOE_TP_CHECK_SHAPE, MOE_TP_CHECK_STEPS = (4, 64), 2
+MOE_W8A8_LAYER_ROWS = (2048, 64)
+
+
+def moe_tp_routing(case, world, mc, e, topk, block, gen, dev):
+    """Routing ids and weights (world * mc, topk) of a named case: random
+    distinct experts a token, two experts only, every pair to the last
+    expert, or runs of ``block`` consecutive pairs to one expert each (every
+    occupied expert's count a whole number of blocks)."""
+    n = world * mc
+    if case == "random":
+        ids = torch.rand(n, e, generator=gen, device=dev).argsort(-1)[:, :topk]
+    elif case == "two experts":
+        ids = torch.randint(0, 2, (n, topk), generator=gen, device=dev) * 2
+    elif case == "one expert":
+        ids = torch.full((n, topk), e - 1, device=dev)
+    else:
+        ids = (torch.arange(n * topk, device=dev) // block % e).reshape(
+            n, topk)
+    w = torch.softmax(torch.randn(n, topk, generator=gen, device=dev), -1)
+    return ids.to(torch.int32), w
+
+
+def moe_tp_reference(mlp, x):
+    """An f32 plain reference of a world-W MoE layer (JAX `_fwd_xla` in f32
+    with library products, no kernels): x (W, mc, h) -> (W, mc, h) f32."""
+    from triton_distributed_tpu_torch.kernels.moe_utils import plan_chunks
+    from triton_distributed_tpu_torch.layers.moe_mlp import (
+        gather_chunks, route)
+    from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
+
+    world, mc, h = x.shape
+    e, topk = mlp.num_experts, mlp.topk
+    cap = mlp.capacity(mc)
+    xf = x.float()
+    ids, w = route(xf.reshape(-1, h), mlp.router, topk)
+    plan = plan_chunks(ids, w, world, e, cap)
+    buckets = gather_chunks(xf, plan.dispatch_index).transpose(0, 1).reshape(
+        e, world * cap, h)
+    kept = plan.slot_of_pair >= 0
+    slot = torch.where(kept, plan.slot_of_pair, 0).long()
+    wk = torch.where(kept, w.reshape(world, mc, topk), 0.0)
+    chunk = torch.arange(world, device=x.device)[:, None, None]
+    out = torch.zeros_like(xf)
+    for r in range(world):
+        act = gated_silu(torch.bmm(buckets, mlp.gate_up[r].float()))
+        part = torch.bmm(act, mlp.down[r].float()).reshape(
+            e, world, cap, h).transpose(0, 1)
+        vals = part[chunk, ids.reshape(world, mc, topk).long(), slot]
+        out += (vals * wk[..., None]).sum(2)
+    return out
+
+
+def moe_tp_bound(kind, world, counts, e_occ, cap, k, n, mc=0, pairs=0,
+                 int8=False):
+    """The least time of one K11 or K10 call and what sets it, for this
+    run's routing: ``counts`` (W, E) the tokens of every chunk's buckets,
+    ``e_occ`` the experts that hold a token in some chunk.  K11: each
+    rank's occupied bucket rows read once and received by the W - 1 others,
+    the occupied experts' weight shards, the dense output written; the
+    products of the occupied rows only.  K10: every rank's occupied rows of
+    every chunk and its weight shards read, W - 1 partials put and the
+    output written; the products of the occupied rows and the combine's
+    ``pairs`` weighted rows.  bf16 or (int8) 1-byte operands."""
+    ab = 1 if int8 else 2
+    rows = int(counts.sum())
+    if kind == "ag_group_gemm":
+        moved = (world * rows * k * ab + world * e_occ * k * n * ab
+                 + world * world * counts.shape[1] * cap * n * 2)
+        ops = 2 * world * rows * k * n
+    else:
+        moved = (world * rows * k * ab + world * e_occ * k * n * ab
+                 + world * world * mc * n * 2)
+        ops = 2 * world * rows * k * n + 2 * world * pairs * n
+    return bound(moved, ops, PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)
+
+
+def moe_tp_path(dev, card: str, counted, expect, short, records,
+                errs) -> None:
+    """The MoE TP path: Qwen3-30B-A3B at world MOE_TP_WORLD in mode
+    ``fused``, the W ranks in this process on the one card: every layer's
+    prefill MoE on K11 (`ag_group_gemm`) then K10 (`moe_reduce_rs_fused`),
+    attention on K12/K14 and K1/K2, decode's MoE (one row a rank) on the
+    xla path (K8); with the W8A8 entry points on K11-int8, K10 with int8
+    weights and K13 (`ag_gemm_w8a8`).
+
+    1. K11, K11-int8, K10 (bf16 and int8 weights) and K13 against their
+       plain versions at worlds 2, 4 and 8 (K11 and K10 row by row, the
+       int8 GEMMs bit for bit, K10 with int8 weights row by row): on the
+       prefill and decode chunks and, at world 4, on the edge routings;
+       then TP_REPEATS back-to-back calls of each at the decode chunk
+       with fresh inputs, queued before any is checked;
+    2. a 2-layer f32 model of Qwen3-30B-A3B's widths at world 4, card
+       against CPU: logits, every top-8 set and every drop;
+    3. the model at full width and depth with seeded bf16 weights made on
+       the card: `Engine.serve` of 4 x 512 prompt tokens to 32 with exact
+       launches, finite logits, peak memory; each layer's MoE input from the
+       prefill through the fused and the xla layer: top-8 flips between the
+       local routing and the gathered one, and, where none flips, the fused
+       layer within 3x the xla layer's bf16 error of an f32 plain reference;
+    4. the W8A8 entry points: `MoEMLP(mode="w8a8")` on layer 0's quantized
+       weights at 2048 and 64 rows, `TPMLP(4096, 12288, mode="w8a8")` at 2048
+       and 8 rows (its K13 output bit for bit), each within MOE_W8A8_REL_L2
+       of its bf16 layer;
+    5. times of K11, K11-int8, K10 and K13 with bounds, plain versions and
+       library yardsticks; world-4 prefill and decode; a traced prefill.
+
+    On one card every put is a copy inside one HBM: the times say what the
+    kernels and the copies cost here, not what NVLink would carry."""
+    from triton_distributed_tpu_torch import Engine, ModelConfig, Qwen3
+    from triton_distributed_tpu_torch.kernels import moe_utils
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        AllGatherGEMMContext, ag_gemm, ag_gemm_w8a8, ag_gemm_w8a8_plain)
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_plain,
+        ag_group_gemm_w8a8, ag_group_gemm_w8a8_plain)
+    from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+        gemm_rs)
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        row_tile, zero_past_counts)
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        MoEReduceRSContext, moe_reduce_rs_fused, moe_reduce_rs_fused_plain)
+    from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP, route
+    from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP, gated_silu
+    from triton_distributed_tpu_torch.parallel import make_mesh
+
+    cfg = ModelConfig(**MOE_FIELDS)
+    w, nl = MOE_TP_WORLD, cfg.num_layers
+    e, topk, h = cfg.num_experts, cfg.num_experts_per_tok, cfg.hidden_size
+    ffn = cfg.moe_intermediate_size
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(8642)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def caps(world, mc):
+        """(bf16 capacity, w8a8 capacity) of a chunk of mc rows."""
+        return tuple(MoEMLP(h, ffn, e, topk=topk, mode=m, world_size=world,
+                            device="meta").capacity(mc)
+                     for m in ("fused", "w8a8"))
+
+    def plan_for(case, world, mc, cap):
+        ids, wts = moe_tp_routing(case, world, mc, e, topk,
+                                  moe_utils.pack_block(cap), gen, dev)
+        return moe_utils.plan_chunks(ids, wts, world, e, cap)
+
+    def global_int8(down):
+        """int8 down weights with (E, n) scales over the whole K."""
+        world, _, k, n = down.shape
+        q, s = quantize_sym(down.float().transpose(0, 1).reshape(
+            e, world * k, n), 1)
+        return q.reshape(e, world, k, n).transpose(0, 1).contiguous(), s
+
+    def k11(world, mc, case, int8, wts=None):
+        """One K11 (or K11-int8) call on fresh buckets: its output, its
+        plain version (a callable) and the weights (``wts``, or fresh)."""
+        cap = caps(world, mc)[int8]
+        plan = plan_for(case, world, mc, cap)
+        a = randn(world, e, cap, h)
+        ctx = AGGroupGEMMContext("tp", world, e)
+        n = 2 * ffn // world
+        if int8:
+            wq, ws = wts if wts else quantize_sym(
+                randn(world, e, h, n, dtype=f32), 2)
+            out = ag_group_gemm_w8a8(a, wq, ws, ctx, counts=plan.counts)
+            a_q, sa = quantize_sym(a, -1)
+            return out, lambda: ag_group_gemm_w8a8_plain(
+                a_q, sa, wq, ws, bf16, plan.counts), (wq, ws)
+        b = wts if wts is not None else randn(world, e, h, n) * h ** -0.5
+        out = ag_group_gemm(a, b, ctx, counts=plan.counts)
+        return out, lambda: zero_past_counts(
+            ag_group_gemm_plain(a.float(), b.float()), plan.counts,
+            row_tile(cap, bf16)), b
+
+    def k10(world, mc, case, int8, wts=None):
+        cap = caps(world, mc)[int8]
+        plan = plan_for(case, world, mc, cap)
+        k = ffn // world
+        act = randn(world, world, e, cap, k)
+        ctx = MoEReduceRSContext("tp", world, e, topk)
+        rows, pw = moe_utils.combine_pairs(plan, topk)
+        if int8:
+            dq, ds = wts if wts else global_int8(
+                randn(world, e, k, h) * ffn ** -0.5)
+            out = moe_reduce_rs_fused(act, dq, plan, ctx, weight_scales=ds)
+            a_q, sa = quantize_sym(act, -1)
+            return out, lambda: moe_reduce_rs_fused_plain(
+                a_q, dq, plan, rows, pw.to(bf16), sa, ds), (dq, ds)
+        down = (wts if wts is not None
+                else randn(world, e, k, h) * ffn ** -0.5)
+        out = moe_reduce_rs_fused(act, down, plan, ctx)
+        return out, lambda: moe_reduce_rs_fused_plain(
+            act, down, plan, rows, pw.to(bf16)), down
+
+    def k13(world, rows, case, int8, wts=None):
+        del case, int8
+        n = 2 * MLP_FFN // world
+        x = randn(world, rows // world, MLP_HIDDEN)
+        bq, bs = wts if wts else quantize_sym(
+            randn(world, MLP_HIDDEN, n, dtype=f32), 1)
+        out = ag_gemm_w8a8(x, bq, bs, AllGatherGEMMContext("tp", world))
+        a_q, sa = quantize_sym(x, -1)
+        return out, lambda: ag_gemm_w8a8_plain(a_q, bq, sa, bs, bf16), (bq,
+                                                                         bs)
+
+    # name -> (runner, int8 form, held bit for bit)
+    kernels = {"ag_group_gemm": (k11, False, False),
+               "ag_group_gemm_w8a8": (k11, True, True),
+               "moe_reduce_rs_fused": (k10, False, False),
+               "moe_reduce_rs_fused int8": (k10, True, False),
+               "ag_gemm_w8a8": (k13, False, True)}
+
+    def check(name, out, plain_fn, exact, label):
+        torch.cuda.synchronize()
+        ref = plain_fn()
+        rec = name.split()[0]
+        if exact:
+            same = torch.equal(out, ref)
+            print(f"  {name} {label} {tuple(out.shape)}: "
+                  f"{'bit-identical' if same else 'DIFFER'} to the plain "
+                  "version")
+            if not same:
+                raise AssertionError(f"{name} {label}: kernel disagrees with "
+                                     "its plain version")
+            return
+        errs[rec] = max(errs[rec], check_rows(
+            f"{name} {label} {tuple(out.shape)}", out, ref.float(),
+            *TP_TOL[bf16], 0.1))
+
+    # -- 1. kernels vs plain ---------------------------------------------
+    print(f"[moe tp path] K11, K11-int8, K10 (bf16 and int8 weights) and "
+          f"K13 against their plain versions; bf16 row bound {TP_TOL[bf16]} "
+          f"with floor 0.1, the int8 GEMMs bit for bit; Qwen3-30B-A3B's "
+          f"widths (K13: Qwen3-8B's MLP); the ranks of a world in one launch "
+          f"on the one card")
+    for world in MOE_TP_WORLDS:
+        for label, mc in MOE_TP_ROWS.items():
+            for name, (fn, int8, exact) in kernels.items():
+                rows = mc
+                if fn is k13:
+                    rows = W8A8_ROWS[label != "prefill"]
+                out, plain_fn, _ = fn(world, rows, "random", int8)
+                check(name, out, plain_fn, exact,
+                      f"world {world} {label} ({rows} rows"
+                      f"{'' if fn is k13 else ' a rank'})")
+                del out, plain_fn
+    for case in MOE_TP_CASES:
+        for name, (fn, int8, exact) in kernels.items():
+            if fn is k13:
+                continue
+            out, plain_fn, _ = fn(w, MOE_TP_ROWS["prefill"], case, int8)
+            check(name, out, plain_fn, exact, f"world {w} prefill, {case}")
+            del out, plain_fn
+    for world in MOE_TP_WORLDS:
+        for name, (fn, int8, exact) in kernels.items():
+            # Fresh inputs every call; one set of weights for all of them.
+            rows = W8A8_ROWS[1] if fn is k13 else MOE_TP_ROWS["decode"]
+            runs = [fn(world, rows, "random", int8)]
+            runs += [fn(world, rows, "random", int8, runs[0][2])
+                     for _ in range(TP_REPEATS - 1)]
+            torch.cuda.synchronize()
+            bad = 0
+            for out, plain_fn, _ in runs:
+                ref = plain_fn()
+                if exact:
+                    bad += not torch.equal(out, ref)
+                else:
+                    _, ratio, rel = row_errors(out, ref.float(), 0.1)
+                    bad += not (ratio <= TP_TOL[bf16][0]
+                                and rel <= TP_TOL[bf16][1])
+            print(f"  {name} world {world}: {TP_REPEATS} back-to-back calls "
+                  f"with fresh inputs, queued before any check: {bad} "
+                  f"disagree {'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise AssertionError(f"{name}: a back-to-back call disagrees "
+                                     "with its plain version")
+            del runs
+            torch.cuda.empty_cache()
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. card vs CPU, 2 layers in f32 ----------------------------------
+    two = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    card_m = Qwen3(two, "fused", mesh=make_mesh(w)).init_params(
+        torch.Generator(device=dev).manual_seed(9))
+    cpu_m = Qwen3(two, "fused", mesh=make_mesh(w, device="cpu"))
+    cpu_m.load_state_dict(card_m.state_dict())
+    b, s = MOE_TP_CHECK_SHAPE
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    runs, feed = {}, []
+    fused0 = (ag_group_gemm.launches, moe_reduce_rs_fused.launches)
+    with torch.inference_mode():
+        for tag, m, d in (("card", card_m, dev), ("CPU", cpu_m, "cpu")):
+            with RouterTap(layer.mlp for layer in m.layers) as tap:
+                cache = m.create_cache(b, max_seq=s + MOE_TP_CHECK_STEPS)
+                logits = [m.prefill(ids.to(d), cache)]
+                for step in range(MOE_TP_CHECK_STEPS):
+                    if m is card_m:
+                        feed.append(logits[-1].argmax(-1).to(torch.int32))
+                    logits.append(m.decode(feed[step].to(d), cache))
+            runs[tag] = ([lg.float().cpu() for lg in logits],
+                         [(i.cpu(), dr.cpu()) for i, dr in tap.calls])
+    fused = (ag_group_gemm.launches - fused0[0],
+             moe_reduce_rs_fused.launches - fused0[1])
+    worst = max(rel_l2(g[i], c[i]) for g, c in zip(runs["card"][0],
+                                                   runs["CPU"][0])
+                for i in range(b))
+    sets = sum(int((ic != ig).any(-1).sum()) for (ig, _), (ic, _) in zip(
+        runs["card"][1], runs["CPU"][1]))
+    drops = [sum(int(dr.sum()) for _, dr in runs[t][1]) for t in runs]
+    n_sets = sum(ig.shape[0] for ig, _ in runs["card"][1])
+    ok = (worst <= MOE_CHECK_REL_L2 and sets == 0 and drops[0] == drops[1]
+          and fused == (two.num_layers,) * 2)
+    print(f"[moe tp path] 2-layer f32 model of Qwen3-30B-A3B's widths at "
+          f"world {w}, {b} x {s} tokens + {MOE_TP_CHECK_STEPS} decode steps, "
+          f"card (K11, K10 in prefill, K8 in decode) vs CPU (plain versions):"
+          f" worst per-sequence logits rel_l2 {worst:.3e} (bound "
+          f"{MOE_CHECK_REL_L2}); top-{topk} sets that differ: {sets} of "
+          f"{n_sets}; pairs dropped by capacity card {drops[0]}, CPU "
+          f"{drops[1]}; K11, K10 launches {fused} (want "
+          f"{two.num_layers} each) {'ok' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("MoE TP 2-layer card vs CPU check failed")
+    del card_m, cpu_m, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. Qwen3-30B-A3B at world 4 through Engine.serve -------------------
+    t0 = time.perf_counter()
+    model = Qwen3(cfg, "fused", mesh=make_mesh(w)).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    mlp0 = model.layers[0].mlp
+    print(f"[moe tp path] Qwen3-30B-A3B at world {w} (mode 'fused', {w} ranks "
+          f"in one process on the one card): {n_params / 1e9:.3f} B "
+          f"parameters, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the "
+          f"card, random weights (seed 0) in {time.perf_counter() - t0:.1f} "
+          f"s; expert capacity a chunk: prefill ({PROMPT} rows a rank) "
+          f"{mlp0.capacity(BATCH * PROMPT // w)}, pack block "
+          f"{moe_utils.pack_block(mlp0.capacity(BATCH * PROMPT // w))}")
+    engine = Engine(model)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                            device=dev)
+    cache = model.create_cache(BATCH, max_seq=CACHE_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    served, t_serve = [], []
+    ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
+    launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
+        engine.serve(prompts, GEN_LEN, cache=cache)))))
+    ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
+    tokens = served[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
+                  ag_gemm=nl * GEN_LEN, gemm_rs=nl * GEN_LEN,
+                  grouped_matmul=2 * w * nl * (GEN_LEN - 1),
+                  ag_group_gemm=nl, moe_reduce_rs_fused=nl)
+    print(f"[moe tp path] Engine.serve at world {w}, {BATCH} requests x "
+          f"{PROMPT} prompt tokens, gen_len {GEN_LEN}, greedy: "
+          f"{t_serve[0]:.1f} ms (first call); launches {short(launches)} "
+          f"(want {short(want)}: per layer one K11 and one K10 in prefill, "
+          f"K12/K14 once a forward, ll in decode {ll}, decode's MoE on the "
+          f"xla path, two K8 a rank); peak memory {peak:.2f} GiB; {card}")
+    if launches != want or ll != (nl * (GEN_LEN - 1),) * 2:
+        raise AssertionError(f"MoE TP launch counts {launches}, ll {ll} != "
+                             f"{want}")
+    if tokens.shape != (BATCH, GEN_LEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("MoE TP tokens: bad shape or outside the "
+                             "vocabulary")
+
+    # Each layer's MoE input from a prefill, through the fused and the
+    # xla layer and an f32 plain reference.
+    grab = []
+    hooks = [layer.mlp.register_forward_pre_hook(
+        lambda mod, args: grab.append(args[0].clone()))
+        for layer in model.layers]
+    with torch.inference_mode():
+        logits = model.prefill(prompts, cache)
+    for hk in hooks:
+        hk.remove()
+    if not bool(logits.isfinite().all()) or logits.dtype != f32:
+        raise AssertionError("MoE TP prefill logits not finite f32")
+    flips, held, worst_ratio, rels = [], 0, 0.0, []
+    with torch.inference_mode():
+        for layer, x in zip(model.layers, grab):
+            mlp = layer.mlp
+            local = torch.cat([route(x[r], mlp.router, topk)[0]
+                               for r in range(w)]).sort(-1).values
+            gathered = route(x.reshape(-1, h), mlp.router,
+                             topk)[0].sort(-1).values
+            flips.append(int((local != gathered).any(-1).sum()))
+            ref = moe_tp_reference(mlp, x)
+            rel_f = rel_l2(mlp(x), ref)
+            rel_x = rel_l2(mlp.forward_xla(x, mlp.params()), ref)
+            rels.append((rel_f, rel_x))
+            if not flips[-1]:
+                held += 1
+                worst_ratio = max(worst_ratio, rel_f / rel_x)
+    ok = held > 0 and worst_ratio <= 3
+    print(f"[moe tp path] each layer's MoE input from the prefill: top-{topk} "
+          f"sets that differ between the local routing ({PROMPT} rows a "
+          f"rank) and the gathered one ({BATCH * PROMPT} rows), by layer "
+          f"{flips[:6]} ... {flips[-3:]} ({sum(flips)} of "
+          f"{nl * BATCH * PROMPT} token-layers); rel_l2 against an f32 plain "
+          f"reference (fused, xla) {[(f'{a:.2e}', f'{b_:.2e}') for a, b_ in rels[:3]]}"
+          f" ...; layers without a flip: {held} of {nl}, held to 3x the xla "
+          f"layer's bf16 error: worst ratio {worst_ratio:.3f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MoE TP layer outputs disagree")
+    x0 = grab[0]
+    del grab
+
+    # -- 4. the W8A8 entry points -----------------------------------------
+    q0 = MoEMLP.quantize_params(mlp0.jax_params())
+    mlp8 = MoEMLP(h, ffn, e, topk=topk, mode="w8a8", world_size=w,
+                  device=dev).load_jax_params(q0)
+    del q0
+    with torch.inference_mode():
+        for rows in MOE_W8A8_LAYER_ROWS:
+            x = x0[:, :rows // w].contiguous()
+            out = []
+            got = counted(lambda: out.append(mlp8(x)))
+            rel = rel_l2(out[0], mlp0(x))
+            ok = rel <= MOE_W8A8_REL_L2 and got == expect(
+                ag_group_gemm_w8a8=1, moe_reduce_rs_fused=1)
+            print(f"[moe tp path] MoEMLP(mode='w8a8') at world {w} on layer "
+                  f"0's quantized weights, {rows} rows: launches "
+                  f"{short(got)}; against the bf16 fused layer rel_l2 "
+                  f"{rel:.3e} (bound {MOE_W8A8_REL_L2}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("MoE w8a8 layer disagrees")
+    tp_f = TPMLP(MLP_HIDDEN, MLP_FFN, world_size=w, device=dev)
+    tp_f.init_params(torch.Generator(device=dev).manual_seed(11))
+    tp_q = TPMLP(MLP_HIDDEN, MLP_FFN, mode="w8a8", world_size=w, device=dev)
+    tp_q.load_quantized(TPMLP.quantize_params({"gate_up": tp_f.gate_up,
+                                               "down": tp_f.down}))
+    k13_in = {}
+    with torch.inference_mode():
+        for rows in W8A8_ROWS:
+            x = randn(w, rows // w, MLP_HIDDEN)
+            out = []
+            got = counted(lambda: out.append(tp_q(x)))
+            rel = rel_l2(out[0], tp_f(x))
+            k13 = ag_gemm_w8a8(x, tp_q.gate_up_q, tp_q.gate_up_scale,
+                               AllGatherGEMMContext("tp", w))
+            a_q, sa = quantize_sym(x, -1)
+            same = torch.equal(k13, ag_gemm_w8a8_plain(
+                a_q, tp_q.gate_up_q, sa, tp_q.gate_up_scale, bf16))
+            ok = same and rel <= MOE_W8A8_REL_L2 and got == expect(
+                ag_gemm_w8a8=1, matmul_w8a8=w)
+            print(f"[moe tp path] TPMLP({MLP_HIDDEN}, {MLP_FFN}, mode='w8a8') "
+                  f"at world {w}, {rows} rows: launches {short(got)}; K13 "
+                  f"{'bit-identical' if same else 'DIFFER'} to its plain "
+                  f"version; against the bf16 fused layer rel_l2 {rel:.3e} "
+                  f"(bound {MOE_W8A8_REL_L2}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("TPMLP w8a8 at world 4 disagrees")
+            k13_in[rows] = x
+    del tp_f
+
+    # -- 5. times -----------------------------------------------------------
+    print(f"[times] K11 / K11-int8 / K10 / K13 at world {w} on one card (every "
+          f"put a copy inside one HBM, no NVLink); CUDA events; bounds count "
+          f"this run's occupied rows and experts; {card}")
+    with torch.inference_mode():
+        buckets, plan = mlp0._route_bucket_plan(x0, mlp0.router)
+        counts = plan.counts
+        e_occ = int((counts.sum(0) > 0).sum())
+        cap = buckets.shape[2]
+        n_gu = mlp0.gate_up.shape[-1]
+        ctx = AGGroupGEMMContext("tp", w, e)
+        inter = ag_group_gemm(buckets, mlp0.gate_up, ctx, counts=counts)
+        act = gated_silu(inter)
+        rs_ctx = MoEReduceRSContext("tp", w, e, topk)
+        rows, pw = moe_utils.combine_pairs(plan, topk)
+        kept = int((plan.slot_of_pair >= 0).sum())
+        note = ("{}; GEMM only, no gather (one card: the collective's copies "
+                "stay in one HBM)")
+        # K11
+        ms = time_ms(lambda: ag_group_gemm(buckets, mlp0.gate_up, ctx,
+                                           counts=counts), 20)
+        plain = time_ms(lambda: ag_group_gemm_plain(buckets, mlp0.gate_up,
+                                                    counts), 2, warmup=1)
+        gathered_b = buckets.transpose(0, 1).reshape(1, e, w * cap, h)
+        lib = time_ms(lambda: torch.matmul(gathered_b, mlp0.gate_up), 20)
+        bms, by = moe_tp_bound("ag_group_gemm", w, counts, e_occ, cap, h,
+                               n_gu)
+        print(f"[times] ag_group_gemm (K11) prefill layer 0 buckets "
+              f"{tuple(buckets.shape)} @ {tuple(mlp0.gate_up.shape)}, "
+              f"{int(counts.sum())} occupied rows of {w * e * cap}, {e_occ} "
+              f"experts hit: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
+              f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, torch.matmul "
+              f"of the gathered buckets with every rank's weights {lib:.4f} "
+              f"ms; {card}")
+        records.append(("ag_group_gemm", ms, plain, bms, by, lib, {
+            "shape": "prefill layer 0", "library_note": note.format(
+                "torch.matmul of the gathered buckets (E, W cap, h) with the "
+                "ranks' weights")}))
+        # K11-int8
+        ms = time_ms(lambda: ag_group_gemm_w8a8(
+            buckets, mlp8.gate_up_q, mlp8.gate_up_scale, ctx, counts=counts),
+            20)
+        bq, sa = quantize_sym(buckets, -1)
+        plain = time_ms(lambda: ag_group_gemm_w8a8_plain(
+            bq, sa, mlp8.gate_up_q, mlp8.gate_up_scale, bf16, counts), 2,
+            warmup=1)
+        gq = bq.transpose(0, 1).reshape(e, w * cap, h)
+
+        def int_mm_loop():
+            return torch.stack([torch.stack([
+                torch._int_mm(gq[x], mlp8.gate_up_q[r, x]) for x in range(e)])
+                for r in range(w)])
+
+        lib8 = time_ms(int_mm_loop, 3)
+        bms, by = moe_tp_bound("ag_group_gemm", w, counts, e_occ, cap, h,
+                               n_gu, int8=True)
+        print(f"[times] ag_group_gemm_w8a8 (K11-int8) the same buckets on "
+              f"layer 0's int8 weights: {ms:.4f} ms (bound {bms:.4f} ms by "
+              f"{by}, {bms / ms:.1%} of bound), plain (float64) {plain:.4f} "
+              f"ms, {w} x {e} torch._int_mm {lib8:.4f} ms; {card}")
+        records.append(("ag_group_gemm_w8a8", ms, plain, bms, by, None, {
+            "shape": "prefill layer 0", "library_loop_ms": lib8,
+            "library_note": f"no single PyTorch call computes it; "
+            f"library_loop_ms is a loop of {w} x {e} torch._int_mm calls "
+            "(no epilogue, no gather)"}))
+        # K10
+        ms = time_ms(lambda: moe_reduce_rs_fused(act, mlp0.down, plan,
+                                                 rs_ctx), 20)
+        plain = time_ms(lambda: moe_reduce_rs_fused_plain(
+            act, mlp0.down, plan, rows, pw.to(bf16)), 2, warmup=1)
+
+        cm = moe_utils.dense_combine_mats(plan, cap).to(bf16).permute(
+            0, 2, 1, 3).reshape(w, -1, e * cap)        # (chunk, mc, E cap)
+
+        def bmm_combine():
+            dense = torch.matmul(act, mlp0.down[:, None])   # every expert
+            part = torch.matmul(cm, dense.reshape(w, w, e * cap, h))
+            return part.float().sum(0).to(bf16)
+
+        lib10 = time_ms(bmm_combine, 3)
+        bms, by = moe_tp_bound("moe_reduce_rs", w, counts, e_occ, cap,
+                               act.shape[-1], h, mc=x0.shape[1], pairs=kept)
+        print(f"[times] moe_reduce_rs_fused (K10) prefill layer 0 act "
+              f"{tuple(act.shape)} @ {tuple(mlp0.down.shape)}, "
+              f"{int(plan.n_blocks.sum())} occupied blocks of "
+              f"{plan.pack_block_size} rows, {kept} kept pairs: {ms:.4f} ms "
+              f"(bound {bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
+              f"{plain:.4f} ms, torch.matmul over every expert + the dense "
+              f"one-hot combine product + the rank sum {lib10:.4f} ms; "
+              f"{card}")
+        records.append(("moe_reduce_rs_fused", ms, plain, bms, by, None, {
+            "shape": "prefill layer 0", "library_loop_ms": lib10,
+            "library_note": "no single PyTorch call computes it; "
+            "library_loop_ms is torch.matmul of every rank's buckets with "
+            "its down shard (every expert), torch.matmul of the dense "
+            "one-hot combine weights with those products, and the sum over "
+            "the ranks"}))
+        # K13
+        x = k13_in[W8A8_ROWS[0]]
+        ag_ctx = AllGatherGEMMContext("tp", w)
+        ms = time_ms(lambda: ag_gemm_w8a8(x, tp_q.gate_up_q,
+                                          tp_q.gate_up_scale, ag_ctx), 20)
+        a_q, sa = quantize_sym(x, -1)
+        plain = time_ms(lambda: ag_gemm_w8a8_plain(
+            a_q, tp_q.gate_up_q, sa, tp_q.gate_up_scale, bf16), 2, warmup=1)
+        full_q = a_q.reshape(-1, MLP_HIDDEN)
+        b_cat = tp_q.gate_up_q.transpose(0, 1).reshape(MLP_HIDDEN, -1)
+        s_cat = tp_q.gate_up_scale.reshape(-1)
+        sa_full = sa.reshape(-1)
+        lib13 = time_ms(lambda: (torch._int_mm(full_q, b_cat).float()
+                                 * sa_full[:, None] * s_cat[None, :]).to(
+                                     bf16), 20)
+        n13 = tp_q.gate_up_q.shape[-1]
+        m13 = x.shape[1]
+        bms, by = bound(w * m13 * MLP_HIDDEN + w * (w - 1) * m13 * MLP_HIDDEN
+                        + w * MLP_HIDDEN * n13 + w * w * m13 * n13 * 2
+                        + nbytes(sa, tp_q.gate_up_scale),
+                        2 * w * w * m13 * MLP_HIDDEN * n13, PEAK_INT8_OPS)
+        print(f"[times] ag_gemm_w8a8 (K13) {W8A8_ROWS[0]} rows x "
+              f"{MLP_HIDDEN} @ ({w}, {MLP_HIDDEN}, {n13}) int8: {ms:.4f} ms "
+              f"(bound {bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
+              f"(float64) {plain:.4f} ms, torch._int_mm of the gathered rows "
+              f"with every rank's columns + epilogue {lib13:.4f} ms; {card}")
+        records.append(("ag_gemm_w8a8", ms, plain, bms, by, lib13, {
+            "shape": f"TPMLP gate_up, {W8A8_ROWS[0]} rows",
+            "library_note": note.format("torch._int_mm of the gathered int8 "
+                                        "rows with the ranks' columns + the "
+                                        "epilogue")}))
+        del buckets, inter, act, plan, bq, gq, cm, k13_in, tp_q, mlp8
+
+    # world-4 prefill and decode, and a traced prefill
+    with torch.inference_mode():
+        serve1 = sorted(wall_ms(lambda: engine.serve(prompts, 1, cache=cache))
+                        for _ in range(3))[1]
+        serve_n = sorted(wall_ms(lambda: engine.serve(prompts, GEN_LEN,
+                                                      cache=cache))
+                         for _ in range(3))[1]
+    step_ms = (serve_n - serve1) / (GEN_LEN - 1)
+    print(f"[times] MoE Engine.serve at world {w} (median of 3, host clock; "
+          f"{w} ranks on the one card): prefill+first token {serve1:.2f} ms "
+          f"({BATCH * PROMPT / serve1 * 1e3:.0f} prompt tokens/s); decode "
+          f"{step_ms:.3f} ms/step; whole serve {serve_n:.2f} ms; beside the "
+          f"world-1 [times] MoE Engine.serve line of this run; {card}")
+    with torch.inference_mode():
+        profile_phase(f"MoE TP world {w} prefill",
+                      lambda: model.prefill(prompts, cache), card, top=8)
+    del model, engine, cache, mlp0, x0
+    release_symmetric_buffers()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1928,9 +2598,13 @@ def main() -> int:
         flash_decode, flash_decode_paged, flash_decode_paged_reference,
         flash_decode_reference, gather_pages, quantize_kv)
     from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-        AllGatherGEMMContext, ag_gemm)
+        AllGatherGEMMContext, ag_gemm, ag_gemm_w8a8)
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        ag_group_gemm, ag_group_gemm_w8a8)
     from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
         gemm_rs)
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        moe_reduce_rs_fused)
     from triton_distributed_tpu_torch.kernels import common_ops
     from triton_distributed_tpu_torch.kernels.allgather import all_gather
     from triton_distributed_tpu_torch.kernels.allreduce import all_reduce
@@ -2333,7 +3007,11 @@ def main() -> int:
                 "grouped_matmul_w8a8": grouped_matmul_w8a8,
                 "ag_gemm": ag_gemm, "gemm_rs": gemm_rs,
                 "all_gather": all_gather, "reduce_scatter": reduce_scatter,
-                "all_reduce": all_reduce, "common_ops": common_ops}
+                "all_reduce": all_reduce, "common_ops": common_ops,
+                "ag_group_gemm": ag_group_gemm,
+                "ag_group_gemm_w8a8": ag_group_gemm_w8a8,
+                "moe_reduce_rs_fused": moe_reduce_rs_fused,
+                "ag_gemm_w8a8": ag_gemm_w8a8}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
@@ -3021,7 +3699,12 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     moe_path(dev, card, counted, expect, short, records, errs)
 
-    # -- 12. collective path -------------------------------------------
+    # -- 12. MoE TP path ------------------------------------------------
+    print(f"[moe tp path] device memory held before the MoE TP path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe_tp_path(dev, card, counted, expect, short, records, errs)
+
+    # -- 13. collective path -------------------------------------------
     print(f"[collective path] device memory held: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     collective_path(dev, card, counted, expect, short, records, errs)
@@ -3040,7 +3723,10 @@ def main() -> int:
                 f"{extra['method_ms']}; library: {extra['library_note']})"
                 if "method_ms" in extra
                 else f" ({extra['library_note']}: "
-                f"{extra['library_loop_ms']:.4f} ms)" if extra else "")
+                f"{extra['library_loop_ms']:.4f} ms)"
+                if "library_loop_ms" in extra
+                else f" ({extra['shape']}; library: {extra['library_note']})"
+                if extra else "")
         lib_text = "none" if lib is None else f"{lib:.4f} ms"
         print(f"[times] {nm}: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of bound){pair}, plain {plain:.4f} ms, "

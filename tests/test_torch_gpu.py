@@ -1121,3 +1121,285 @@ def test_tp_mlp_fused_ar_kernel(cuda):
         assert torch.equal(got, got[:1].expand_as(got))
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     assert all_reduce.launches == before + 2
+
+
+# ---- MoE and int8 tensor parallelism at world W: K10, K11, K13 ------------
+
+def _plan_case(case, world, mc, e, topk, cap, device):
+    """Routing ids and weights (world * mc, topk) of a named case: random,
+    two experts only (the rest empty), every pair to one expert, or
+    experts filled to exact multiples of the pack block."""
+    from triton_distributed_tpu_torch.kernels.moe_utils import pack_block
+
+    gen = torch.Generator().manual_seed(world * 100 + mc + e + cap)
+    n = world * mc
+    if case == "random":
+        ids = torch.stack([torch.randperm(e, generator=gen)[:topk]
+                           for _ in range(n)])
+    elif case == "empty":
+        ids = torch.tensor([0, 2])[torch.randint(0, 2, (n, topk),
+                                                 generator=gen)]
+    elif case == "one":
+        ids = torch.full((n, topk), e - 1)
+    else:                                       # the block boundary
+        ids = (torch.arange(n) // pack_block(cap) % e)[:, None].expand(
+            n, topk)
+    w = torch.softmax(torch.randn(n, topk, generator=gen), -1)
+    return ids.to(torch.int32).to(device), w.to(device)
+
+
+#: (world, experts, capacity, k, n, dtype): a decode-sized bucket at world
+#: 2, Qwen3-30B-A3B's prefill capacity at world 4, f32 at world 8, and k
+#: and n off 16-byte rows (loads by element) with two 64-row tiles.
+AG_GROUP_CASES = [(2, 8, 16, 256, 384, torch.bfloat16),
+                  (4, 8, 64, 128, 192, torch.bfloat16),
+                  (8, 4, 32, 64, 64, torch.float32),
+                  (4, 5, 96, 136, 200, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("with_counts", [False, True])
+@pytest.mark.parametrize("world,e,cap,k,n,dtype", AG_GROUP_CASES)
+def test_ag_group_gemm_kernel(cuda, with_counts, world, e, cap, k, n,
+                              dtype):
+    """K11 against its plain version (f32 from the same inputs, zero in the
+    row tiles past the counts), row by row, over 3 back-to-back calls with
+    fresh inputs; rows past the counts hold garbage in the input and must
+    come out zero; a rerun is bit-identical; one launch a call."""
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_plain)
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        row_tile, zero_past_counts)
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 100 + cap + n)
+    ctx = AGGroupGEMMContext("tp", world, e)
+    before = ag_group_gemm.launches
+    for _ in range(3):
+        a = _randn(gen, dtype, cuda, world, e, cap, k)
+        b = _randn(gen, dtype, cuda, world, e, k, n) * k ** -0.5
+        counts = None
+        if with_counts:
+            counts = torch.randint(0, cap + 1, (world, e), generator=gen,
+                                   device=cuda)
+            counts[0, 0], counts[-1, -1] = 0, cap
+        out = ag_group_gemm(a, b, ctx, counts=counts)
+        ref = ag_group_gemm_plain(a.float(), b.float())
+        if counts is not None:
+            ref = zero_past_counts(ref, counts, row_tile(cap, dtype))
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (world, world, e, cap, n)
+        _assert_rows_close("ag_group_gemm", out, ref, *GEMM_TOL[dtype])
+    assert torch.equal(out, ag_group_gemm(a, b, ctx, counts=counts))
+    assert ag_group_gemm.launches == before + 4
+
+
+#: (world, experts, capacity (a multiple of 32), k, n).
+AG_GROUP_W8A8_CASES = [(2, 8, 32, 256, 384), (4, 4, 64, 128, 96),
+                       (8, 4, 32, 64, 64), (4, 3, 160, 64, 100)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,e,cap,k,n", AG_GROUP_W8A8_CASES)
+def test_ag_group_gemm_w8a8_kernel(cuda, out_dtype, world, e, cap, k, n):
+    """K11-int8 bit for bit against its plain version (the wrapper on CPU
+    copies), with counts, over 3 back-to-back calls; one launch a call."""
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        AGGroupGEMMContext, ag_group_gemm_w8a8)
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 10 + cap + n)
+    ctx = AGGroupGEMMContext("tp", world, e)
+    before = ag_group_gemm_w8a8.launches
+    for _ in range(3):
+        a = _randn(gen, torch.bfloat16, cuda, world, e, cap, k)
+        wq, ws = quantize_sym(_randn(gen, torch.float32, cuda, world, e, k,
+                                     n), 2)
+        counts = torch.randint(0, cap + 1, (world, e), generator=gen,
+                               device=cuda)
+        out = ag_group_gemm_w8a8(a, wq, ws, ctx, counts=counts,
+                                 out_dtype=out_dtype)
+        ref = ag_group_gemm_w8a8(a.cpu(), wq.cpu(), ws.cpu(), ctx,
+                                 counts=counts.cpu(), out_dtype=out_dtype)
+        assert torch.equal(out.cpu(), ref)
+    assert ag_group_gemm_w8a8.launches == before + 3
+
+
+#: (world, mc, experts, topk, capacity, k, n, dtype, routing case).
+MOE_RS_CASES = [
+    (2, 32, 8, 2, 16, 128, 256, torch.bfloat16, "random"),
+    (4, 64, 8, 2, 32, 64, 128, torch.bfloat16, "empty"),
+    (4, 32, 4, 2, 64, 64, 96, torch.float32, "one"),
+    (8, 16, 4, 1, 16, 32, 64, torch.float32, "boundary"),
+    (4, 48, 6, 3, 32, 40, 100, torch.bfloat16, "random"),
+]
+
+
+def _moe_rs_inputs(cuda, world, mc, e, topk, cap, k, n, dtype, case, gen):
+    from triton_distributed_tpu_torch.kernels.moe_utils import plan_chunks
+
+    ids, w = _plan_case(case, world, mc, e, topk, cap, cuda)
+    plan = plan_chunks(ids, w, world, e, cap)
+    a = _randn(gen, dtype, cuda, world, world, e, cap, k)
+    b = _randn(gen, dtype, cuda, world, e, k, n) * (world * k) ** -0.5
+    return plan, a, b
+
+
+def _cpu_plan(plan):
+    return type(plan)(*(t.cpu() for t in plan))
+
+
+@pytest.mark.parametrize("world,mc,e,topk,cap,k,n,dtype,case", MOE_RS_CASES)
+def test_moe_reduce_rs_fused_kernel(cuda, world, mc, e, topk, cap, k, n,
+                                    dtype, case):
+    """K10 against its plain version (the wrapper on CPU copies: tiles
+    rounded to the activations' dtype, the combine in ascending expert
+    order, partials rounded, the rank-order f32 sum) row by row, over 3
+    back-to-back calls; a rerun is bit-identical; one launch a call."""
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        MoEReduceRSContext, moe_reduce_rs_fused)
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 10 + mc + n)
+    ctx = MoEReduceRSContext("tp", world, e, topk)
+    before = moe_reduce_rs_fused.launches
+    for _ in range(3):
+        plan, a, b = _moe_rs_inputs(cuda, world, mc, e, topk, cap, k, n,
+                                    dtype, case, gen)
+        out = moe_reduce_rs_fused(a, b, plan, ctx)
+        ref = moe_reduce_rs_fused(a.cpu(), b.cpu(), _cpu_plan(plan), ctx)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (world, mc, n)
+        _assert_rows_close("moe_reduce_rs_fused", out.cpu(), ref.float(),
+                           *GEMM_TOL[dtype])
+    assert torch.equal(out, moe_reduce_rs_fused(a, b, plan, ctx))
+    assert moe_reduce_rs_fused.launches == before + 4
+
+
+@pytest.mark.parametrize("world,mc,e,topk,cap,k,n,dtype,case", [
+    (4, 64, 8, 2, 32, 64, 128, torch.bfloat16, "random"),
+    (2, 32, 4, 2, 64, 128, 256, torch.float32, "empty"),
+    (8, 16, 4, 2, 32, 32, 64, torch.bfloat16, "one")])
+def test_moe_reduce_rs_fused_w8a8_kernel(cuda, world, mc, e, topk, cap, k,
+                                         n, dtype, case):
+    """K10 with int8 weights against its plain version, row by row (the
+    int8 products are exact and the epilogue the same, so only the
+    roundings that follow could differ)."""
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        MoEReduceRSContext, moe_reduce_rs_fused)
+
+    gen = torch.Generator(device=cuda).manual_seed(world + mc + cap)
+    ctx = MoEReduceRSContext("tp", world, e, topk)
+    plan, a, b = _moe_rs_inputs(cuda, world, mc, e, topk, cap, k, n, dtype,
+                                case, gen)
+    full = b.float().permute(1, 0, 2, 3).reshape(e, world * k, n)
+    bq, bs = quantize_sym(full, 1)                 # global (E, n) scales
+    bq = bq.reshape(e, world, k, n).transpose(0, 1).contiguous()
+    before = moe_reduce_rs_fused.launches
+    out = moe_reduce_rs_fused(a, bq, plan, ctx, weight_scales=bs)
+    ref = moe_reduce_rs_fused(a.cpu(), bq.cpu(), _cpu_plan(plan), ctx,
+                              weight_scales=bs.cpu())
+    assert moe_reduce_rs_fused.launches == before + 1
+    _assert_rows_close("moe_reduce_rs_fused int8", out.cpu(), ref.float(),
+                       *GEMM_TOL[dtype])
+
+
+#: (world, rows a rank, k, n): a prefill shard, a decode row a rank (32-row
+#: padding), ragged rows and n at world 2, world 8.
+AG_W8A8_CASES = [(4, 64, 256, 384), (4, 2, 512, 256), (2, 37, 128, 200),
+                 (8, 16, 64, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world,m,k,n", AG_W8A8_CASES)
+def test_ag_gemm_w8a8_kernel(cuda, dtype, world, m, k, n):
+    """K13 bit for bit against its plain version (the wrapper on CPU
+    copies) over 3 back-to-back calls; one launch a call."""
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        ag_gemm_w8a8)
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 7 + m + n)
+    ctx = AllGatherGEMMContext("tp", world)
+    before = ag_gemm_w8a8.launches
+    for _ in range(3):
+        a = _randn(gen, dtype, cuda, world, m, k)
+        bq, bs = quantize_sym(_randn(gen, torch.float32, cuda, world, k, n),
+                              1)
+        out = ag_gemm_w8a8(a, bq, bs, ctx)
+        ref = ag_gemm_w8a8(a.cpu(), bq.cpu(), bs.cpu(), ctx)
+        assert out.dtype == dtype and out.shape == (world, world * m, n)
+        assert torch.equal(out.cpu(), ref)
+    assert ag_gemm_w8a8.launches == before + 3
+
+
+def test_tp_mlp_w8a8_kernel(cuda):
+    """`TPMLP(mode="w8a8")` at world 4 on the card (K13, then K7 a rank)
+    against the CPU (plain versions), row by row at the bf16 bound (the
+    gated SiLU between the two products rounds on each device's own
+    exp); one K13 and four K7 a call."""
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        ag_gemm_w8a8)
+    from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
+
+    layers = [TPMLP(256, 512, mode="w8a8", world_size=4, device=d)
+              for d in ("cpu", cuda)]
+    layers[0].init_params(torch.Generator().manual_seed(3))
+    layers[1].load_state_dict(layers[0].state_dict())
+    x = torch.randn(4, 24, 256, generator=torch.Generator().manual_seed(4)
+                    ).to(torch.bfloat16)
+    before = (ag_gemm_w8a8.launches, matmul_w8a8.launches)
+    got = layers[1](x.to(cuda)).cpu()
+    assert (ag_gemm_w8a8.launches, matmul_w8a8.launches) == (
+        before[0] + 1, before[1] + 4)
+    _assert_rows_close("TPMLP w8a8", got, layers[0](x).float(),
+                       *GEMM_TOL[torch.bfloat16])
+
+
+def test_moe_tp_kernels_reject_unsupported_inputs(cuda):
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        ag_gemm_w8a8)
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_w8a8)
+
+    a = torch.zeros(4, 4, 16, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(4, 4, 64, 32, device=cuda, dtype=torch.bfloat16)
+    ctx = AGGroupGEMMContext("tp", 4, 4)
+    with pytest.raises(ValueError, match="bfloat16 or both float32"):
+        ag_group_gemm(a, b.float(), ctx)
+    with pytest.raises(ValueError, match="want buckets"):
+        ag_group_gemm(a[:2], b, ctx)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ag_group_gemm_w8a8(a, b.to(torch.int8), torch.ones(4, 4, 32,
+                                                            device=cuda), ctx)
+    with pytest.raises(ValueError, match="fused ring only"):
+        ag_gemm_w8a8(a[0], b[0].to(torch.int8), torch.ones(4, 32,
+                                                           device=cuda),
+                     AllGatherGEMMContext("tp", 4, "ll"))
+
+
+def test_tiny_moe_tp_model_gpu_matches_cpu(cuda):
+    """A tiny f32 MoE Qwen3 at world 4 in mode fused: the card (K11, K10,
+    K12, K14, K1, K2, K8) against the CPU (plain versions): prefill logits
+    within 1e-3, then `Engine.serve` with the same greedy tokens and the
+    exact launches: per layer one K11 and one K10 in the prefill (32 rows a
+    rank), the decode row a rank on the xla path, two K8 a rank."""
+    from triton_distributed_tpu_torch import Engine, ModelConfig, Qwen3
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        ag_group_gemm)
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        moe_reduce_rs_fused)
+    from triton_distributed_tpu_torch.parallel import make_mesh
+
+    cfg = ModelConfig.tiny_moe(dtype="float32", head_dim=64)
+    cpu = Qwen3(cfg, mesh=make_mesh(4, device="cpu")).init_params(
+        torch.Generator().manual_seed(0))
+    gpu = Qwen3(cfg, mesh=make_mesh(4, device=cuda))
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (4, 32),
+                        generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        gpu.prefill(ids.to(cuda), gpu.create_cache(4)).cpu(),
+        cpu.prefill(ids, cpu.create_cache(4)), atol=1e-3, rtol=1e-3)
+    gen, nl = 5, cfg.num_layers
+    counters = (ag_group_gemm, moe_reduce_rs_fused, grouped_matmul)
+    before = [c.launches for c in counters]
+    got = Engine(gpu).serve(ids.to(cuda), gen).cpu()
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        nl, nl, 2 * 4 * nl * (gen - 1)]
+    assert torch.equal(got, Engine(cpu).serve(ids, gen))

@@ -43,7 +43,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 32
+    assert int(res.stdout.strip()) >= 34
 
 
 def test_training_path_runs_without_jax():
@@ -214,12 +214,80 @@ def test_collective_path_runs_without_jax():
 
 
 def test_world_size_above_one_raises():
-    """At world > 1 what is still unported raises, naming its kernels."""
-    from triton_distributed_tpu_torch import ModelConfig, Qwen3
+    """At world > 1 what is still unported raises, naming its kernels:
+    training; an MoE model at world 2 builds and runs."""
+    from triton_distributed_tpu_torch import Engine, ModelConfig, Qwen3
     from triton_distributed_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="K10"):
-        Qwen3(ModelConfig.tiny_moe(), mesh=make_mesh(2, device="cpu"))
+    m = Qwen3(ModelConfig.tiny_moe(dtype="float32"),
+              mesh=make_mesh(2, device="cpu")).init_params(
+                  torch.Generator().manual_seed(0))
+    assert m.layers[0].mlp.gate_up.shape == (2, 4, 128, 128)
+    assert Engine(m).serve(torch.arange(32).reshape(2, 16), 2).shape == (2, 2)
+    m.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training duals"):
+        m(torch.zeros(2, 16, dtype=torch.long))
+
+
+def test_moe_tp_path_runs_without_jax():
+    """The MoE and int8 tensor-parallel path (the packed plan, K11 and its
+    int8 form, K10 fused and staged, K13, `MoEMLP` in fused and w8a8 and
+    `TPMLP` in w8a8 at world 4, a world-4 MoE Qwen3 through
+    `Engine.serve`) imports and runs with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch import Engine, ModelConfig, Qwen3\n"
+        "from triton_distributed_tpu_torch.kernels import moe_utils\n"
+        "from triton_distributed_tpu_torch.kernels.allgather_gemm import (\n"
+        "    AllGatherGEMMContext, ag_gemm_w8a8)\n"
+        "from triton_distributed_tpu_torch.kernels.allgather_group_gemm "
+        "import (\n"
+        "    AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_w8a8)\n"
+        "from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (\n"
+        "    MoEReduceRSContext, moe_reduce_rs, moe_reduce_rs_fused)\n"
+        "from triton_distributed_tpu_torch.kernels.quantized import "
+        "quantize_sym\n"
+        "from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP\n"
+        "from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP\n"
+        "from triton_distributed_tpu_torch.parallel import make_mesh\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "m = Qwen3(ModelConfig.tiny_moe(dtype='float32'), 'fused',\n"
+        "          mesh=make_mesh(4, device='cpu')).init_params(g)\n"
+        "a = Engine(m).serve(torch.arange(64).reshape(4, 16), 3)\n"
+        "ids = torch.randint(0, 4, (64, 2), generator=g)\n"
+        "plan = moe_utils.plan_chunks(ids, torch.rand(64, 2), 4, 4, 16)\n"
+        "ctx = AGGroupGEMMContext('tp', 4, 4)\n"
+        "h = ag_group_gemm(torch.randn(4, 4, 16, 8), torch.randn(4, 4, 8, 6),\n"
+        "                  ctx, counts=plan.counts)\n"
+        "wq, ws = quantize_sym(torch.randn(4, 4, 8, 6), 2)\n"
+        "h8 = ag_group_gemm_w8a8(torch.randn(4, 4, 32, 16),\n"
+        "                        quantize_sym(torch.randn(4, 4, 16, 6), 2)[0],\n"
+        "                        torch.ones(4, 4, 6), ctx)\n"
+        "rs = MoEReduceRSContext('tp', 4, 4, 2)\n"
+        "y = moe_reduce_rs_fused(h[..., :3].contiguous(),\n"
+        "                        torch.randn(4, 4, 3, 5), plan, rs)\n"
+        "z = ag_gemm_w8a8(torch.randn(4, 3, 16), quantize_sym(\n"
+        "    torch.randn(4, 16, 5), 1)[0], torch.ones(4, 5),\n"
+        "    AllGatherGEMMContext('tp', 4))\n"
+        "q = MoEMLP(16, 8, 4, mode='w8a8', world_size=4,\n"
+        "           dtype=torch.float32, device='cpu')\n"
+        "q.init_params(g)\n"
+        "t = TPMLP(16, 8, mode='w8a8', world_size=4, device='cpu')\n"
+        "t.init_params(g)\n"
+        "print(tuple(a.shape), tuple(h.shape), tuple(h8.shape),\n"
+        "      tuple(y.shape), tuple(z.shape),\n"
+        "      tuple(q(torch.randn(4, 32, 16)).shape),\n"
+        "      tuple(t(torch.randn(4, 2, 16, dtype=torch.bfloat16)).shape))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        "(4,", "3)", "(4,", "4,", "4,", "16,", "6)", "(4,", "4,", "4,",
+        "32,", "6)", "(4,", "16,", "5)", "(4,", "12,", "5)", "(4,", "32,",
+        "16)", "(4,", "2,", "16)"]
 
 
 def test_chip_smoke_fails_without_cuda():

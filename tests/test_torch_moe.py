@@ -339,8 +339,13 @@ def test_moe_mlp_init_and_refusals():
     assert layer(torch.randn(5, 64, dtype=torch.bfloat16)).shape == (5, 64)
     with pytest.raises(ValueError, match="mode"):
         MoEMLP(64, 32, 4, mode="fused_ar", device="cpu")
-    with pytest.raises(NotImplementedError, match="K10.*K11"):
-        MoEMLP(64, 32, 4, world_size=2, device="cpu")
+    # At world 2 the layer builds with rank-stacked weights (K10 and K11
+    # are ported); what stays refused at world > 1 is training.
+    tp = MoEMLP(64, 32, 4, world_size=2, dtype=torch.float32, device="cpu")
+    tp.init_params(torch.Generator().manual_seed(1))
+    assert tp.gate_up.shape == (2, 4, 64, 32) and tp.down.shape == (2, 4, 16,
+                                                                     64)
+    assert tp(torch.randn(2, 16, 64)).shape == (2, 16, 64)
 
 
 # ---- models ------------------------------------------------------------------

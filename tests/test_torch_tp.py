@@ -429,14 +429,18 @@ def test_reshard_matches_world1(world, mode, int8):
 
 def test_unported_at_world_above_one_raises():
     """What world > 1 still lacks raises, naming its kernel; decode needs
-    a batch the ranks split; the scheduler refuses a world-4 model."""
+    a batch the ranks split; the scheduler refuses a world-4 model.  The
+    MoE layers (K10, K11) and the w8a8 mode (K13) run at world 2."""
     mesh = make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="K10.*K11"):
-        Qwen3(ModelConfig.tiny_moe(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="K10.*K11"):
-        MoEMLP(64, 32, 4, world_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="K13"):
-        TPMLP(64, 32, mode="w8a8", world_size=2, device="cpu")
+    moe = Qwen3(ModelConfig.tiny_moe(), mesh=mesh)
+    assert moe.layers[0].mlp.world_size == 2
+    assert MoEMLP(64, 32, 4, world_size=2, device="cpu").down.shape == (
+        2, 4, 16, 64)
+    w8 = TPMLP(64, 32, mode="w8a8", world_size=2, device="cpu")
+    w8.init_params(torch.Generator().manual_seed(0))
+    assert w8.gate_up_q.shape == (2, 64, 32) and w8.down_scale.shape == (2,
+                                                                         64)
+    assert w8(torch.zeros(2, 3, 64, dtype=torch.bfloat16)).shape == (2, 3, 64)
     # fused_ar runs on K17 now: it builds at world 2 and sums its ranks.
     ar = TPMLP(64, 32, mode="fused_ar", world_size=2, dtype=torch.float32,
                device="cpu")

@@ -22,8 +22,19 @@ constants and waits for a model of this card's.  The hierarchical and torus
 contexts, the fault-injection fields and the observability event are not
 ported.
 
-On a CUDA tensor `ag_gemm` launches the kernel or raises; on a CPU tensor
-it computes the plain version, `ag_gemm_plain`.
+`ag_gemm_w8a8` (JAX :390, K13) is the ring on int8 rows: x (W, m, k)
+quantized per row on the fly, rows padded to 32 (`round_up_rows` of int8),
+the per-row scales gathered outside the kernel (the rank-stacked tensor is
+the gathered one, as JAX gathers them in XLA), b_q (W, k, n_loc) int8
+with per-column scales (W, n_loc), out (W, W*m, n_loc) in x's dtype: one
+cooperative launch of ``csrc/ag_gemm_w8a8.cu`` running K7's int8 tile
+(`quantized.emit_matmul_w8a8`) on each chunk as it arrives.  It has only
+the ring (JAX asserts ``method in ("auto", "fused")``); at world 1 it is
+`matmul_w8a8` (K7) on the quantized rows.
+
+On a CUDA tensor `ag_gemm` and `ag_gemm_w8a8` launch their kernels or
+raise; on a CPU tensor they compute the plain versions, `ag_gemm_plain`
+and `ag_gemm_w8a8_plain`.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import torch
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.matmul import matmul
+from triton_distributed_tpu_torch.kernels.quantized import (
+    matmul_w8a8, matmul_w8a8_reference, quantize_sym)
 from triton_distributed_tpu_torch.language.core import symmetric_buffers
 from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
 
@@ -46,6 +59,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"ag_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, ctypes.c_uint64, ctypes.POINTER(_I), _P]}
+_W8A8_SIGNATURES = {"ag_gemm_w8a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, ctypes.c_uint64,
+                                     ctypes.POINTER(_I), _P]}
 
 
 def round_up_rows(m: int, dtype) -> int:
@@ -168,6 +184,88 @@ def _launch(a_shard, b, ctx, method, return_gathered):
         return out
     # A copy: the instance's buffer is the next call's.
     return out, gathered[:, :, :m].clone().reshape(world, world * m, k)
+
+
+def ag_gemm_w8a8_plain(a_q, b_q, scales, scale_b, out_dtype):
+    """The plain version of K13 on quantized rows a_q (W, mp, k) int8 with
+    their scales (W, mp): every rank's exact product of the gathered rows
+    with its b_q (W, k, n) and scale_b (W, n), then (float(acc) * sa) *
+    sb, in ``out_dtype``: (W, W*mp, n)."""
+    full_q = a_q.reshape(-1, a_q.shape[-1])
+    sa = scales.reshape(-1)
+    return torch.stack([matmul_w8a8_reference(full_q, b_q[r], sa, scale_b[r],
+                                              out_dtype)
+                        for r in range(b_q.shape[0])])
+
+
+def ag_gemm_w8a8(a_shard, b_q, scale_b, ctx: AllGatherGEMMContext):
+    """out ~ all_gather(a) @ (b_q * scale_b) in a_shard's dtype.
+
+    World 1: a_shard (m, k), b_q (k, n) int8, scale_b (n,) -> (m, n).
+    World W: a_shard (W, m, k) float, b_q (W, k, n) int8, scale_b (W, n)
+    f32 -> (W, W*m, n).  k must be a multiple of 16.  Only the ring:
+    ``ctx.method`` "auto" or "fused".  Each launch of K13 adds one to
+    ``ag_gemm_w8a8.launches``."""
+    if ctx.method not in ("auto", "fused"):
+        raise ValueError(f"ag_gemm_w8a8 runs the fused ring only, got "
+                         f"method={ctx.method!r}")
+    if ctx.world_size <= 1:
+        a_q, sa = quantize_sym(a_shard, 1)
+        return matmul_w8a8(a_q, b_q, sa, scale_b, out_dtype=a_shard.dtype)
+    world = ctx.world_size
+    if (a_shard.dim() != 3 or b_q.dim() != 3 or a_shard.shape[0] != world
+            or b_q.shape[0] != world or a_shard.shape[2] != b_q.shape[1]
+            or tuple(scale_b.shape) != (world, b_q.shape[2])
+            or b_q.dtype != torch.int8):
+        raise ValueError(f"ag_gemm_w8a8 at world {world}: want a_shard (W, "
+                         f"m, k), b_q (W, k, n) int8 and scale_b (W, n), got "
+                         f"{tuple(a_shard.shape)}, {tuple(b_q.shape)} "
+                         f"{b_q.dtype} and {tuple(scale_b.shape)}")
+    _, m, k = a_shard.shape
+    n = b_q.shape[2]
+    a_q, sa = quantize_sym(a_shard, -1)
+    mp = round_up_rows(m, torch.int8)
+    if mp != m:
+        a_q = torch.cat([a_q, a_q.new_zeros((world, mp - m, k))], dim=1)
+        sa = torch.cat([sa, sa.new_zeros((world, mp - m))], dim=1)
+    scale_b = scale_b.float().contiguous()
+    if a_shard.device.type == "cpu":
+        out = ag_gemm_w8a8_plain(a_q, b_q, sa, scale_b, a_shard.dtype)
+    else:
+        out = _launch_w8a8(a_q, b_q, sa, scale_b, ctx, a_shard.dtype)
+    return out.reshape(world, world, mp, n)[:, :, :m].reshape(
+        world, world * m, n)
+
+
+ag_gemm_w8a8.launches = 0
+
+
+def _launch_w8a8(a_q, b_q, sa, scale_b, ctx, out_dtype):
+    world, mp, k = a_q.shape
+    n = b_q.shape[2]
+    dev = a_q.device
+    if world > MAX_WORLD or k % 16 or out_dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"ag_gemm_w8a8: world {world} (at most "
+                         f"{MAX_WORLD}), k={k} (a multiple of 16), out "
+                         f"{out_dtype} (bfloat16 or float32)")
+    for nm, t in (("b_q", b_q), ("scale_b", scale_b)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"ag_gemm_w8a8: {nm} not contiguous on {dev}")
+    inst = symmetric_buffers("ag_gemm_w8a8", ctx.collective_id, "fused",
+                             torch.int8, world, dev)
+    gathered = inst.buffer("gathered", (world, mp, k), torch.int8)
+    out = torch.empty((world, world * mp, n), dtype=out_dtype, device=dev)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("ag_gemm_w8a8", _W8A8_SIGNATURES)
+    rc = lib.ag_gemm_w8a8(
+        a_q.data_ptr(), b_q.data_ptr(), sa.data_ptr(), scale_b.data_ptr(),
+        out.data_ptr(), inst.peers(gathered), inst.signal_peers(), world,
+        _build.DTYPE_CODES[out_dtype], mp, n, k, inst.epoch,
+        ctypes.byref(blocks), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "ag_gemm_w8a8 kernel launch")
+    inst.advance(blocks.value)
+    ag_gemm_w8a8.launches += 1
+    return out
 
 
 def _check(a, b, world):

@@ -1,0 +1,216 @@
+"""AllGather + grouped GEMM, the MoE tensor-parallel prologue (port of
+`triton_distributed_tpu/kernels/allgather_group_gemm.py`
+`AGGroupGEMMContext`, `ag_group_gemm` and `ag_group_gemm_w8a8`).
+
+Each rank buckets its own tokens per expert (capacity-padded,
+`moe_utils.route_capacity`), so the payload of the all-gather is a rank's
+bucket tensor (E, cap, k).  The operands are rank-stacked
+(`parallel.mesh`): the buckets (W, E, cap, k), rank r's column shard of
+every expert's weights (W, E, k, n_loc) and, optionally, the true bucket
+sizes ``counts`` (W, E) (replicated).  Every rank gets every rank's buckets
+times its own shard: out (W, W, E, cap, n_loc), ``out[r, c]`` rank c's
+tokens through rank r's columns.
+
+On the card each call is one cooperative launch over every rank of
+``csrc/ag_group_gemm.cu``: K11 (``ag_group_gemm``, bf16 or f32) and K11-int8
+(``ag_group_gemm_w8a8``), the ring of K12 carrying one bucket tensor a
+step and the grouped GEMM of each chunk as it arrives, on the row tiles
+that hold tokens only: with ``counts``, a row tile (`grouped_gemm.row_tile`)
+that starts at or past an expert's count computes nothing and writes zeros,
+as the JAX ``count_of`` does.  The int8 path quantizes the buckets per
+token (`quantized.quantize_sym`), carries int8 through the ring, and
+gathers the per-token scales outside the kernel (here: the rank-stacked
+tensor is the gathered one), as JAX gathers them in XLA.  On a CPU tensor
+the wrappers compute the plain versions, `ag_group_gemm_plain` and
+`ag_group_gemm_w8a8_plain`.  The kernels run at world 2 to 8; the MoE
+layer never calls them at world 1 (it takes its ``xla`` path there, as the
+JAX layer does).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from triton_distributed_tpu_torch import collective_ids as cids
+from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+    grouped_matmul_counts_reference, grouped_matmul_reference,
+    grouped_matmul_w8a8_counts_reference, grouped_matmul_w8a8_reference,
+    row_tile)
+from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
+from triton_distributed_tpu_torch.language.core import symmetric_buffers
+from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {"ag_group_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, ctypes.c_uint64,
+                                 ctypes.POINTER(_I), _P]}
+
+#: The most experts the kernels take (their per-chunk tile table lives in
+#: shared memory).
+MAX_EXPERTS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class AGGroupGEMMContext:
+    """``collective_id`` keys the instance's symmetric buffers and
+    signals; concurrent instances need distinct ids (`collective_ids`)."""
+
+    axis: str
+    world_size: int
+    num_experts: int
+    collective_id: int = cids.AG_GROUP_GEMM
+
+
+def ag_group_gemm_plain(buckets, expert_weights, counts=None):
+    """The plain version of `ag_group_gemm`: out[r, c] is chunk c's
+    buckets through rank r's weights, an f32 grouped product cast to the
+    buckets' dtype (`grouped_gemm.grouped_matmul_reference`), zero in the
+    row tiles past ``counts[c]`` (`grouped_matmul_counts_reference`)."""
+    world = buckets.shape[0]
+    return torch.stack([torch.stack([
+        grouped_matmul_reference(buckets[c], expert_weights[r])
+        if counts is None else grouped_matmul_counts_reference(
+            buckets[c], expert_weights[r], counts[c])
+        for c in range(world)]) for r in range(world)])
+
+
+def ag_group_gemm_w8a8_plain(buckets_q, scales, expert_weights_q, w_scales,
+                             out_dtype, counts=None):
+    """The plain version of the int8 kernel on quantized buckets (W, E,
+    cap, k) int8 with their scales (W, E, cap): exact products, then
+    (float(acc) * scale) * w_scale, zero in the 128-row tiles past
+    ``counts`` (`grouped_matmul_w8a8_counts_reference`)."""
+    world = buckets_q.shape[0]
+    return torch.stack([torch.stack([
+        grouped_matmul_w8a8_reference(
+            buckets_q[c], expert_weights_q[r], scales[c], w_scales[r],
+            out_dtype) if counts is None
+        else grouped_matmul_w8a8_counts_reference(
+            buckets_q[c], expert_weights_q[r], scales[c], w_scales[r],
+            counts[c], out_dtype)
+        for c in range(world)]) for r in range(world)])
+
+
+def ag_group_gemm(buckets, expert_weights, ctx: AGGroupGEMMContext,
+                  counts=None):
+    """all_gather(buckets) times every rank's expert weights, f32
+    accumulation, in the buckets' dtype.
+
+    buckets (W, E, cap, k), expert_weights (W, E, k, n), both bf16 or both
+    f32, contiguous; counts (W, E) int, optional.  Returns (W, W, E, cap,
+    n).  Each launch of K11 adds one to ``ag_group_gemm.launches``."""
+    _check_shapes(buckets, expert_weights, counts, ctx)
+    if buckets.device.type == "cpu":
+        return ag_group_gemm_plain(buckets, expert_weights, counts)
+    if buckets.dtype not in _build.DTYPE_CODES or (
+            expert_weights.dtype != buckets.dtype):
+        raise ValueError(f"ag_group_gemm: buckets {buckets.dtype}, weights "
+                         f"{expert_weights.dtype}; want both bfloat16 or "
+                         "both float32")
+    out = _launch(buckets, expert_weights, None, None, counts, ctx,
+                  buckets.dtype)
+    ag_group_gemm.launches += 1
+    return out
+
+
+ag_group_gemm.launches = 0
+
+
+def ag_group_gemm_w8a8(buckets, expert_weights_q, w_scales,
+                       ctx: AGGroupGEMMContext, counts=None,
+                       out_dtype=None):
+    """The int8 form: the float buckets (W, E, cap, k) quantized per token
+    on the fly, int8 expert weights (W, E, k, n) with per-expert,
+    per-output-channel scales w_scales (W, E, n) f32 (`MoEMLP.
+    quantize_params`, column-sharded), int32 accumulation, out (W, W, E,
+    cap, n) in ``out_dtype`` (default the buckets' dtype).  cap must be a
+    multiple of 32 (`MoEMLP.capacity` aligns w8a8 buckets so), k a
+    multiple of 16.  Each launch of K11-int8 adds one to
+    ``ag_group_gemm_w8a8.launches``."""
+    _check_shapes(buckets, expert_weights_q, counts, ctx)
+    world, e, cap, k = buckets.shape
+    n = expert_weights_q.shape[3]
+    out_dtype = out_dtype or buckets.dtype
+    if cap % 32:
+        raise ValueError(f"ag_group_gemm_w8a8: int8 buckets need a capacity "
+                         f"that is a multiple of 32, got {cap}")
+    if expert_weights_q.dtype != torch.int8 or tuple(w_scales.shape) != (
+            world, e, n):
+        raise ValueError(f"ag_group_gemm_w8a8: weights "
+                         f"{expert_weights_q.dtype}, scales "
+                         f"{tuple(w_scales.shape)}; want int8 and ({world}, "
+                         f"{e}, {n})")
+    buckets_q, scales = quantize_sym(buckets, -1)
+    w_scales = w_scales.float().contiguous()
+    if buckets.device.type == "cpu":
+        return ag_group_gemm_w8a8_plain(buckets_q, scales, expert_weights_q,
+                                        w_scales, out_dtype, counts)
+    if k % 16 or out_dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"ag_group_gemm_w8a8: k={k} must be a multiple of "
+                         f"16 and out {out_dtype} bfloat16 or float32")
+    out = _launch(buckets_q, expert_weights_q, scales, w_scales, counts, ctx,
+                  out_dtype)
+    ag_group_gemm_w8a8.launches += 1
+    return out
+
+
+ag_group_gemm_w8a8.launches = 0
+
+
+def _check_shapes(buckets, w, counts, ctx):
+    world, e = ctx.world_size, ctx.num_experts
+    if (buckets.dim() != 4 or w.dim() != 4 or buckets.shape[:2] != (world, e)
+            or w.shape[:2] != (world, e) or buckets.shape[3] != w.shape[2]):
+        raise ValueError(f"ag_group_gemm at world {world}, {e} experts: want "
+                         f"buckets (W, E, cap, k) and weights (W, E, k, n), "
+                         f"got {tuple(buckets.shape)} and {tuple(w.shape)}")
+    if counts is not None and tuple(counts.shape) != (world, e):
+        raise ValueError(f"ag_group_gemm: counts {tuple(counts.shape)}, want "
+                         f"({world}, {e})")
+
+
+def _launch(a, b, scales, w_scales, counts, ctx, out_dtype):
+    """One launch of csrc/ag_group_gemm.cu over every rank (int8 when
+    ``scales`` is given)."""
+    world, e, cap, k = a.shape
+    n = b.shape[3]
+    dev = a.device
+    if not 2 <= world <= MAX_WORLD or e > MAX_EXPERTS:
+        raise ValueError(f"ag_group_gemm: world {world} (2 to {MAX_WORLD}) "
+                         f"and {e} experts (at most {MAX_EXPERTS})")
+    for nm, t in (("buckets", a), ("weights", b), ("scales", scales),
+                  ("w_scales", w_scales), ("counts", counts)):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"ag_group_gemm: {nm} not contiguous on {dev}")
+    int8 = scales is not None
+    # Routing metadata for the kernel: per chunk, the row tiles (of the
+    # kernel's tile) that hold a token before each expert, and their total.
+    bm = row_tile(cap, torch.int8 if int8 else a.dtype)
+    live = torch.full((world, e), cap, device=dev) if counts is None else (
+        counts.long().clamp(0, cap))
+    live = (live + bm - 1) // bm
+    tile_start = torch.cat([live.new_zeros((world, 1)), live.cumsum(1)],
+                           dim=1).to(torch.int32)
+    inst = symmetric_buffers("ag_group_gemm", ctx.collective_id,
+                             "int8" if int8 else "ring", a.dtype, world, dev)
+    gathered = inst.buffer("gathered", (world, e, cap, k), a.dtype)
+    out = torch.empty((world, world, e, cap, n), dtype=out_dtype, device=dev)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("ag_group_gemm", _SIGNATURES)
+    rc = lib.ag_group_gemm(
+        a.data_ptr(), b.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        None if w_scales is None else w_scales.data_ptr(),
+        tile_start.data_ptr(), out.data_ptr(),
+        inst.peers(gathered), inst.signal_peers(), world, int(int8),
+        _build.DTYPE_CODES[a.dtype] if not int8 else -1,
+        _build.DTYPE_CODES[out_dtype], e, cap, n, k, inst.epoch,
+        ctypes.byref(blocks), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "ag_group_gemm kernel launch")
+    inst.advance(blocks.value)
+    return out

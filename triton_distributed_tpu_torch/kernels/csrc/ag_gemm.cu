@@ -30,7 +30,8 @@
 //   of the left neighbour have delivered it, forward it to the right
 //   neighbour unless s = W-1, and compute its tiles.  A block forwards
 //   before it computes, so the copy of step s overlaps the GEMM of the
-//   blocks still at step s - 1.
+//   blocks still at step s - 1 (`comm_body.cuh` `emit_ag_ring`, shared
+//   with K11 and K13).
 // - `ll`: the entry barrier, the push all-gather (every rank's shard into
 //   every rank's slot), then one GEMM over the W * mp gathered rows, which
 //   reads b_r once (the decode regime).
@@ -64,40 +65,20 @@ __global__ void __launch_bounds__(Tile::NT, gemm::MIN_BLOCKS)
   using T = typename Tile::In;
   __shared__ typename Tile::Smem sm;
   const dl::Team& t = p.team;
-  const int me = dl::rank(t), w = t.world, y = blockIdx.y;
+  const int w = t.world, y = blockIdx.y;
   const int part = blockIdx.x, parts = gridDim.x;
   const u64 target = p.epoch + gridDim.x;
-  const size_t chunk = (size_t)p.mp * p.k, bytes = chunk * sizeof(T);
+  const size_t chunk = (size_t)p.mp * p.k;
   const size_t out_chunk = (size_t)p.mp * p.n;
-  const T* a = p.a + y * chunk;
   const T* b = p.b + (size_t)y * p.k * p.n;
   T* out = p.out + y * w * out_chunk;
-  T* mine = reinterpret_cast<T*>(p.gathered[me]);
-  const int right = dl::peer_id(t, me + 1);
-  T* theirs = reinterpret_cast<T*>(p.gathered[right]);
-
-  dl::entry_barrier(t, p.sig, target, /*neighbors_only=*/true);
-  // Step 0: the own shard, kept and sent right.
-  dl::put_nbi(mine + me * chunk, a, bytes, part, parts);
-  dl::put_nbi(theirs + me * chunk, a, bytes, part, parts);
-  u64* sent[2] = {p.sig[me] + dl::ARRIVAL_WORD + me,
-                  p.sig[right] + dl::ARRIVAL_WORD + me};
-  dl::signal_after_puts(sent, 2);
-  gemm::run_tiles<Tile>(sm, a, b, out + me * out_chunk, p.mp, p.n, p.k,
-                        p.vec, part, parts);
-  for (int s = 1; s < w; ++s) {
-    const int c = dl::peer_id(t, me - s);
-    dl::wait(p.sig[me] + dl::ARRIVAL_WORD + c, 1, 0, target,
-             "ag_gemm ring arrival");
-    const T* held = mine + c * chunk;
-    if (s < w - 1) {
-      dl::put_nbi(theirs + c * chunk, held, bytes, part, parts);
-      u64* word = p.sig[right] + dl::ARRIVAL_WORD + c;
-      dl::signal_after_puts(&word, 1);
-    }
-    gemm::run_tiles<Tile>(sm, held, b, out + c * out_chunk, p.mp, p.n, p.k,
-                          p.vec, part, parts);
-  }
+  tdt::comm::emit_ag_ring(
+      t, p.a + y * chunk, p.gathered, chunk * sizeof(T), p.sig, target,
+      "ag_gemm ring arrival", [&](int c, const char* held) {
+        gemm::run_tiles<Tile>(sm, reinterpret_cast<const T*>(held), b,
+                              out + c * out_chunk, p.mp, p.n, p.k, p.vec,
+                              part, parts);
+      });
 }
 
 template <class Tile>

@@ -3,6 +3,10 @@
 // - `emit_push_allgather`: port of triton_distributed_tpu/kernels/
 //   allgather.py `emit_push_allgather` (:150), the one-shot push
 //   all-gather (K12's `ll` body; K15's push kernel later);
+// - `emit_ag_ring`: port of allgather_gemm.py `_emit_ag_ring` (:122) and
+//   allgather_group_gemm.py `_emit_ag_ring_grouped` (:67), the ring
+//   all-gather that hands each chunk to a computation as it arrives (the
+//   body of K12's `fused` method, K11 and its int8 form, and K13);
 // - `emit_scatter_reduce`: port of kernels/reduce_scatter.py
 //   `emit_scatter_reduce` (:144), one-shot scatter then local reduce
 //   (K14's `ll` body; K16's scatter kernel later);
@@ -226,6 +230,47 @@ __device__ __forceinline__ void emit_push_allgather(
   dl::signal_after_puts<S>(words, t.world);
   dl::wait<S>(sig[me] + dl::ARRIVAL_WORD, t.world, 1, target,
               "push all-gather arrival");
+}
+
+// The ring all-gather feeding a computation: the neighbour entry barrier;
+// this rank's ``bytes``-byte shard into its own slot of ``gathered`` and
+// the right neighbour's (one arrival signal a block), then
+// ``compute(me, shard)``; then for s = 1 .. W-1 the chunk c = (r - s) mod
+// W: wait until all P blocks of the left neighbour have delivered it,
+// forward it to the right neighbour unless s = W-1, and
+// ``compute(c, held)`` on the held copy.  A block forwards before it
+// computes, so the copy of step s overlaps the computation of the blocks
+// still at step s - 1.  ``compute`` reads a held chunk through L2 only
+// (cp.async.cg, ld.global.cg): it was written by another rank's blocks.
+template <class Compute, dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void emit_ag_ring(const dl::Team& t,
+                                             const void* shard,
+                                             dl::Symm<char> gathered,
+                                             size_t bytes, dl::Symm<u64> sig,
+                                             u64 target, const char* what,
+                                             Compute&& compute) {
+  const int me = dl::rank(t), part = blockIdx.x, parts = gridDim.x;
+  char* mine = gathered[me];
+  const int right = dl::peer_id(t, me + 1);
+  char* theirs = gathered[right];
+  dl::entry_barrier<S>(t, sig, target, /*neighbors_only=*/true);
+  dl::put_nbi(mine + me * bytes, shard, bytes, part, parts);
+  dl::put_nbi(theirs + me * bytes, shard, bytes, part, parts);
+  u64* sent[2] = {sig[me] + dl::ARRIVAL_WORD + me,
+                  sig[right] + dl::ARRIVAL_WORD + me};
+  dl::signal_after_puts<S>(sent, 2);
+  compute(me, static_cast<const char*>(shard));
+  for (int s = 1; s < t.world; ++s) {
+    const int c = dl::peer_id(t, me - s);
+    dl::wait<S>(sig[me] + dl::ARRIVAL_WORD + c, 1, 0, target, what);
+    const char* held = mine + c * bytes;
+    if (s < t.world - 1) {
+      dl::put_nbi(theirs + c * bytes, held, bytes, part, parts);
+      u64* word = sig[right] + dl::ARRIVAL_WORD + c;
+      dl::signal_after_puts<S>(&word, 1);
+    }
+    compute(c, held);
+  }
 }
 
 // One-shot scatter-reduce: chunk c of this rank's partials ``src`` (world

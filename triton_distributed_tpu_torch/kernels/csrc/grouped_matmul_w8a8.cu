@@ -20,6 +20,8 @@
 
 #include "w8a8_body.cuh"
 
+using namespace tdt::w8a8;
+
 // a (E,M,K) int8, b (E,K,N) int8, sa (E,M) f32, sb (E,N) f32, out (E,M,N)
 // in out_dtype, all contiguous; a and b 16-byte aligned; K a multiple of
 // 16.  Returns a cudaError_t code.

@@ -19,6 +19,8 @@
 
 #include "w8a8_body.cuh"
 
+using namespace tdt::w8a8;
+
 // a (M,K) int8, b (K,N) int8, sa (M,) f32, sb (N,) f32, out (M,N) in
 // out_dtype, all contiguous; a and b 16-byte aligned; K a multiple of 16.
 // Returns a cudaError_t code.

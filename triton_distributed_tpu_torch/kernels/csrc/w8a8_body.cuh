@@ -1,9 +1,15 @@
-// The int8 GEMM body shared by K7 (matmul_w8a8.cu, one matrix) and K9
-// (grouped_matmul_w8a8.cu, one matrix a group): int8 x int8 -> int32 on
-// the tensor cores, then the rank-1 f32 dequant epilogue
-// out[m, n] = (float(acc[m, n]) * sa[m]) * sb[n], in bf16 or f32.  Group
-// blockIdx.z reads a + z*M*K, b + z*K*N, sa + z*M, sb + z*N and writes
-// out + z*M*N; a launch with one group is K7.
+// The int8 GEMM tile: int8 x int8 -> int32 on the tensor cores, then the
+// rank-1 f32 dequant epilogue out[m, n] = (float(acc[m, n]) * sa[m]) *
+// sb[n], in bf16 or f32.  `tdt::w8a8::tile` computes one BM x BN tile of
+// out at (m0, n0); it is the port of quantized.py `emit_matmul_w8a8`
+// (:161), the form a block of a persistent or cooperative kernel calls:
+// K11's int8 form (ag_group_gemm.cu), K10 with int8 weights
+// (moe_reduce_rs.cu) and K13 (ag_gemm_w8a8.cu) call it per tile.
+// `w8a8_kernel` runs it once a block: K7 (matmul_w8a8.cu, one matrix) and
+// K9 (grouped_matmul_w8a8.cu, one matrix a group: group blockIdx.z reads
+// a + z*M*K, b + z*K*N, sa + z*M, sb + z*N and writes out + z*M*N).  A
+// caller that runs a second tile in the same block syncs the block first
+// (`__syncthreads()`): the shared buffers of one tile are the next one's.
 //
 // Design (a first kernel that is right, on the tensor cores):
 // - One block of 8 warps computes a 128 x 128 tile of out; each warp a
@@ -26,16 +32,15 @@
 //   decode batch), and stores past m or n are dropped.  n not a multiple
 //   of 16 (rows of b not 16-byte aligned) loads b with plain byte loads.
 //   k must be a multiple of 16 (16-byte rows of a); the wrapper checks.
+// - a is read through L2 only (cp.async.cg): a collective kernel reads
+//   rows that another block or rank has just written.
 
 #pragma once
 
 #include "common.cuh"
 
-namespace {
-
-using tdt::cp_async16;
-using tdt::cp_async_commit;
-using tdt::cp_async_wait;
+namespace tdt {
+namespace w8a8 {
 
 constexpr int BM = 128, BN = 128, BK = 64;  // block tile; BK counts bytes
 constexpr int NT = 256;                      // 8 warps: 2 (m) x 4 (n)
@@ -116,24 +121,17 @@ __device__ __forceinline__ void transpose_b(Smem& sm, int buf, int tid) {
   }
 }
 
+// The tile of out rows [m0, m0 + BM) and columns [n0, n0 + BN) of
+// out (M, N) = a (M, K) @ b (K, N), dequantized with sa (M,) and sb (N,).
 template <typename TO>
-__global__ void __launch_bounds__(NT) w8a8_kernel(
-    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-    const float* __restrict__ sa, const float* __restrict__ sb,
-    TO* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) Smem sm;
-  // One group (expert) per blockIdx.z: its a, b, scales and out.
-  const size_t grp = blockIdx.z;
-  a += grp * M * K;
-  b += grp * K * N;
-  sa += grp * M;
-  sb += grp * N;
-  out += grp * M * N;
+__device__ __forceinline__ void tile(Smem& sm, const int8_t* a,
+                                     const int8_t* b, const float* sa,
+                                     const float* sb, TO* out, int M, int N,
+                                     int K, int m0, int n0) {
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment row / k quad
   const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const bool n16 = N % 16 == 0;
   // This warp's 16-row m tiles that hold a row below M (warp-uniform).
   const int mi_live = min(MI, max(0, M - m0 - wm * WM + 15) / 16);
@@ -195,13 +193,30 @@ __global__ void __launch_bounds__(NT) w8a8_kernel(
         for (int e = 0; e < 2; ++e) {
           const int c = n0 + wn * WN + j * 8 + t * 2 + e;
           if (c < N)
-            tdt::store1(out + (size_t)r * N + c,
-                        __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][h * 2 + e]),
-                                            s_a),
-                                  sb[c]));
+            store1(out + (size_t)r * N + c,
+                   __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][h * 2 + e]),
+                                       s_a),
+                             sb[c]));
         }
     }
 }
 
-}  // namespace
+// Number of (BM x BN) tiles of an (M, N) output.
+__host__ __device__ __forceinline__ int tiles(int M, int N) {
+  return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+}
 
+// One tile a block: tile (blockIdx.y, blockIdx.x) of group blockIdx.z.
+template <typename TO>
+__global__ void __launch_bounds__(NT) w8a8_kernel(
+    const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+    const float* __restrict__ sa, const float* __restrict__ sb,
+    TO* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) Smem sm;
+  const size_t grp = blockIdx.z;
+  tile(sm, a + grp * M * K, b + grp * K * N, sa + grp * M, sb + grp * N,
+       out + grp * M * N, M, N, K, blockIdx.y * BM, blockIdx.x * BN);
+}
+
+}  // namespace w8a8
+}  // namespace tdt

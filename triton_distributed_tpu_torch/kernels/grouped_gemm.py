@@ -6,9 +6,20 @@ Port of `triton_distributed_tpu/kernels/grouped_gemm.py` `grouped_matmul`
 here ``csrc/grouped_matmul_w8a8.cu``, the body of `matmul_w8a8` with an
 expert index).  Experts are capacity-padded buckets, so a grouped GEMM is
 a batched product with static shapes.  The TPU block sizes
-(`MatmulConfig`, `Int8MatmulConfig`) do not carry over; the in-kernel forms
-(`emit_grouped_matmul`, `emit_packed_*`) and `grouped_matmul_tunable` wait
-for the fused multi-GPU MoE kernels.
+(`MatmulConfig`, `Int8MatmulConfig`) and `grouped_matmul_tunable` do not
+carry over.
+
+The in-kernel forms that the fused MoE kernels call are CUDA device code
+here: `emit_grouped_matmul` / `emit_grouped_matmul_w8a8` with ``count_of``
+(row tiles past an expert's count compute nothing and write zeros) in
+``csrc/ag_group_gemm.cu`` over ``gemm_tile.cuh`` / ``w8a8_body.cuh``, and
+`emit_packed_matmul` / `emit_packed_combine` /
+`emit_packed_combine_matmul` (the packed block schedule, the tile rounded
+to the activations' dtype, then the top-k weighted combine) in
+``csrc/moe_reduce_rs.cu``.  Their plain versions are here:
+`grouped_matmul_counts_reference`, `grouped_matmul_w8a8_counts_reference`,
+`packed_matmul_reference` and `packed_combine_reference`; `row_tile` says
+which rows a count-skipping tile covers.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it computes the plain version (`grouped_matmul_reference`,
@@ -146,6 +157,83 @@ def grouped_matmul_w8a8(a_q, b_q, scale_a, scale_b,
 
 
 grouped_matmul_w8a8.launches = 0
+
+
+def row_tile(rows: int, dtype) -> int:
+    """Rows of the tile that the count-skipping device forms run on
+    buckets of ``rows`` rows of ``dtype``: the bf16 tile that fits them (16,
+    64 or 128, `gemm_tile.cuh`), 64 for f32, 128 for int8
+    (`w8a8_body.cuh`).  A tile starting at or past an expert's count is
+    skipped; a tile that holds it computes in full."""
+    if dtype == torch.int8:
+        return 128
+    if dtype == torch.float32:
+        return 64
+    return 16 if rows <= 16 else 64 if rows <= 64 else 128
+
+
+def zero_past_counts(out, counts, block_m: int):
+    """``out`` (..., E, m, n) with the rows of every row tile of
+    ``block_m`` rows that starts at or past ``counts`` (..., E) set to
+    zero: what the count-skipping forms write there."""
+    live = (counts.long() + block_m - 1) // block_m * block_m
+    rows = torch.arange(out.shape[-2], device=out.device)
+    return torch.where(rows[:, None] < live[..., None, None], out,
+                       out.new_zeros(()))
+
+
+def grouped_matmul_counts_reference(a, b, counts, out_dtype=None):
+    """The plain version of `emit_grouped_matmul` with ``count_of``:
+    `grouped_matmul_reference`, zero in the row tiles (`row_tile`) past
+    ``counts`` (E,)."""
+    out = grouped_matmul_reference(a, b, out_dtype)
+    return zero_past_counts(out, counts, row_tile(a.shape[1], a.dtype))
+
+
+def grouped_matmul_w8a8_counts_reference(a_q, b_q, scale_a, scale_b, counts,
+                                         out_dtype=torch.bfloat16):
+    """The plain version of `emit_grouped_matmul_w8a8` with ``count_of``:
+    `grouped_matmul_w8a8_reference`, zero in the 128-row tiles past
+    ``counts`` (E,)."""
+    out = grouped_matmul_w8a8_reference(a_q, b_q, scale_a, scale_b,
+                                        out_dtype)
+    return zero_past_counts(out, counts, row_tile(a_q.shape[1], torch.int8))
+
+
+def packed_matmul_reference(a, b, block_expert, block_slot, n_blocks,
+                            block: int, out_dtype, scale_a=None,
+                            scale_b=None):
+    """The plain version of `emit_packed_matmul`: the packed stage (T * B,
+    n), block t's rows ``a[e_t, s_t B : s_t B + B] @ b[e_t]`` rounded to
+    ``out_dtype``, zero past ``n_blocks``.  a (E, cap, k), b (E, k, n),
+    float; or int8 with ``scale_a`` (E, cap) and ``scale_b`` (E, n), the
+    product exact and dequantized as `grouped_matmul_w8a8_reference`."""
+    if scale_a is None:
+        dense = grouped_matmul_reference(a, b, out_dtype)
+    else:
+        dense = grouped_matmul_w8a8_reference(a, b, scale_a, scale_b,
+                                              out_dtype)
+    t_max = block_expert.shape[0]
+    rows = (block_expert.long()[:, None] * a.shape[1]
+            + block_slot.long()[:, None] * block
+            + torch.arange(block, device=a.device))
+    stage = dense.reshape(-1, dense.shape[-1])[rows.reshape(-1)]
+    used = torch.arange(t_max, device=a.device).repeat_interleave(block)
+    return torch.where((used < n_blocks)[:, None], stage, stage.new_zeros(()))
+
+
+def packed_combine_reference(stage, rows, weights):
+    """The plain version of `emit_packed_combine` (and of
+    `emit_packed_combine_matmul` after `emit_packed_matmul`): out[i] =
+    sum over k of weights[i, k] * stage[rows[i, k]] (`moe_utils.
+    combine_pairs`: ascending stage rows, -1 past a token's kept pairs),
+    each product and sum in f32, in that order.  Returns (mc, n) f32."""
+    acc = stage.new_zeros((rows.shape[0], stage.shape[1]), dtype=torch.float32)
+    for k in range(rows.shape[1]):
+        r = rows[:, k]
+        term = weights[:, k, None].float() * stage[r.clamp(min=0).long()].float()
+        acc = acc + torch.where((r >= 0)[:, None], term, 0.0)
+    return acc
 
 
 def _check(a, b, out_dtype, who):

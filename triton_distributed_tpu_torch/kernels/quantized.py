@@ -5,6 +5,12 @@ Port of `triton_distributed_tpu/kernels/quantized.py`: `quantize_sym`
 (the Pallas `_w8a8_kernel`, here the hand-written CUDA kernel
 ``csrc/matmul_w8a8.cu``) and `matmul_quantized`.  The TPU block sizes
 (`Int8MatmulConfig`) do not carry over: the CUDA kernel has one tile.
+That tile is also `emit_matmul_w8a8` (JAX :161), the in-kernel form:
+``csrc/w8a8_body.cuh`` ``tdt::w8a8::tile``, a device function that one
+block of a cooperative launch calls on any (row, column) tile, and that
+K7's and K9's kernels call once a block; the fused int8 collectives (K11's
+int8 form, K10 with int8 weights, K13) run it per tile.  Its plain
+version is `matmul_w8a8_reference`.
 
 The int32 accumulator is dequantized with one rank-1 scaling, ``acc *
 (scale_a ⊗ scale_b)``.  On a CUDA tensor `matmul_w8a8` launches the kernel
@@ -30,10 +36,15 @@ _SIGNATURES = {"matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 def quantize_sym(x, axis: int):
     """Symmetric int8 quantization along ``axis``: returns (q int8, scale
     f32) with x ~ q * scale, ``scale`` having ``axis`` reduced away.
-    Bit for bit the JAX function: amax in f32, ``max(amax, 1e-30) / 127``,
-    a true division, round half to even, clamp to +-127."""
+    Bit for bit the JAX function run eagerly: amax in f32, ``max(amax,
+    1e-30) / 127``, a true division, round half to even, clamp to +-127.
+    The divisor is a tensor on x's device: PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal instead, which moves the
+    scale by an ulp from the CPU's.  (Under ``jax.jit`` XLA makes the same
+    rewrite, so a jitted JAX scale can differ from this one by an ulp.)"""
     xf = x.float()
-    scale = xf.abs().amax(dim=axis).clamp_min(1e-30) / 127.0
+    scale = xf.abs().amax(dim=axis).clamp_min(1e-30) / torch.full(
+        (), 127.0, device=xf.device)
     q = torch.round(xf / scale.unsqueeze(axis)).clamp_(-127, 127)
     return q.to(torch.int8), scale
 

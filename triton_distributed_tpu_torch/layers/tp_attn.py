@@ -25,8 +25,8 @@ Rank r's heads are the global heads r H_loc .., so the attention kernels
 run every rank's heads in one launch at the global head count, the GQA
 grouping kept, and the KV cache keeps its global (B, Hkv, S, D) layout.
 Decode needs a batch that the ranks split evenly.  What is still unported
-at world > 1 raises `NotImplementedError` naming its kernel
-(`require_ported`): the MoE layers, the ``w8a8`` mode and training.
+at world > 1 raises `NotImplementedError` naming its kernels
+(`require_ported`): training.
 """
 
 from __future__ import annotations
@@ -46,9 +46,6 @@ from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
 
 #: What runs only at world 1 so far, and the kernels it waits for.
 UNPORTED_AT_WORLD = {
-    "moe": "the MoE layers need K10 (moe_reduce_rs_fused) and K11 "
-           "(ag_group_gemm)",
-    "w8a8": "the w8a8 mode needs K13 (ag_gemm_w8a8)",
     "grad": "training needs the training duals (ag_gemm_diff, gemm_rs_diff: "
             "their backwards are the dual fused kernels)",
 }
@@ -85,27 +82,48 @@ def weight(*shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+#: Leaves sharded by columns (their last axis) and by rows (their
+#: second-to-last axis) at world W; every other leaf is replicated.
+COLUMN_SHARDED = ("wqkv", "gate_up", "gate_up_q", "gate_up_scale")
+ROW_SHARDED = ("wo", "down", "down_q")
+
+
 def stack_columns(w, world: int):
-    """The JAX global layout's column shards, (in, W * c) -> (W, in, c)."""
-    return w.reshape(w.shape[0], world, -1).transpose(0, 1)
+    """The JAX global layout's column shards, (..., W * c) -> (W, ..., c)."""
+    return w.reshape(*w.shape[:-1], world, -1).movedim(-2, 0)
 
 
 def stack_rows(w, world: int):
-    """The JAX global layout's row shards, (W * r, out) -> (W, r, out)."""
-    return w.reshape(world, -1, w.shape[-1])
+    """The JAX global layout's row shards, (..., W * r, out) -> (W, ..., r,
+    out)."""
+    return w.reshape(*w.shape[:-2], world, -1, w.shape[-1]).movedim(-3, 0)
 
 
 def tp_layout(name: str, leaf, world: int):
-    """A JAX world-W weight -> the port's rank-stacked tensor: ``wqkv`` and
-    ``gate_up`` column-sharded, ``wo`` and ``down`` row-sharded, anything
-    else (and everything at world 1) as it is."""
+    """A JAX world-W weight -> the port's rank-stacked tensor: the
+    `COLUMN_SHARDED` leaves split on their last axis (an MoE ``gate_up``
+    (E, h, 2F) on its expert columns), the `ROW_SHARDED` ones on their rows
+    (an MoE ``down`` (E, F, h) on F); anything else (the router, the MoE
+    ``down_scale``) and everything at world 1 as it is."""
     if world == 1:
         return leaf
-    if name in ("wqkv", "gate_up"):
+    if name in COLUMN_SHARDED:
         return stack_columns(leaf, world)
-    if name in ("wo", "down"):
+    if name in ROW_SHARDED:
         return stack_rows(leaf, world)
     return leaf
+
+
+def jax_layout(name: str, t, world: int):
+    """The inverse of `tp_layout`: a rank-stacked tensor -> the JAX
+    world-W leaf."""
+    if world == 1:
+        return t
+    if name in COLUMN_SHARDED:
+        return t.movedim(0, -2).reshape(*t.shape[1:-1], -1)
+    if name in ROW_SHARDED:
+        return t.movedim(0, -3).reshape(*t.shape[1:-2], -1, t.shape[-1])
+    return t
 
 
 def rope_cos_sin(positions, dim: int, theta: float = 1e6,

@@ -19,8 +19,13 @@ holding every rank: `parallel.mesh`) the weights are rank-stacked,
 `gemm_rs` (K14), whose partials are rounded to x's dtype before their sum;
 ``xla`` (JAX `_fwd_xla` :102) runs their ``"xla"`` method: gather by
 reshape, a library product, and the f32 partials summed unrounded
-(`gemm_rs_nonoverlap`, as JAX `_psum_scatter_rows` :93).  ``w8a8`` and
-training at world > 1 raise `NotImplementedError` naming their kernels.
+(`gemm_rs_nonoverlap`, as JAX `_psum_scatter_rows` :93).  ``w8a8`` (JAX
+`_fwd_w8a8` :145) holds each rank's weights quantized per rank
+(`quantize_params` of the rank-stacked weights, as the JAX layer
+quantizes its shards): `ag_gemm_w8a8` (K13), gated SiLU, the rows
+quantized per row, `matmul_w8a8` (K7) a rank out in f32, then the f32 sum
+over the ranks, cast to x's dtype.  Training at world > 1 raises
+`NotImplementedError` naming its kernels.
 
 ``fused_ar`` (JAX `_fwd_fused_ar` :167) takes x replicated, (M, hidden) at
 every world: each rank's gate_up and down products are library products
@@ -38,13 +43,15 @@ from torch import nn
 
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-    AllGatherGEMMContext, ag_gemm)
+    AllGatherGEMMContext, ag_gemm, ag_gemm_w8a8)
 from triton_distributed_tpu_torch.kernels.allreduce import (
     AllReduceContext, all_reduce)
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     GEMMReduceScatterContext, gemm_rs)
 from triton_distributed_tpu_torch.kernels.quantized import (
     matmul_w8a8, quantize_sym)
+from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+    sum_in_rank_order)
 from triton_distributed_tpu_torch.layers.tp_attn import (
     collective_method, normal_init_, require_ported, tp_layout, weight)
 
@@ -91,8 +98,6 @@ class TPMLP(nn.Module):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES} (the others are "
                              "not ported yet)")
-        if mode == "w8a8":
-            require_ported(world_size, "w8a8")
         if ffn % world_size:
             raise ValueError(f"ffn={ffn} does not split over "
                              f"world_size={world_size}")
@@ -100,23 +105,21 @@ class TPMLP(nn.Module):
         self.ffn = ffn
         self.mode = mode
         self.world_size = world_size
-        if world_size > 1:
-            f_loc = ffn // world_size
-            self.gate_up = weight(world_size, hidden, 2 * f_loc, dtype=dtype,
-                                  device=device)
-            self.down = weight(world_size, f_loc, hidden, dtype=dtype,
-                               device=device)
-        elif mode == "w8a8":
-            self.gate_up_q = weight(hidden, 2 * ffn, dtype=torch.int8,
+        f = ffn // world_size
+        ranks = (world_size,) if world_size > 1 else ()
+        if mode == "w8a8":
+            self.gate_up_q = weight(*ranks, hidden, 2 * f, dtype=torch.int8,
                                     device=device)
-            self.gate_up_scale = weight(2 * ffn, dtype=torch.float32,
+            self.gate_up_scale = weight(*ranks, 2 * f, dtype=torch.float32,
                                         device=device)
-            self.down_q = weight(ffn, hidden, dtype=torch.int8, device=device)
-            self.down_scale = weight(hidden, dtype=torch.float32,
+            self.down_q = weight(*ranks, f, hidden, dtype=torch.int8,
+                                 device=device)
+            self.down_scale = weight(*ranks, hidden, dtype=torch.float32,
                                      device=device)
         else:
-            self.gate_up = weight(hidden, 2 * ffn, dtype=dtype, device=device)
-            self.down = weight(ffn, hidden, dtype=dtype, device=device)
+            self.gate_up = weight(*ranks, hidden, 2 * f, dtype=dtype,
+                                  device=device)
+            self.down = weight(*ranks, f, hidden, dtype=dtype, device=device)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -138,11 +141,13 @@ class TPMLP(nn.Module):
     @staticmethod
     def quantize_params(params):
         """One-time symmetric int8 weight quantization per output channel
-        (axis 0) for the ``w8a8`` mode: ``{"gate_up", "down"}`` float
-        tensors -> ``{"gate_up_q", "gate_up_scale", "down_q",
-        "down_scale"}``, as the JAX `TPMLP.quantize_params`."""
-        gq, gs = quantize_sym(params["gate_up"], 0)
-        dq, ds = quantize_sym(params["down"], 0)
+        (over the rows, axis -2) for the ``w8a8`` mode: ``{"gate_up",
+        "down"}`` float tensors -> ``{"gate_up_q", "gate_up_scale",
+        "down_q", "down_scale"}``, as the JAX `TPMLP.quantize_params`; at
+        world W each rank's shard of the rank-stacked weights apart, as
+        the JAX layer quantizes its shards."""
+        gq, gs = quantize_sym(params["gate_up"], -2)
+        dq, ds = quantize_sym(params["down"], -2)
         return {"gate_up_q": gq, "gate_up_scale": gs,
                 "down_q": dq, "down_scale": ds}
 
@@ -193,14 +198,16 @@ class TPMLP(nn.Module):
         hidden) replicated -> (W, M, hidden), every rank's copy."""
         if self.mode == "fused_ar":
             return self._forward_fused_ar(x)
-        if self.world_size > 1:
-            return self._forward_tp(x)
         if self.mode == "w8a8":
             if torch.is_grad_enabled() and x.requires_grad:
                 raise NotImplementedError(
                     "TPMLP(mode='w8a8') has no backward: training runs the "
                     "'xla' or 'fused' mode")
+            if self.world_size > 1:
+                return self._forward_w8a8_tp(x)
             return mlp_w8a8(x, *(getattr(self, n) for n in QUANTIZED))
+        if self.world_size > 1:
+            return self._forward_tp(x)
         return torch.matmul(gated_silu(torch.matmul(x, self.gate_up)),
                             self.down)
 
@@ -226,3 +233,17 @@ class TPMLP(nn.Module):
             "tp", w, method, collective_id=cids.TP_MLP_AG))
         return gemm_rs(gated_silu(h), self.down, GEMMReduceScatterContext(
             "tp", w, method, collective_id=cids.TP_MLP_RS))
+
+    def _forward_w8a8_tp(self, x):
+        w = self.world_size
+        h = gated_silu(ag_gemm_w8a8(x, self.gate_up_q, self.gate_up_scale,
+                                    AllGatherGEMMContext(
+                                        "tp", w, collective_id=cids.TP_MLP_AG)))
+        h_q, sh = quantize_sym(h, -1)
+        partial = torch.stack([matmul_w8a8(h_q[r], self.down_q[r], sh[r],
+                                           self.down_scale[r],
+                                           out_dtype=torch.float32)
+                               for r in range(w)])      # (W, W m, hidden)
+        # JAX `_psum_scatter_rows`: rank c's rows of the f32 sum.
+        return sum_in_rank_order(partial.reshape(
+            w, w, -1, partial.shape[-1])).to(x.dtype)

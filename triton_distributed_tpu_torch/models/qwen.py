@@ -22,10 +22,13 @@ rank-stacked (W, M/W, hidden) activations, every projection of the dense
 layers goes through AllGather-GEMM or GEMM-ReduceScatter (K12 and K14 in
 mode ``fused``), the final all-gather of rows is a reshape, and the
 vocab-sharded head (JAX ``P(None, tp)``: rank r's columns r V/W ..)
-concatenates to the one (hidden, V) product, kept whole here.  Decode needs
-a batch that W divides.  `reshard` moves a world-1 model's weights into the
-world-W layout, so the same weights run at both.  MoE models, training and
-the scheduler at world > 1 are refused.
+concatenates to the one (hidden, V) product, kept whole here.  An MoE
+model's layers run `MoEMLP` at world W (mode ``fused``: K11 then K10 in
+prefill; decode's few rows a rank take its ``xla`` path, as JAX's do).
+Decode needs a batch that W divides.  `reshard` moves a dense world-1
+model's weights into the world-W layout, so the same weights run at both
+(an MoE model is built at world W instead).  Training and the scheduler
+at world > 1 are refused.
 
 The engine contract the serving stack drives: `create_cache`,
 `create_paged_cache`, `prefill(ids, cache)`, `decode(tokens, cache)` and
@@ -48,7 +51,7 @@ import torch
 from torch import nn
 
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    TPAttention, normal_init_, require_ported, rms_norm, stack_columns,
+    TPAttention, jax_layout, normal_init_, rms_norm, stack_columns,
     stack_rows, tp_layout, weight)
 from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
@@ -79,22 +82,6 @@ def _mlp_names(config: ModelConfig):
     return ("gate_up", "down")
 
 
-def _global_columns(w):
-    """The inverse of `stack_columns`: (W, in, c) -> (in, W * c)."""
-    return w.transpose(0, 1).reshape(w.shape[1], -1)
-
-
-def _jax_layout(name: str, t, world: int):
-    """The port's rank-stacked tensor -> the JAX world-W leaf."""
-    if world == 1:
-        return t
-    if name in ("wqkv", "gate_up"):
-        return _global_columns(t)
-    if name in ("wo", "down"):
-        return t.reshape(-1, t.shape[-1])
-    return t
-
-
 def _interleave(parts, world: int):
     """World-1 column blocks (e.g. [q | k | v]) -> each rank's columns of
     every block side by side, rank-stacked: (W, in, sum of c_i / W).  As
@@ -120,7 +107,7 @@ class Qwen3Layer(nn.Module):
                 h, config.moe_intermediate_size or config.intermediate_size,
                 config.num_experts, topk=config.num_experts_per_tok,
                 capacity_factor=config.moe_capacity_factor, mode=mode,
-                dtype=dtype, device=device)
+                world_size=world_size, dtype=dtype, device=device)
         else:
             self.mlp = TPMLP(h, config.intermediate_size, mode=mode,
                              world_size=world_size, dtype=dtype,
@@ -160,8 +147,6 @@ class Qwen3(nn.Module):
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
-        if config.is_moe:
-            require_ported(world, "moe")
         self.config = config
         self.mode = mode
         self.mesh = mesh
@@ -245,7 +230,7 @@ class Qwen3(nn.Module):
         def get(t, name=""):
             if grad:
                 t = t.grad if t.grad is not None else torch.zeros_like(t)
-            return _jax_layout(name, t.detach(),
+            return jax_layout(name, t.detach(),
                                self.world_size).float().cpu().numpy()
 
         layers = []
@@ -280,6 +265,11 @@ class Qwen3(nn.Module):
             raise ValueError(f"reshard: the model is at world "
                              f"{self.world_size}, not 1")
         cfg = self.config
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "reshard: an MoE model is not resharded (the copy would hold "
+                "its experts twice on one device); build the MoE model at "
+                "world W with mesh=make_mesh(W) and load its weights there")
         out = Qwen3(cfg, self.mode, mesh=make_mesh(world, device=self.device))
         d = cfg.head_dim
         split = [cfg.num_heads * d, cfg.num_kv_heads * d,
