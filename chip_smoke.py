@@ -97,7 +97,7 @@ non-zero):
    and ``TPMLP(4096, 12288, mode="w8a8")`` at world 4 within 5% of bf16;
    kernel times with bounds, plain versions and library yardsticks,
    world-4 prefill and decode, a traced prefill;
-13. collective path (last: the device holds the least here): the
+13. collective path (the device holds little from here on): the
    collective library at world W on the one card, K15 (``all_gather``),
    K16 (``reduce_scatter``), K17 (``all_reduce``) and K18
    (``barrier_all_on_axis``, ``broadcast``): every method at world 2, 4
@@ -113,7 +113,29 @@ non-zero):
    ``ops.broadcast`` and the barrier; times of every method at the
    fused_ar and SP payloads with bounds, plain versions and library
    yardsticks, the ``auto`` sweep, fused_ar against fused, SP decode
-   against world-1 decode.
+   against world-1 decode;
+14. EP path: expert parallelism at world 4 on Qwen3-30B-A3B's MoE widths
+   (hidden 2048, 128 experts of 768, top 8; 32 experts a rank): K19
+   (``fast_all_to_all``) bit for bit against its plain version at world 2,
+   4 and 8 in bf16, f32 and int8 with and without scales, under a
+   straggler and over 100 back-to-back calls; the main path with exact
+   launches: 512 seeded tokens a rank through ``EPAll2AllLayer.dispatch``
+   (K19), layer 0's local experts on K8 and ``combine`` (K19); the
+   identity round trip bit for bit against the layer on the plain
+   exchange, the expert round trip within 3x the bf16 error of
+   ``MoEMLP(mode="xla")`` at world 1 against f32, a decode-sized case; K19
+   times with its byte bound;
+15. SP attention path: Qwen3-8B's heads (32/8 of 128) over 32,768 tokens
+   at world 4: K20 (``sp_ag_attention_fused``) against its plain version
+   at world 2, 4 and 8 (GQA 1 and 4, S_loc 24, f32, caller offsets, a
+   straggler, 100 back-to-back calls), rank 0 bit for bit equal to K1; the
+   main path with exact launches through the fused (K20), gather (K15 +
+   K1), ring (K1) and zigzag (K1) compositions, each held row by row to
+   world-1 ``flash_attention`` over the whole sequence; ring training
+   (``sp_ring_attention_diff`` on 4 x 2,048 tokens) with its gradients
+   held to world 1 and exact K1/K4/K5 launches; K20 against its bound,
+   its plain version and SDPA over the whole sequence, beside the
+   compositions.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -145,7 +167,8 @@ KERNEL_SOURCES = {
                 "matmul_w8a8", "flash_attention_bwd", "grouped_matmul",
                 "grouped_matmul_w8a8", "ag_gemm", "gemm_rs", "all_gather",
                 "reduce_scatter", "all_reduce", "common_ops", "ag_group_gemm",
-                "moe_reduce_rs", "ag_gemm_w8a8")}
+                "moe_reduce_rs", "ag_gemm_w8a8", "all_to_all",
+                "sp_ag_attention")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
@@ -201,6 +224,10 @@ KERNELS = {
                             "launches", _TPU + "moe_reduce_rs.py:396"),
     "ag_gemm_w8a8": ("ag_gemm_w8a8", "ag_gemm_w8a8", "launches",
                      _TPU + "allgather_gemm.py:440"),
+    "all_to_all": ("all_to_all", "fast_all_to_all", "launches",
+                   _TPU + "low_latency_all_to_all.py:211"),
+    "sp_ag_attention_fused": ("sp_ag_attention", "sp_ag_attention_fused",
+                              "launches", _TPU + "sp_ag_attention.py:520"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -2584,6 +2611,551 @@ def collective_path(dev, card: str, counted, expect, short, records,
           f"{time.perf_counter() - t_phase:.1f} s (host clock)")
 
 
+#: The EP path: Qwen3-30B-A3B's MoE (MOE_FIELDS: hidden 2048, 128 experts
+#: of 768, top-8) split over EP_WORLD ranks (32 experts a rank) on the one
+#: card; EP_TOKENS tokens a rank, each (source, destination) block holding
+#: every pair a rank could send (EP_TOKENS x 8: nothing drops); a decode
+#: batch of EP_DECODE = (tokens a rank, block capacity).  K19 is held bit
+#: for bit at these worlds on a ragged block (rows and bytes off 16) and an
+#: aligned one, with no scales, one f32 scale a row and three.
+EP_WORLD, EP_TOKENS, EP_DECODE = 4, 512, (4, 32)
+EP_WORLDS = (2, 4, 8)
+EP_A2A_SHAPES = ((37, 1001), (64, 2048))
+
+
+def ep_experts(recv, recv_counts, recv_expert, gate_up, down, moe_utils,
+               grouped_matmul, gated_silu):
+    """The EP path's expert pass (harness code, not a package module): the
+    rows each rank received, masked by their counts, bucketed per local
+    expert with `route_capacity` at a capacity where none drops; rank r's
+    local expert e is global expert r * E/W + e, so every rank's buckets
+    go through one K8 launch a product (gate_up, the gated SiLU, down).
+    Returns the processed rows in arrival layout (W, W, cap, hidden), zeros
+    past the counts."""
+    w, _, cap, h = recv.shape
+    e = gate_up.shape[0]
+    rows = recv.reshape(-1, h)
+    valid = (torch.arange(cap, device=recv.device)[None, None, :]
+             < recv_counts)                                 # (W, W, cap)
+    rank = torch.arange(w, device=recv.device)[:, None, None]
+    gid = torch.where(valid, rank * (e // w) + recv_expert.long(), e)
+    counts = moe_utils.histogram(gid, e + 1)[:e]
+    cap_e = max(16, -(-int(counts.max()) // 16) * 16)
+    routing = moe_utils.route_capacity(gid.reshape(-1, 1), e + 1, cap_e)
+    index = routing.dispatch_index[:e]
+    buckets = moe_utils.gather_tokens(rows, index)
+    y = grouped_matmul(gated_silu(grouped_matmul(buckets, gate_up)), down)
+    out = rows.new_zeros((rows.shape[0] + 1, h))
+    out[index.reshape(-1).long()] = y.reshape(-1, h)
+    return out[:-1].view(w, w, cap, h), cap_e
+
+
+def ep_path(dev, card: str, counted, expect, short, records, errs) -> None:
+    """The EP path: expert parallelism at world EP_WORLD, the ranks in this
+    process on the one card (`EPAll2AllLayer` over K19,
+    `fast_all_to_all`), at Qwen3-30B-A3B's MoE widths.
+
+    1. K19 against its plain version (the two rank axes swapped) bit for
+       bit at worlds 2, 4 and 8 in bf16, f32 and int8 on a ragged and an
+       aligned block, with no scales, one f32 scale a row (the EP layer's
+       expert ids) and three; under a straggler rank and for_correctness;
+       and over TP_REPEATS back-to-back calls with fresh inputs, queued
+       before any is checked;
+    2. the main path, with every launch count set to 0 before and read
+       after: 512 seeded bf16 tokens a rank routed by the port's
+       `moe_mlp.route` on a seeded (2048, 128) f32 router (top 8),
+       `dispatch` (K19), layer 0's 32 local experts a rank on K8
+       (`ep_experts`), `combine` (K19): two K19 and two K8 launches;
+    3. the identity round trip on the card bit for bit against the same
+       layer over `fast_all_to_all_reference`, and the tokens * sum(w)
+       property; the expert round trip against `MoEMLP(mode="xla")` at world
+       1 on the same 2,048 tokens and weights with a capacity at which
+       nothing drops, both within 3x that layer's bf16 error of an f32
+       reference; the decode-sized case (4 tokens a rank, capacity 32) the
+       same ways;
+    4. times: K19 at the dispatch's payload against its byte bound, its
+       plain version and one copy (`send.transpose(0, 1).contiguous()`),
+       K19 at the decode size, and the whole dispatch -> experts -> combine.
+
+    On one card every put is a copy inside one HBM: the times say what the
+    kernel and the copies cost here, not what NVLink would carry."""
+    from triton_distributed_tpu_torch.kernels import moe_utils
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        grouped_matmul)
+    from triton_distributed_tpu_torch.kernels.low_latency_all_to_all import (
+        AllToAllContext, fast_all_to_all, fast_all_to_all_reference)
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+    from triton_distributed_tpu_torch.layers import EPAll2AllLayer
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP, route
+    from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    h, e = MOE_FIELDS["hidden_size"], MOE_FIELDS["num_experts"]
+    topk, ffn = MOE_FIELDS["num_experts_per_tok"], MOE_FIELDS[
+        "moe_intermediate_size"]
+    w, n = EP_WORLD, EP_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    t_phase = time.perf_counter()
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def payload(world, cap, hid, dtype, ns):
+        send = (randn(world, world, cap, hid, dtype=f32) * 40).clamp(
+            -127, 127).to(dtype)
+        counts = torch.randint(0, cap + 1, (world, world, 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+        scales = (None if not ns else randn(world, world, cap, ns,
+                                            dtype=f32))
+        return send, counts, scales
+
+    def check_exact(label, got, want):
+        for g, x in zip(got, want):
+            if g.dtype != x.dtype or g.shape != x.shape or not bool(
+                    torch.equal(g, x)):
+                raise AssertionError(f"{label}: K19 disagrees with its "
+                                     "plain version")
+
+    def a2a(world, send, counts, scales, **faults):
+        ctx = AllToAllContext("ep", world, send.shape[2], send.shape[3],
+                              **faults)
+        return fast_all_to_all(send, counts, ctx, send_scales=scales)
+
+    # -- 1. K19 against its plain version, bit for bit
+    runs = []
+    for world in EP_WORLDS:
+        for dtype in (bf16, f32, torch.int8):
+            for (cap, hid), ns in ((EP_A2A_SHAPES[0], 1),
+                                   (EP_A2A_SHAPES[1], 0),
+                                   (EP_A2A_SHAPES[1], 3)):
+                args = payload(world, cap, hid, dtype, ns)
+                runs.append((f"world {world} {dtype} ({cap}, {hid}) ns {ns}",
+                             args, a2a(world, *args)))
+    torch.cuda.synchronize()
+    for label, args, got in runs:
+        check_exact(label, got, fast_all_to_all_reference(*args))
+    for label, faults in (("straggler", {"straggler": COLL_STRAGGLER}),
+                          ("for_correctness", {"for_correctness": True})):
+        args = payload(w, *EP_A2A_SHAPES[1], bf16, 1)
+        got = a2a(w, *args, **faults)
+        torch.cuda.synchronize()
+        check_exact(label, got, fast_all_to_all_reference(*args))
+    ins = [payload(w, *EP_A2A_SHAPES[1], bf16, 1) for _ in range(TP_REPEATS)]
+    outs = [a2a(w, *args) for args in ins]
+    torch.cuda.synchronize()
+    for args, got in zip(ins, outs):
+        check_exact("back-to-back", got, fast_all_to_all_reference(*args))
+    del ins, outs, runs
+    errs["all_to_all"] = 0.0
+    print(f"[ep path] K19 at world {'/'.join(map(str, EP_WORLDS))} in bf16, "
+          f"f32 and int8 on blocks (cap, hidden) {EP_A2A_SHAPES} with 0, 1 "
+          f"and 3 scale columns, under a straggler (rank "
+          f"{COLL_STRAGGLER[0]} spins {COLL_STRAGGLER[1]} cycles) and "
+          f"for_correctness, and {TP_REPEATS} back-to-back calls with fresh "
+          f"inputs queued before any check: bit for bit equal to the plain "
+          f"version")
+
+    # -- 2. the main path
+    x = randn(w, n, h)
+    router = randn(h, e, dtype=f32) * h ** -0.5
+    gate_up = randn(e, h, 2 * ffn) * h ** -0.5
+    down = randn(e, ffn, h) * ffn ** -0.5
+    routed = [route(x[r], router, topk) for r in range(w)]
+    ids = torch.stack([i for i, _ in routed])
+    wts = torch.stack([p for _, p in routed])
+    layer = EPAll2AllLayer("ep", w, e, topk, n * topk, h)
+    got = {}
+
+    def roundtrip(lay, xx, ii, ww, experts):
+        recv, recv_e, recv_c, plan = lay.dispatch(xx, ii)
+        if experts:
+            out, cap_e = ep_experts(recv, recv_c, recv_e, gate_up, down,
+                                    moe_utils, grouped_matmul, gated_silu)
+            got["cap_e"] = cap_e
+        else:
+            out = recv
+        return (recv, recv_e, recv_c), lay.combine(out, recv_c, plan, ww, ii)
+
+    def main_path():
+        with torch.inference_mode():
+            got["ep"] = roundtrip(layer, x, ids, wts, True)
+        torch.cuda.synchronize()
+
+    launches = counted(main_path)
+    want = expect(all_to_all=2, grouped_matmul=2)
+    print(f"[ep path] main path: {w} ranks x {n} tokens of hidden {h}, top "
+          f"{topk} of {e} experts ({e // w} a rank), blocks of {n * topk} "
+          f"rows: dispatch, layer 0's experts on K8 (capacity "
+          f"{got['cap_e']}, none dropped), combine; launches "
+          f"{short(launches)}")
+    if launches != want:
+        raise AssertionError(f"ep path launches {short(launches)} != "
+                             f"{short(want)}")
+
+    # -- 3. checks
+    class PlainLayer(EPAll2AllLayer):
+        def _exchange(self, send_tokens, counts, cid, send_scales=None):
+            return fast_all_to_all_reference(send_tokens, counts,
+                                             send_scales)
+
+    def identity_check(label, xx, ii, ww, cap):
+        lay = EPAll2AllLayer("ep", w, e, topk, cap, h)
+        plain = PlainLayer("ep", w, e, topk, cap, h)
+        with torch.inference_mode():
+            kd, kout = roundtrip(lay, xx, ii, ww, False)
+            pd, pout = roundtrip(plain, xx, ii, ww, False)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(kd + (kout,),
+                                                            pd + (pout,)))
+        prop = (xx.float() * ww.sum(-1, keepdim=True)).to(bf16)
+        err = float((kout.float() - prop.float()).abs().max())
+        ok = same and bool(torch.allclose(kout.float(), prop.float(),
+                                          atol=1e-6, rtol=2.0 ** -7))
+        print(f"[ep path] {label} identity round trip (capacity {cap}): "
+              f"dispatch and combine bit for bit equal to the layer on the "
+              f"plain exchange {same}; against tokens * sum(w) max_abs_err "
+              f"{err:.3e} (rtol 2^-7, one bf16 rounding) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ep path {label} identity round trip")
+
+    identity_check("prefill", x, ids, wts, n * topk)
+    xd = randn(w, EP_DECODE[0], h)
+    rd = [route(xd[r], router, topk) for r in range(w)]
+    idd = torch.stack([i for i, _ in rd])
+    wd = torch.stack([p for _, p in rd])
+    identity_check("decode", xd, idd, wd, EP_DECODE[1])
+
+    def world1_check(label, xx, ii, ww, out_ep):
+        """The EP round trip against `MoEMLP(mode="xla")` at world 1 on the
+        same tokens and weights, both held to an f32 reference."""
+        flat, fi, fw = xx.reshape(-1, h), ii.reshape(-1, topk), ww.reshape(
+            -1, topk)
+        counts = moe_utils.histogram(fi, e)
+        cap = max(16, -(-int(counts.max()) // 16) * 16)
+        mlp = MoEMLP(h, ffn, e, topk=topk, mode="xla", device=dev,
+                     capacity_factor=cap / (flat.shape[0] * topk / e))
+        if mlp.capacity(flat.shape[0]) < int(counts.max()):
+            raise AssertionError("world-1 capacity drops pairs")
+        with torch.no_grad():
+            mlp.router.copy_(router)
+            mlp.gate_up.copy_(gate_up)
+            mlp.down.copy_(down)
+            xla = mlp(flat)
+            routing = moe_utils.route_capacity(fi, e, cap)
+            b = moe_utils.gather_tokens(flat.float(), routing.dispatch_index)
+            y = torch.bmm(gated_silu(torch.bmm(b, gate_up.float())),
+                          down.float())
+            ref = moe_utils.combine_tokens(y, fi, routing.slot_of_pair, fw)
+        floor = rel_l2(xla, ref)
+        rels = {"f32": rel_l2(out_ep.reshape(-1, h), ref),
+                "xla": rel_l2(out_ep.reshape(-1, h), xla)}
+        ok = all(v <= 3 * floor for v in rels.values()) and bool(
+            out_ep.isfinite().all())
+        print(f"[ep path] {label} expert round trip vs MoEMLP(xla) at world "
+              f"1 on the same {flat.shape[0]} tokens (capacity {cap}, none "
+              f"dropped): rel_l2 vs f32 {rels['f32']:.3e}, vs xla "
+              f"{rels['xla']:.3e} (bound {3 * floor:.3e}, 3x the xla "
+              f"layer's bf16 error {floor:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ep path {label} expert round trip")
+
+    world1_check("prefill", x, ids, wts, got["ep"][1])
+    with torch.inference_mode():
+        dec = roundtrip(EPAll2AllLayer("ep", w, e, topk, EP_DECODE[1], h),
+                        xd, idd, wd, True)
+    world1_check("decode", xd, idd, wd, dec[1])
+
+    # -- 4. times
+    ctx = AllToAllContext("ep", w, n * topk, h)
+    with torch.inference_mode():
+        recv, recv_e, recv_c, plan = layer.dispatch(x, ids)
+        # The dispatch's own exchange: send blocks, counts, expert ids.
+        send = recv.transpose(0, 1).contiguous()
+        counts = recv_c.transpose(0, 1).contiguous()
+        scales = recv_e.float()[..., None].transpose(0, 1).contiguous()
+        ms = time_ms(lambda: fast_all_to_all(send, counts, ctx,
+                                             send_scales=scales), 20)
+        plain = time_ms(lambda: fast_all_to_all_reference(send, counts,
+                                                          scales), 20)
+        lib = time_ms(lambda: send.transpose(0, 1).contiguous(), 20)
+        bms, by = bound(2 * nbytes(send, counts, scales), 0)
+        sd, scd = (t[:, :, :EP_DECODE[1]].contiguous()
+                   for t in (send, scales))
+        cd = counts.clamp_max(EP_DECODE[1])
+        ctx_d = AllToAllContext("ep", w, EP_DECODE[1], h)
+        ms_d = time_ms(lambda: fast_all_to_all(sd, cd, ctx_d,
+                                               send_scales=scd), 50)
+        bms_d, _ = bound(2 * nbytes(sd, cd, scd), 0)
+        t_rt = time_ms(lambda: roundtrip(layer, x, ids, wts, True), 5)
+        t_disp = time_ms(lambda: layer.dispatch(x, ids), 10)
+    print(f"[times] K19 fast_all_to_all at world {w} on the dispatch's "
+          f"payload ({tuple(send.shape)} bf16 + counts + one f32 expert id a "
+          f"row, {nbytes(send, counts, scales) / 2**20:.1f} MiB in all): "
+          f"{ms:.4f} ms (bound {bms:.4f} ms by {by}: every send block read "
+          f"once and every receive block written once at 3.35 TB/s, "
+          f"{bms / ms:.1%} of bound); plain {plain:.4f} ms; one copy "
+          f"(send.transpose(0, 1).contiguous()) {lib:.4f} ms; decode blocks "
+          f"{tuple(sd.shape)} {ms_d:.4f} ms (bound {bms_d:.4f}); {card}")
+    print(f"[times] EP round trip at world {w} ({n} tokens a rank): "
+          f"dispatch {t_disp:.4f} ms, dispatch -> experts (K8 x2) -> combine "
+          f"{t_rt:.4f} ms (CUDA events; the expert pass reads its bucket "
+          f"capacity back to the host once a call); {card}")
+    records.append(("all_to_all", ms, plain, bms, by, lib, {
+        "shape": f"{tuple(send.shape)} bf16 + counts + scales (W, W, "
+                 f"{n * topk}, 1) f32",
+        "library_note": "send.transpose(0, 1).contiguous(), tokens only "
+                        "(one card: no NVLink)",
+        "decode_ms": ms_d, "decode_bound_ms": bms_d}))
+    del x, gate_up, down, got, send, recv, dec
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ep path] the phase took {time.perf_counter() - t_phase:.1f} s "
+          "(host clock)")
+
+
+#: The SP attention path: Qwen3-8B's attention (32 query and 8 KV heads of
+#: 128) over its native 32,768-token context at SP_WORLD = 4 (8,192 rows a
+#: rank), B = 1, bf16; ring training on 4 x SP_TRAIN_ROWS.  K20 against its
+#: plain version at these worlds on (label, B, H, Hkv, S_loc, D, dtype):
+SP_ATTN_CONTEXT, SP_TRAIN_ROWS = 32768, 2048
+SP_K20_CASES = (("GQA 4", 1, 8, 2, 256, 128, torch.bfloat16),
+                ("GQA 1 S_loc 24", 2, 4, 4, 24, 128, torch.bfloat16),
+                ("f32 d64 S_loc 100", 1, 4, 2, 100, 64, torch.float32))
+
+
+def sp_path(dev, card: str, counted, expect, short, records, errs) -> None:
+    """The SP attention path: sequence-parallel causal prefill at world
+    SP_WORLD, the ranks in this process on the one card.
+
+    1. K20 (`sp_ag_attention_fused`) against its plain version (the TPU
+       kernel's chunk-by-chunk schedule in f32) at worlds 2, 4 and 8 on
+       SP_K20_CASES, and with caller offsets (q_offset r * S_loc + 5,
+       kv_base (3, 0, 7, 1)): out row by row, lse within 1e-3; rank 0's
+       output bit for bit equal to K1's on its own chunk (the shared tile
+       body); under a straggler and for_correctness, and TP_REPEATS
+       back-to-back calls with fresh inputs, queued before any check;
+    2. the main path, with every launch count set to 0 before and read
+       after: 32,768 tokens of Qwen3-8B's heads at world 4 through
+       `sp_ag_attention_fused` (one K20), `sp_ag_attention_gather` (one K15
+       ring, one K1 a rank), `sp_ring_attention` (one K1 a step) and
+       `sp_ring_attention_zigzag` (three K1 a step);
+    3. every output row by row against world-1 `flash_attention` over the
+       whole sequence (K1), K20's lse within 1e-3 of K1's, K20 against its
+       plain version;
+    4. training: `sp_ring_attention_diff` on 4 x SP_TRAIN_ROWS tokens, the
+       q, k and v gradients of sum(out * w) row by row against
+       `flash_attention_diff` at world 1 over the whole sequence, with
+       exact K1/K4/K5 launches;
+    5. times: K20 against its bound (the causal pairs' operations at 989
+       TFLOP/s, or its bytes), its plain version, and one PyTorch call over
+       the whole sequence (`F.scaled_dot_product_attention`, causal, no
+       ring); each composition and world-1 K1 beside it.
+
+    On one card the ranks share the SMs: in the natural layout rank r
+    attends r + 1 chunks, so the last rank's blocks set K20's time."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import flash_attention as fa
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    t_phase = time.perf_counter()
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def shards(t, world):
+        """Global (B, H, S, D) -> the rank-stacked (W, B, H, S/W, D)."""
+        b, hh, s, d = t.shape
+        return t.reshape(b, hh, world, s // world, d).movedim(
+            2, 0).contiguous()
+
+    def unshard(t):
+        t = t.movedim(0, 2)
+        return t.reshape(*t.shape[:2], -1, *t.shape[4:])
+
+    def k20_case(world, b, hh, hkv, s_loc, d, dtype, **kw):
+        q = randn(world, b, hh, s_loc, d, dtype=dtype)
+        k = randn(world, b, hkv, s_loc, d, dtype=dtype)
+        v = randn(world, b, hkv, s_loc, d, dtype=dtype)
+        return (q, k, v), sp.sp_ag_attention_fused(q, k, v, return_lse=True,
+                                                   **kw)
+
+    def hold(label, args, got, kw, dtype):
+        ref_o, ref_l = sp.sp_ag_attention_fused_reference(
+            *args, kw.get("q_offset"), kw.get("kv_base", 0))
+        tol = (2e-2, 1e-2) if dtype == bf16 else (1e-4, 1e-4)
+        e = check_rows(f"K20 {label} out", got[0], ref_o, *tol, 0.1)
+        check_close(f"K20 {label} lse", got[1], ref_l, 1e-3, 0.0)
+        return e
+
+    # -- 1. K20 against its plain version
+    offsets = dict(q_offset=[r * 256 + 5 for r in range(SP_WORLD)],
+                   kv_base=[3, 0, 7, 1])
+    runs = []
+    for world in COLL_WORLDS:
+        for label, b, hh, hkv, s_loc, d, dtype in SP_K20_CASES:
+            runs.append((f"world {world} {label}", dtype, {},
+                         *k20_case(world, b, hh, hkv, s_loc, d, dtype)))
+    runs.append((f"world {SP_WORLD} offsets", bf16, offsets,
+                 *k20_case(SP_WORLD, 1, 8, 2, 256, 128, bf16, **offsets)))
+    for label, faults in (("straggler", {"straggler": COLL_STRAGGLER}),
+                          ("for_correctness", {"for_correctness": True})):
+        runs.append((f"world {SP_WORLD} GQA 4 {label}", bf16, {},
+                     *k20_case(SP_WORLD, 1, 8, 2, 256, 128, bf16, **faults)))
+    torch.cuda.synchronize()
+    err = 0.0
+    for label, dtype, kw, args, got in runs:
+        err = max(err, hold(label, args, got, kw, dtype))
+        if not kw:
+            q, k, v = args
+            k1 = fa.flash_attention(q[0], k[0], v[0], return_lse=True)
+            if not (torch.equal(k1[0], got[0][0])
+                    and torch.equal(k1[1], got[1][0])):
+                raise AssertionError(f"K20 {label}: rank 0 differs from K1 "
+                                     "on its own chunk")
+    ins = [k20_case(SP_WORLD, 1, 8, 2, 256, 128, bf16)
+           for _ in range(TP_REPEATS)]
+    torch.cuda.synchronize()
+    for args, got in ins:
+        ref_o, ref_l = sp.sp_ag_attention_fused_reference(*args)
+        _, ratio, rel = row_errors(got[0], ref_o, 0.1)
+        if ratio > 2e-2 or rel > 1e-2 or not bool(torch.allclose(
+                got[1], ref_l, atol=1e-3, rtol=0.0)):
+            raise AssertionError("K20 back-to-back call disagrees with its "
+                                 "plain version")
+    del ins, runs
+    errs["sp_ag_attention_fused"] = err
+    print(f"[sp path] K20 at world {'/'.join(map(str, COLL_WORLDS))} on "
+          f"{[c[0] for c in SP_K20_CASES]}, with caller offsets, under a "
+          f"straggler and for_correctness, and {TP_REPEATS} back-to-back "
+          f"calls queued before any check: within tolerance of its plain "
+          f"version; rank 0 bit for bit equal to K1 on its own chunk")
+
+    # -- 2. the main path: 32,768 tokens of Qwen3-8B's heads at world 4
+    w, hh, hkv, d = SP_WORLD, 32, 8, 128
+    s_loc = SP_ATTN_CONTEXT // w
+    qg = randn(1, hh, SP_ATTN_CONTEXT, d)
+    kg = randn(1, hkv, SP_ATTN_CONTEXT, d)
+    vg = randn(1, hkv, SP_ATTN_CONTEXT, d)
+    q, k, v = (shards(t, w) for t in (qg, kg, vg))
+    qz, kz, vz = (shards(sp.zigzag_shard(t, w), w) for t in (qg, kg, vg))
+    got = {}
+
+    def main_path():
+        with torch.inference_mode():
+            got["fused"] = sp.sp_ag_attention_fused(q, k, v,
+                                                    return_lse=True)
+            got["gather"] = sp.sp_ag_attention_gather(q, k, v)
+            got["ring"] = sp.sp_ring_attention(q, k, v)
+            got["zigzag"] = sp.sp_ring_attention_zigzag(qz, kz, vz)
+        torch.cuda.synchronize()
+
+    launches = counted(main_path)
+    want = expect(sp_ag_attention_fused=1, all_gather=1,
+                  flash_attention=w + w + 3 * w)
+    print(f"[sp path] main path: {SP_ATTN_CONTEXT} tokens at world {w} "
+          f"({s_loc} a rank), {hh}/{hkv} heads of {d}, bf16: fused (K20), "
+          f"gather (K15 + K1), ring (K1), zigzag (K1); launches "
+          f"{short(launches)}")
+    if launches != want:
+        raise AssertionError(f"sp path launches {short(launches)} != "
+                             f"{short(want)}")
+
+    # -- 3. against world-1 attention over the whole sequence
+    with torch.inference_mode():
+        ref, ref_lse = fa.flash_attention(qg, kg, vg, return_lse=True)
+        outs = {"fused": unshard(got["fused"][0]),
+                "gather": unshard(got["gather"]),
+                "ring": unshard(got["ring"]),
+                "zigzag": sp.zigzag_unshard(unshard(got["zigzag"]), w)}
+        for name, out in outs.items():
+            check_rows(f"SP {name} {SP_ATTN_CONTEXT} tokens vs world-1 "
+                       "flash_attention", out, ref, 5e-2, 1e-2, 0.1)
+        check_close("SP fused lse vs world-1 flash_attention lse",
+                    unshard(got["fused"][1]), ref_lse, 1e-3, 0.0)
+        plain_o, plain_l = sp.sp_ag_attention_fused_reference(q, k, v)
+        e = check_rows(f"K20 {SP_ATTN_CONTEXT} tokens vs its plain version",
+                       got["fused"][0], plain_o, 2e-2, 1e-2, 0.1)
+        check_close("K20 lse vs its plain version", got["fused"][1],
+                    plain_l, 1e-3, 0.0)
+        errs["sp_ag_attention_fused"] = max(errs["sp_ag_attention_fused"], e)
+    del plain_o, plain_l, outs
+
+    # -- 4. ring training against world 1
+    st = SP_TRAIN_ROWS * w
+    qt, kt, vt = (randn(1, n_h, st, d) for n_h in (hh, hkv, hkv))
+    wt = randn(1, hh, st, d)
+    leaves = [shards(t, w).requires_grad_(True) for t in (qt, kt, vt)]
+    ring_out = []
+
+    def ring_step():
+        out = sp.sp_ring_attention_diff(*leaves)
+        (out.float() * shards(wt, w).float()).sum().backward()
+        ring_out.append(out.detach())
+        torch.cuda.synchronize()
+
+    launches = counted(ring_step)
+    want = expect(flash_attention=w, flash_attention_bwd_dq=w,
+                  flash_attention_bwd_dkv=w)
+    flat = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out1 = fa.flash_attention_diff(*flat)
+    (out1.float() * wt.float()).sum().backward()
+    print(f"[sp path] ring training: sp_ring_attention_diff on {w} x "
+          f"{SP_TRAIN_ROWS} tokens, launches {short(launches)}")
+    if launches != want:
+        raise AssertionError(f"sp ring training launches {short(launches)} "
+                             f"!= {short(want)}")
+    check_rows("ring training out vs world-1 flash_attention_diff",
+               unshard(ring_out[0]), out1.detach(), 5e-2, 1e-2, 0.1)
+    for name, leaf, ref_leaf in zip(("dq", "dk", "dv"), leaves, flat):
+        check_rows(f"ring training {name} vs world 1", unshard(leaf.grad),
+                   ref_leaf.grad, 5e-2, 2e-2, 0.1)
+    del leaves, flat, out1, ring_out
+
+    # -- 5. times
+    with torch.inference_mode():
+        ms = time_ms(lambda: sp.sp_ag_attention_fused(q, k, v), 5)
+        plain = time_ms(lambda: sp.sp_ag_attention_fused_reference(q, k, v),
+                        1, warmup=1)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, is_causal=True, enable_gqa=True), 5)
+        comp = {
+            "gather": time_ms(lambda: sp.sp_ag_attention_gather(q, k, v), 5),
+            "ring": time_ms(lambda: sp.sp_ring_attention(q, k, v), 5),
+            "zigzag": time_ms(lambda: sp.sp_ring_attention_zigzag(qz, kz,
+                                                                  vz), 5),
+            "world-1 K1": time_ms(lambda: fa.flash_attention(qg, kg, vg), 5)}
+    pairs = attention_pairs(SP_ATTN_CONTEXT, SP_ATTN_CONTEXT, True, 0)
+    bms, by = bound(nbytes(q, k, v, q) + 4 * q[..., 0].numel(),
+                    4 * hh * pairs * d)
+    print(f"[times] K20 sp_ag_attention_fused at world {w} over "
+          f"{SP_ATTN_CONTEXT} tokens (Qwen3-8B heads, {s_loc} a rank, W ranks "
+          f"sharing one card's SMs and HBM, no NVLink): {ms:.4f} ms (bound "
+          f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound; {pairs} causal "
+          f"pairs a head); plain {plain:.4f} ms; SDPA causal over the whole "
+          f"sequence (library) {lib:.4f} ms; "
+          + ", ".join(f"{nm} {t:.4f} ms" for nm, t in comp.items())
+          + f"; {card}")
+    records.append(("sp_ag_attention_fused", ms, plain, bms, by, lib, {
+        "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16",
+        "library_note": "F.scaled_dot_product_attention causal over the "
+                        "whole sequence (no ring)",
+        "composition_ms": comp}))
+    del q, k, v, qz, kz, vz, qg, kg, vg, got
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[sp path] the phase took {time.perf_counter() - t_phase:.1f} s "
+          "(host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2608,6 +3180,10 @@ def main() -> int:
     from triton_distributed_tpu_torch.kernels import common_ops
     from triton_distributed_tpu_torch.kernels.allgather import all_gather
     from triton_distributed_tpu_torch.kernels.allreduce import all_reduce
+    from triton_distributed_tpu_torch.kernels.low_latency_all_to_all import (
+        fast_all_to_all)
+    from triton_distributed_tpu_torch.kernels.sp_ag_attention import (
+        sp_ag_attention_fused)
     from triton_distributed_tpu_torch.kernels.reduce_scatter import (
         reduce_scatter)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
@@ -2644,6 +3220,10 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels in "
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
+    for lib in ("flash_attention", "all_to_all", "sp_ag_attention"):
+        print(f"[build] ptxas {lib}: " + "; ".join(
+            f"{k[:48]} {regs} registers, spill stores {st} B, loads {ld} B"
+            for k, regs, st, ld in _build.resource_usage(lib)))
 
     # -- 3. kernels vs plain --------------------------------------------
     print("[kernels vs plain] out: atol=rtol=1e-2 (about one bf16 ulp at "
@@ -3011,7 +3591,9 @@ def main() -> int:
                 "ag_group_gemm": ag_group_gemm,
                 "ag_group_gemm_w8a8": ag_group_gemm_w8a8,
                 "moe_reduce_rs_fused": moe_reduce_rs_fused,
-                "ag_gemm_w8a8": ag_gemm_w8a8}
+                "ag_gemm_w8a8": ag_gemm_w8a8,
+                "fast_all_to_all": fast_all_to_all,
+                "sp_ag_attention_fused": sp_ag_attention_fused}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
@@ -3708,6 +4290,16 @@ def main() -> int:
     print(f"[collective path] device memory held: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     collective_path(dev, card, counted, expect, short, records, errs)
+
+    # -- 14. EP path ----------------------------------------------------
+    print(f"[ep path] device memory held: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ep_path(dev, card, counted, expect, short, records, errs)
+
+    # -- 15. SP attention path ------------------------------------------
+    print(f"[sp path] device memory held: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sp_path(dev, card, counted, expect, short, records, errs)
 
     kernels = []
     for nm, ms, plain, bms, by, lib, *extra in records:

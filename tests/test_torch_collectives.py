@@ -359,8 +359,14 @@ def test_ops_gemms_match_jax(meshes):
 def test_ops_unported_raise():
     mesh = make_mesh(4, device="cpu")
     x = torch.zeros(4, 4, 8)
-    with pytest.raises(NotImplementedError, match="K19"):
-        ops.all_to_all(x, x, mesh)
+    # K19 is ported: ops.all_to_all exchanges the blocks (block [r, p] is
+    # what rank p sent to rank r).
+    send = torch.arange(4 * 4 * 2 * 8, dtype=torch.float32).reshape(4, 4, 2,
+                                                                    8)
+    counts = torch.arange(16, dtype=torch.int32).reshape(4, 4, 1)
+    recv, rcounts = ops.all_to_all(send, counts, mesh)
+    assert torch.equal(recv, send.transpose(0, 1))
+    assert torch.equal(rcounts, counts.transpose(0, 1))
     for fn in (ops.ag_gemm_diff, ops.gemm_rs_diff):
         with pytest.raises(NotImplementedError, match="training duals"):
             fn(x, x, mesh)

@@ -26,6 +26,7 @@ versions in f32 from the same inputs; K14's bf16 partials are rounded to
 bf16 before their sum, which the bf16 bound covers.
 """
 
+
 import pytest
 import torch
 
@@ -1403,3 +1404,248 @@ def test_tiny_moe_tp_model_gpu_matches_cpu(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [
         nl, nl, 2 * 4 * nl * (gen - 1)]
     assert torch.equal(got, Engine(cpu).serve(ids, gen))
+
+
+# ---- K19 (fast_all_to_all) and K20 (sp_ag_attention_fused) ------------------
+# K19 copies bytes: held bit for bit against its plain version (the two
+# rank axes swapped) in every dtype, on ragged blocks (rows and bytes off
+# 16, f32 scale rows of one value) and aligned ones.  K20 is held row by row
+# against its plain version (the TPU kernel's chunk-by-chunk schedule in
+# f32): bf16 tol 2e-2 and rel_l2 1e-2 (P and the output rounded to bf16,
+# the chunks folded in another order), f32 1e-4 and 1e-4; lse within 1e-3.
+
+A2A_CASES = [(w, cap, hid) for w in (2, 4, 8)
+             for cap, hid in ((37, 1001), (64, 256))]
+
+
+def _a2a_payload(gen, device, world, cap, hidden, dtype, ns):
+    send = (torch.randn(world, world, cap, hidden, generator=gen,
+                        device=device) * 40).clamp(-127, 127).to(dtype)
+    counts = torch.randint(0, cap + 1, (world, world, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    scales = (torch.randn(world, world, cap, ns, generator=gen,
+                          device=device) if ns else None)
+    return send, counts, scales
+
+
+@pytest.mark.parametrize("ns", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+@pytest.mark.parametrize("world,cap,hidden", A2A_CASES)
+def test_all_to_all_kernel_bit_exact(cuda, world, cap, hidden, dtype, ns):
+    """K19 over 5 back-to-back calls with fresh inputs, queued before any
+    check, each bit for bit equal to the plain version; one launch a
+    call."""
+    from triton_distributed_tpu_torch.kernels import low_latency_all_to_all \
+        as a2a
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 1000 + cap + ns)
+    ctx = a2a.AllToAllContext("ep", world, cap, hidden)
+    before = a2a.fast_all_to_all.launches
+    ins = [_a2a_payload(gen, cuda, world, cap, hidden, dtype, ns)
+           for _ in range(5)]
+    outs = [a2a.fast_all_to_all(s, c, ctx, send_scales=sc)
+            for s, c, sc in ins]
+    torch.cuda.synchronize()
+    assert a2a.fast_all_to_all.launches == before + 5
+    for args, got in zip(ins, outs):
+        want = a2a.fast_all_to_all_reference(*args)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_all_to_all_kernel_under_faults(cuda):
+    from triton_distributed_tpu_torch.kernels import low_latency_all_to_all \
+        as a2a
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    for faults in ({"straggler": (1, 2_000_000)}, {"for_correctness": True}):
+        args = _a2a_payload(gen, cuda, 4, 64, 256, torch.bfloat16, 1)
+        ctx = a2a.AllToAllContext("ep", 4, 64, 256, **faults)
+        got = a2a.fast_all_to_all(args[0], args[1], ctx, send_scales=args[2])
+        torch.cuda.synchronize()
+        for g, w in zip(got, a2a.fast_all_to_all_reference(*args)):
+            assert torch.equal(g, w), faults
+
+
+def test_ep_layer_kernel_matches_plain(cuda):
+    """`EPAll2AllLayer` on the card (two K19 launches a round trip) against
+    the same layer on the CPU: routing tables and dispatch bit for bit, the
+    combine of identity experts within one bf16 rounding (its f32 sum over
+    the top-k may run in another order)."""
+    from triton_distributed_tpu_torch.kernels import low_latency_all_to_all \
+        as a2a
+    from triton_distributed_tpu_torch.layers import EPAll2AllLayer
+
+    ep, e, topk, n, cap, h = 4, 16, 4, 24, 20, 128
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(ep, n, h, generator=g).to(torch.bfloat16)
+    ids = torch.randint(0, e, (ep, n, topk), generator=g)
+    w = torch.softmax(torch.randn(ep, n, topk, generator=g), -1)
+    layer = EPAll2AllLayer("ep", ep, e, topk, cap, h)
+    cpu = layer.dispatch(x, ids)
+    before = a2a.fast_all_to_all.launches
+    dev = layer.dispatch(x.to(cuda), ids.to(cuda))
+    out = layer.combine(dev[0], dev[2], dev[3], w.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert a2a.fast_all_to_all.launches == before + 2
+    for c, d in zip(cpu[:3], dev[:3]):
+        assert torch.equal(c, d.cpu())
+    assert torch.equal(cpu[3][0].slot_of_pair, dev[3][0].slot_of_pair.cpu())
+    want = layer.combine(cpu[0], cpu[2], cpu[3], w, ids)
+    torch.testing.assert_close(out.cpu().float(), want.float(), atol=1e-6,
+                               rtol=2.0 ** -7)
+
+
+SP_K20_GPU_CASES = [
+    (world, *case) for world in (2, 4, 8) for case in (
+        (1, 8, 2, 256, 128, torch.bfloat16),    # GQA 4
+        (2, 4, 4, 24, 128, torch.bfloat16),     # GQA 1, S_loc 24
+        (1, 4, 1, 100, 64, torch.bfloat16),     # d 64, ragged tiles
+        (1, 4, 2, 100, 64, torch.float32),
+        (1, 2, 2, 130, 128, torch.float32))]
+
+
+def _sp_hold(out, lse, ref_o, ref_l, dtype):
+    tol, rel = (2e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    _rows_close(out, ref_o, tol, rel, 0.1)
+    torch.testing.assert_close(lse, ref_l, atol=1e-3, rtol=0)
+
+
+def _rows_close(got, want, tol, rel_tol, floor):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    row = w.pow(2).mean(-1, keepdim=True).sqrt()
+    lim = tol * (w.abs() + row + floor * w.pow(2).mean().sqrt())
+    assert bool((err <= lim).all()), float((err / lim).max())
+    assert float(err.norm() / w.norm()) <= rel_tol
+
+
+@pytest.mark.parametrize("world,b,h,hkv,s_loc,d,dtype", SP_K20_GPU_CASES)
+def test_sp_ag_attention_fused_kernel(cuda, world, b, h, hkv, s_loc, d,
+                                      dtype):
+    """K20 over 3 back-to-back calls with fresh inputs against its plain
+    version, row by row; rank 0 (which attends only its own chunk) bit for
+    bit equal to K1 on that chunk, since both run the tile body of
+    `flash_body.cuh`."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(world + s_loc + d)
+    before = sp.sp_ag_attention_fused.launches
+    ins = [tuple(_randn(gen, dtype, cuda, world, b, n, s_loc, d)
+                 for n in (h, hkv, hkv)) for _ in range(3)]
+    outs = [sp.sp_ag_attention_fused(*args, return_lse=True)
+            for args in ins]
+    torch.cuda.synchronize()
+    assert sp.sp_ag_attention_fused.launches == before + 3
+    for (q, k, v), (out, lse) in zip(ins, outs):
+        assert out.dtype == dtype and lse.shape == (world, b, h, s_loc)
+        _sp_hold(out, lse, *sp.sp_ag_attention_fused_reference(q, k, v),
+                 dtype)
+        k1, k1_lse = flash_attention(q[0], k[0], v[0], return_lse=True)
+        assert torch.equal(k1, out[0]) and torch.equal(k1_lse, lse[0])
+
+
+def test_sp_ag_attention_fused_offsets_and_faults(cuda):
+    """Caller offsets (chunks of the future partly visible, rows of rank 2
+    that see nothing of their own chunk), a straggler rank and
+    for_correctness."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    world, s_loc = 4, 96
+    kw = dict(q_offset=[r * s_loc + 5 for r in range(world)],
+              kv_base=[3, 0, 7, 1])
+    for extra in ({}, {"straggler": (1, 2_000_000)},
+                  {"for_correctness": True}):
+        q, k, v = (_randn(gen, torch.bfloat16, cuda, world, 1, n, s_loc, 128)
+                   for n in (8, 2, 2))
+        out, lse = sp.sp_ag_attention_fused(q, k, v, return_lse=True, **kw,
+                                            **extra)
+        torch.cuda.synchronize()
+        _sp_hold(out, lse, *sp.sp_ag_attention_fused_reference(q, k, v,
+                                                               **kw),
+                 torch.bfloat16)
+
+
+def test_sp_compositions_kernels(cuda):
+    """The ring, zigzag and gather compositions and K20 at world 4 against
+    world-1 K1 over the whole sequence, row by row, with their launch
+    counts: W, 3 W and W K1 launches (the gather also one K15), one K20."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    world, s = 4, 1024
+    qg, kg, vg = (_randn(gen, torch.bfloat16, cuda, 1, n, s, 128)
+                  for n in (8, 2, 2))
+
+    def shards(t):
+        return t.reshape(1, t.shape[1], world, -1, 128).movedim(
+            2, 0).contiguous()
+
+    def unshard(t):
+        return t.movedim(0, 2).reshape(1, t.shape[2], s, 128)
+
+    ref = flash_attention(qg, kg, vg)
+    q, k, v = shards(qg), shards(kg), shards(vg)
+    zs = [shards(sp.zigzag_shard(t, world)) for t in (qg, kg, vg)]
+    runs = {"fused": (lambda: sp.sp_ag_attention_fused(q, k, v), 0, 1, 0),
+            "ring": (lambda: sp.sp_ring_attention(q, k, v), world, 0, 0),
+            "gather": (lambda: sp.sp_ag_attention_gather(q, k, v), world, 0,
+                       1),
+            "zigzag": (lambda: sp.sp_ring_attention_zigzag(*zs), 3 * world,
+                       0, 0)}
+    for name, (fn, n_k1, n_k20, n_k15) in runs.items():
+        before = (flash_attention.launches, sp.sp_ag_attention_fused.launches,
+                  all_gather.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        assert (flash_attention.launches - before[0],
+                sp.sp_ag_attention_fused.launches - before[1],
+                all_gather.launches - before[2]) == (n_k1, n_k20, n_k15), name
+        out = unshard(out)
+        if name == "zigzag":
+            out = sp.zigzag_unshard(out, world)
+        _rows_close(out, ref, 5e-2, 1e-2, 0.1)
+
+
+def test_sp_ring_attention_diff_kernels(cuda):
+    """Ring training at world 4: gradients through K1/K4/K5 and the merge
+    against `flash_attention_diff` at world 1, row by row."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    world, s = 4, 512
+    qg, kg, vg, wg = (_randn(gen, torch.bfloat16, cuda, 1, n, s, 128)
+                      for n in (8, 2, 2, 8))
+
+    def shards(t):
+        return t.reshape(1, t.shape[1], world, -1, 128).movedim(
+            2, 0).contiguous()
+
+    leaves = [shards(t).requires_grad_(True) for t in (qg, kg, vg)]
+    (sp.sp_ring_attention_diff(*leaves).float()
+     * shards(wg).float()).sum().backward()
+    flat = [t.clone().requires_grad_(True) for t in (qg, kg, vg)]
+    (flash_attention_diff(*flat).float() * wg.float()).sum().backward()
+    for leaf, ref in zip(leaves, flat):
+        got = leaf.grad.movedim(0, 2).reshape(ref.shape)
+        _rows_close(got, ref.grad, 5e-2, 2e-2, 0.1)
+
+
+def test_ep_sp_kernels_reject_unsupported_inputs(cuda):
+    from triton_distributed_tpu_torch.kernels import low_latency_all_to_all \
+        as a2a
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+
+    send = torch.zeros(4, 4, 8, 16, device=cuda)
+    counts = torch.zeros(4, 4, 1, dtype=torch.int32, device=cuda)
+    ctx = a2a.AllToAllContext("ep", 4, 8, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        a2a.fast_all_to_all(send.transpose(2, 3), counts, ctx)
+    with pytest.raises(ValueError, match="CUDA"):
+        a2a.fast_all_to_all(send, counts.cpu(), ctx)
+    q = torch.zeros(4, 1, 2, 16, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        sp.sp_ag_attention_fused(q, q, q)

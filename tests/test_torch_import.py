@@ -43,7 +43,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 34
+    assert int(res.stdout.strip()) >= 37
 
 
 def test_training_path_runs_without_jax():
@@ -288,6 +288,44 @@ def test_moe_tp_path_runs_without_jax():
         "(4,", "3)", "(4,", "4,", "4,", "16,", "6)", "(4,", "4,", "4,",
         "32,", "6)", "(4,", "16,", "5)", "(4,", "12,", "5)", "(4,", "32,",
         "16)", "(4,", "2,", "16)"]
+
+
+def test_ep_sp_path_runs_without_jax():
+    """The expert-parallel exchange (K19's wrapper, `ops.all_to_all`,
+    `EPAll2AllLayer`) and the SP attention compositions (K20's wrapper,
+    the ring, zigzag and gather) import and run with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch import ops\n"
+        "from triton_distributed_tpu_torch.kernels import sp_ag_attention "
+        "as sp\n"
+        "from triton_distributed_tpu_torch.layers import EPAll2AllLayer\n"
+        "from triton_distributed_tpu_torch.parallel import make_mesh\n"
+        "layer = EPAll2AllLayer('ep', 4, 8, 2, 16, 32)\n"
+        "x = torch.randn(4, 6, 32)\n"
+        "ids = torch.randint(0, 8, (4, 6, 2))\n"
+        "w = torch.softmax(torch.randn(4, 6, 2), -1)\n"
+        "recv, eid, cnt, plan = layer.dispatch(x, ids)\n"
+        "y = layer.combine(recv, cnt, plan, w, ids)\n"
+        "ok = torch.allclose(y, x * w.sum(-1, keepdim=True), atol=1e-6)\n"
+        "a = ops.all_to_all(recv, cnt, make_mesh(4, 'ep', device='cpu'))\n"
+        "q, k = torch.randn(4, 1, 4, 16, 64), torch.randn(4, 1, 2, 16, 64)\n"
+        "outs = [f(q, k, k) for f in (sp.sp_ag_attention_fused,\n"
+        "        sp.sp_ring_attention, sp.sp_ag_attention_gather)]\n"
+        "z = sp.sp_ring_attention_zigzag(q, k, k)\n"
+        "same = all(torch.allclose(o, outs[0], atol=1e-5) for o in outs)\n"
+        "same = same and z.shape == q.shape\n"
+        "print(tuple(recv.shape), tuple(eid.shape), ok, tuple(a[0].shape),\n"
+        "      tuple(outs[0].shape), same)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        "(4,", "4,", "16,", "32)", "(4,", "4,", "16)", "True", "(4,", "4,",
+        "16,", "32)", "(4,", "1,", "4,", "16,", "64)", "True"]
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -6,7 +6,9 @@ shared library with a plain C interface, at first use, into
 carries a hash of the sources and flags, so an edited kernel is rebuilt
 and a stale library is never loaded.  A build writes to a temporary name
 and renames it into place, so a build that was cut off leaves no partial
-library behind.  There is no fallback: without ``nvcc`` this raises.
+library behind.  ptxas's resource report (``-Xptxas -v``: registers,
+shared memory and spill bytes of every kernel) is kept beside each library
+(`resource_usage`).  There is no fallback: without ``nvcc`` this raises.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: dtype codes understood by the C entry points (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,6 +77,7 @@ def build(names) -> dict[str, Path]:
     for n, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            todo[n].with_suffix(".log").write_text(log)
             os.replace(tmp, todo[n])
         else:
             os.unlink(tmp)
@@ -81,6 +85,29 @@ def build(names) -> dict[str, Path]:
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
+
+
+def resource_usage(name: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    kernel of ``csrc/<name>.cu``, from ptxas's report of its build (the
+    kernel's mangled name)."""
+    log = _library_path(name).with_suffix(".log").read_text()
+    rows, kernel, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            rows.append((kernel, int(m.group(1)), *spills))
+            kernel = None
+    return rows
 
 
 def load_library(name: str, signatures: dict) -> ctypes.CDLL:

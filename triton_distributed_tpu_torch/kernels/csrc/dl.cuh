@@ -166,35 +166,52 @@ __device__ __forceinline__ void wait(const u64* sig, int n, int stride,
 }
 
 // Block ``part`` of ``parts`` copies its share of ``bytes`` from ``src``
-// to ``dst`` (a peer's buffer or this rank's), 16 bytes a thread when both
-// are 16-byte aligned, the source read through L2.  Returns without a
-// fence: follow with `signal_after_puts` (or a sync) before anyone reads
-// ``dst``.  (JAX `dl.put_nbi`.)
-__device__ __forceinline__ void put_nbi(void* dst, const void* src,
-                                        size_t bytes, int part, int parts) {
-  const bool vec = (reinterpret_cast<uintptr_t>(dst) |
-                    reinterpret_cast<uintptr_t>(src)) % 16 == 0;
-  const size_t unit = vec ? 16 : 1;
+// to ``dst`` (a peer's buffer or this rank's) in the widest unit, 16 or 4
+// bytes, that both addresses allow, else bytes, the source read through
+// L2; the last part copies the tail past the last whole unit.  16-byte
+// units go four at a time, so each thread keeps four loads in flight.  Not
+// inlined: one copy of the loop a kernel keeps small launches small (K19's
+// decode exchange, which calls it three times a destination, took 1.5x as
+// long with the loop inlined).  Returns without a fence: follow with
+// `signal_after_puts` (or a sync) before anyone reads ``dst``.  (JAX
+// `dl.put_nbi`.)
+__device__ __noinline__ void put_nbi(void* dst, const void* src,
+                                     size_t bytes, int part, int parts) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst) |
+                      reinterpret_cast<uintptr_t>(src);
+  const size_t unit = a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 1;
   const size_t units = bytes / unit;
   const size_t share = (units + parts - 1) / parts;
   const size_t start = (size_t)part * share;
-  const size_t lo = start < units ? start : units;
-  const size_t hi = units - lo < share ? units : lo + share;
-  if (vec) {
+  size_t lo = start < units ? start : units;
+  size_t hi = units - lo < share ? units : lo + share;
+  const size_t step = blockDim.x;
+  if (unit == 16) {
     const uint4* s = static_cast<const uint4*>(src);
     uint4* d = static_cast<uint4*>(dst);
-    for (size_t i = lo + threadIdx.x; i < hi; i += blockDim.x)
-      d[i] = __ldcg(s + i);
-    if (part == parts - 1)  // the tail past the last 16-byte unit
-      for (size_t i = units * 16 + threadIdx.x; i < bytes; i += blockDim.x)
-        static_cast<unsigned char*>(dst)[i] =
-            __ldcg(static_cast<const unsigned char*>(src) + i);
-  } else {
-    const unsigned char* s = static_cast<const unsigned char*>(src);
-    unsigned char* d = static_cast<unsigned char*>(dst);
-    for (size_t i = lo + threadIdx.x; i < hi; i += blockDim.x)
-      d[i] = __ldcg(s + i);
+    size_t i = lo + threadIdx.x;
+    for (; i + 3 * step < hi; i += 4 * step) {
+      const uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + step);
+      const uint4 v2 = __ldcg(s + i + 2 * step), v3 = __ldcg(s + i + 3 * step);
+      d[i] = v0;
+      d[i + step] = v1;
+      d[i + 2 * step] = v2;
+      d[i + 3 * step] = v3;
+    }
+    for (; i < hi; i += step) d[i] = __ldcg(s + i);
+  } else if (unit == 4) {
+    const unsigned* s = static_cast<const unsigned*>(src);
+    unsigned* d = static_cast<unsigned*>(dst);
+    for (size_t i = lo + threadIdx.x; i < hi; i += step) d[i] = __ldcg(s + i);
   }
+  if (unit > 1) {  // what is left is the tail, the last part's
+    if (part != parts - 1) return;
+    lo = units * unit;
+    hi = bytes;
+  }
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  unsigned char* d = static_cast<unsigned char*>(dst);
+  for (size_t i = lo + threadIdx.x; i < hi; i += step) d[i] = __ldcg(s + i);
 }
 
 // Make this block's stores visible at scope S, then thread i < n adds one

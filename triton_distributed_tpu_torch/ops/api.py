@@ -17,6 +17,7 @@ from triton_distributed_tpu_torch.kernels import allgather_gemm as agg_mod
 from triton_distributed_tpu_torch.kernels import allreduce as ar_mod
 from triton_distributed_tpu_torch.kernels import common_ops as common_mod
 from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as grs_mod
+from triton_distributed_tpu_torch.kernels import low_latency_all_to_all as a2a_mod
 from triton_distributed_tpu_torch.kernels import reduce_scatter as rs_mod
 from triton_distributed_tpu_torch.parallel.mesh import MeshContext
 
@@ -57,10 +58,17 @@ def all_reduce(x, mesh: MeshContext, axis=None, **kw):
 
 def all_to_all(send, counts, mesh: MeshContext, axis=None,
                send_scales=None, **kw):
-    """The low-latency token exchange (JAX `fast_all_to_all`) is K19, not
-    ported yet."""
-    raise NotImplementedError(
-        "ops.all_to_all needs K19 (fast_all_to_all), not yet ported")
+    """JAX: send (W, W, cap, H) global, row r rank r's per-destination
+    blocks; counts (W, W, 1); optional send_scales (W, W, cap, ns) -> (recv,
+    recv_counts[, recv_scales]) in the same global layout, row r what rank
+    r received (block p from rank p).  Here the global arrays are the
+    rank-stacked tensors themselves (K19; `kernels.low_latency_all_to_all.
+    fast_all_to_all`)."""
+    axis, world = _world(mesh, axis)
+    ctx = a2a_mod.create_all_to_all_context(
+        axis, world, max_tokens_per_rank=send.shape[2], hidden=send.shape[3],
+        **kw)
+    return a2a_mod.fast_all_to_all(send, counts, ctx, send_scales=send_scales)
 
 
 def broadcast(x, root, mesh: MeshContext, axis=None, **kw):
