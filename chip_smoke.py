@@ -135,7 +135,21 @@ non-zero):
    (``sp_ring_attention_diff`` on 4 x 2,048 tokens) with its gradients
    held to world 1 and exact K1/K4/K5 launches; K20 against its bound,
    its plain version and SDPA over the whole sequence, beside the
-   compositions.
+   compositions;
+16. grid path: the process grid of two and three axes, the ranks in this
+   process on the one card: K21a (``all_gather_torus``) and K21b
+   (``reduce_scatter_torus``) bit for bit against their plain versions on
+   the (2, 2), (2, 4), (4, 2) and (2, 2, 2) grids in bf16 and f32, under a
+   straggler, for_correctness and 100 back-to-back calls, a (1, 4) grid on
+   K15/K16, K21c (``ag_gemm_torus``) row by row; the main path with exact
+   launches: K21a/K21b/``all_reduce_torus`` at 2048 x 4096 bf16 a rank on
+   (2, 2) and (2, 2, 2), ``ag_gemm`` / ``gemm_rs`` on a TorusContext at
+   Qwen3-8B's prefill gate_up and down, and at (dcn 2, ici 2) the
+   hierarchical collectives, the two-level GEMMs,
+   ``HierarchicalEPAll2AllLayer`` on the EP path's traffic (bit for bit
+   the flat layer's) and ``sp_ag_attention_2d`` over 32,768 tokens
+   (against world-1 K1); times against bounds, plain versions and library
+   calls, beside K15/K16/K17/K12/K14/K20 over the flat world.
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -147,6 +161,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -168,7 +183,7 @@ KERNEL_SOURCES = {
                 "grouped_matmul_w8a8", "ag_gemm", "gemm_rs", "all_gather",
                 "reduce_scatter", "all_reduce", "common_ops", "ag_group_gemm",
                 "moe_reduce_rs", "ag_gemm_w8a8", "all_to_all",
-                "sp_ag_attention")}
+                "sp_ag_attention", "torus")}
 
 _TPU = "triton_distributed_tpu/kernels/"
 #: The kernels of the JSON record: name -> (library it is built into, the
@@ -228,6 +243,12 @@ KERNELS = {
                    _TPU + "low_latency_all_to_all.py:211"),
     "sp_ag_attention_fused": ("sp_ag_attention", "sp_ag_attention_fused",
                               "launches", _TPU + "sp_ag_attention.py:520"),
+    "all_gather_torus": ("torus", "all_gather_torus", "launches",
+                         _TPU + "torus.py:359"),
+    "reduce_scatter_torus": ("torus", "reduce_scatter_torus", "launches",
+                             _TPU + "torus.py:613"),
+    "ag_gemm_torus": ("torus", "ag_gemm_torus", "launches",
+                      _TPU + "torus.py:727"),
 }
 
 BATCH, PROMPT, GEN_LEN, CACHE_SEQ = 4, 512, 32, 1024
@@ -3156,6 +3177,456 @@ def sp_path(dev, card: str, counted, expect, short, records, errs) -> None:
           "(host clock)")
 
 
+#: The grid path: collectives over a process grid of several axes, the
+#: ranks in this process on the one card.  K21a/K21b (`all_gather_torus`,
+#: `reduce_scatter_torus`) and `all_reduce_torus` on 2048 x 4096 bf16 a
+#: rank (K15's and K16's payload) over the timed grids; the checked grids
+#: and shapes (rows, columns: rows off the 2 * nd pieces, columns off 8);
+#: K21c (`ag_gemm_torus`) at Qwen3-8B's prefill gate_up (512 rows of 4096
+#: a rank, B 4096 x 6144 a rank, K12's shape) and `gemm_rs_torus` at its
+#: prefill down (2048 x 3072 a rank, B 3072 x 4096); the hierarchical
+#: ops at (dcn, ici) = GRID_HIER.
+GRID_ROWS, GRID_COLS = 2048, 4096
+GRID_TIMED = ((2, 2), (2, 2, 2))
+GRID_CHECKED = ((2, 2), (2, 4), (4, 2), (2, 2, 2))
+GRID_CHECK_SHAPES = ((13, 72), (64, 1024))
+GRID_GEMM = {"ag": (512, 4096, 6144), "rs": (2048, 3072, 4096)}
+GRID_HIER = (2, 2)
+
+
+def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
+    """The grid path: the two- and three-axis process grid, W ranks in this
+    process on the one card.
+
+    1. K21a and K21b (`torus.cu`) bit for bit against their plain versions
+       (the gathered copy; the JAX lane, stage and step order of the ring
+       adds, rounded to the dtype at each) on GRID_CHECKED in bf16 and f32
+       at GRID_CHECK_SHAPES, `all_reduce_torus` bit for bit against the
+       same composition of the plain versions; under a straggler and
+       for_correctness, and TP_REPEATS back-to-back calls with fresh
+       inputs queued before any check; a (1, 4) grid runs K15 and K16;
+       K21c row by row against its plain version (as K12) with the
+       gathered A exact;
+    2. the main path, with every launch count set to 0 before and read
+       after: K21a, K21b and `all_reduce_torus` on GRID_ROWS x GRID_COLS
+       bf16 a rank over GRID_TIMED; `ag_gemm` and `gemm_rs` on a (2, 2)
+       `TorusContext` at GRID_GEMM; at (dcn, ici) = GRID_HIER
+       `all_gather_2d`, `reduce_scatter_2d`, `all_reduce_2d`,
+       `fast_allgather_2d`, `ag_gemm` / `gemm_rs` on the
+       `HierarchicalContext`, `HierarchicalEPAll2AllLayer` on the EP
+       path's traffic (dispatch, layer 0's experts on K8, combine) and
+       `sp_ag_attention_2d` on the SP path's 32,768 tokens;
+    3. every output against its plain version or reference: the torus
+       collectives and the hierarchical ones bit for bit (the latter
+       against the same ops with the ICI stage's plain versions), the
+       GEMMs row by row, the EP layer bit for bit equal to the flat
+       `EPAll2AllLayer` on the same routing, the attention row by row
+       against world-1 K1 (as the SP path's compositions);
+    4. times: K21a/K21b/K21c against their bounds, plain versions and the
+       library calls, beside K15, K16, K17 and K12 over the same flat
+       world; the hierarchical ops, the EP round trip beside the flat
+       layer's, and `sp_ag_attention_2d` beside K20 at world 4 and K1.
+
+    On one card every put is a copy inside one HBM and the ranks share
+    the SMs: the schedule's use of several links at once buys nothing
+    here, and the times say what the kernels and their copies cost."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.kernels import flash_attention as fa
+    from triton_distributed_tpu_torch.kernels import hierarchical as hier
+    from triton_distributed_tpu_torch.kernels import moe_utils
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+    from triton_distributed_tpu_torch.kernels import torus
+    from triton_distributed_tpu_torch.kernels.allgather import (
+        AllGatherContext, all_gather)
+    from triton_distributed_tpu_torch.kernels.allgather_gemm import (
+        AllGatherGEMMContext, ag_gemm, ag_gemm_plain)
+    from triton_distributed_tpu_torch.kernels.allreduce import (
+        AllReduceContext, all_reduce)
+    from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+        GEMMReduceScatterContext, gemm_rs, gemm_rs_plain)
+    from triton_distributed_tpu_torch.kernels.grouped_gemm import (
+        grouped_matmul)
+    from triton_distributed_tpu_torch.kernels.low_latency_allgather import (
+        fast_allgather_2d)
+    from triton_distributed_tpu_torch.kernels.matmul import matmul_reference
+    from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+        ReduceScatterContext, reduce_scatter)
+    from triton_distributed_tpu_torch.language.core import (
+        release_symmetric_buffers)
+    from triton_distributed_tpu_torch.layers import (
+        EPAll2AllLayer, HierarchicalEPAll2AllLayer)
+    from triton_distributed_tpu_torch.layers.moe_mlp import route
+    from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    t_phase = time.perf_counter()
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def ctx_of(sizes, **kw):
+        return torus.TorusContext(("x", "y", "z")[:len(sizes)], sizes, **kw)
+
+    def world_of(sizes):
+        return math.prod(sizes)
+
+    def plain_all_reduce(x, sizes):
+        """`all_reduce_torus` of the plain versions (rows padded to W)."""
+        w = x.shape[0]
+        pad = (-x.shape[1]) % w
+        xp = torch.cat([x, x.new_zeros((w, pad, *x.shape[2:]))], 1)
+        full = torus.all_gather_torus_plain(
+            torus.reduce_scatter_torus_plain(xp, sizes))
+        return full[:, :x.shape[1]]
+
+    def exact(label, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape or not bool(
+                torch.equal(got, want)):
+            raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                 "version")
+
+    def torus_ops(sizes, x, xr, **kw):
+        ctx = ctx_of(sizes, **kw)
+        return (torus.all_gather_torus(x, ctx),
+                torus.reduce_scatter_torus(xr, ctx),
+                torus.all_reduce_torus(x, ctx))
+
+    def hold_torus(label, sizes, x, xr, got):
+        exact(f"K21a {label}", got[0], torus.all_gather_torus_plain(x))
+        exact(f"K21b {label}", got[1],
+              torus.reduce_scatter_torus_plain(xr, sizes))
+        exact(f"all_reduce_torus {label}", got[2], plain_all_reduce(x, sizes))
+
+    # -- 1. the kernels against their plain versions
+    runs = []
+    for sizes in GRID_CHECKED:
+        w = world_of(sizes)
+        for dtype in (bf16, f32):
+            for m, n in GRID_CHECK_SHAPES:
+                x, xr = randn(w, m, n, dtype=dtype), randn(w, w * m, n,
+                                                           dtype=dtype)
+                runs.append((f"{sizes} {dtype} {m}x{n}", sizes, x, xr,
+                             torus_ops(sizes, x, xr)))
+    for label, faults in (("straggler", {"straggler": (5, COLL_STRAGGLER[1])}),
+                          ("for_correctness", {"for_correctness": True})):
+        x, xr = randn(8, 64, 1024), randn(8, 512, 1024)
+        runs.append((f"(2, 4) {label}", (2, 4), x, xr,
+                     torus_ops((2, 4), x, xr, **faults)))
+    torch.cuda.synchronize()
+    for label, sizes, x, xr, got in runs:
+        hold_torus(label, sizes, x, xr, got)
+    ins = [(randn(8, 64, 1024), randn(8, 512, 1024))
+           for _ in range(TP_REPEATS)]
+    outs = [torus_ops((2, 2, 2), x, xr) for x, xr in ins]
+    torch.cuda.synchronize()
+    for (x, xr), got in zip(ins, outs):
+        hold_torus("(2, 2, 2) back-to-back", (2, 2, 2), x, xr, got)
+    del runs, ins, outs
+    before = (all_gather.launches, reduce_scatter.launches,
+              torus.all_gather_torus.launches)
+    x, xr = randn(4, 64, 1024), randn(4, 256, 1024)
+    got = torus_ops((1, 4), x, xr)
+    torch.cuda.synchronize()
+    exact("(1, 4) all-gather (K15)", got[0], torus.all_gather_torus_plain(x))
+    if (all_gather.launches - before[0], reduce_scatter.launches - before[1],
+            torus.all_gather_torus.launches - before[2]) != (2, 2, 0):
+        raise AssertionError("a (1, 4) grid did not run K15 and K16")
+    gemm_err = 0.0
+    for sizes, m, k, n in (((2, 2), 64, 256, 384), ((2, 4), 6, 128, 96),
+                           ((2, 2, 2), 12, 64, 136)):
+        w = world_of(sizes)
+        for dtype in (bf16, f32):
+            a = randn(w, m, k, dtype=dtype)
+            b = randn(w, k, n, dtype=dtype) * k ** -0.5
+            out, g = torus.ag_gemm_torus(a, b, ctx_of(sizes),
+                                         return_gathered=True)
+            torch.cuda.synchronize()
+            exact(f"K21c {sizes} gathered A", g,
+                  torus.all_gather_torus_plain(a))
+            gemm_err = max(gemm_err, check_rows(
+                f"K21c {sizes} {dtype} ({m}, {k}) @ ({k}, {n})", out,
+                torus.ag_gemm_torus_plain(a.float(), b.float()),
+                *TP_TOL[dtype], 0.0))
+    errs["all_gather_torus"] = errs["reduce_scatter_torus"] = 0.0
+    errs["ag_gemm_torus"] = gemm_err
+    print(f"[grid path] K21a, K21b and all_reduce_torus on grids "
+          f"{GRID_CHECKED} in bf16 and f32 at {GRID_CHECK_SHAPES}, under a "
+          f"straggler (rank 5 spins {COLL_STRAGGLER[1]} cycles) and "
+          f"for_correctness, and {TP_REPEATS} back-to-back calls on (2, 2, 2)"
+          f" with fresh inputs queued before any check: bit for bit equal to "
+          f"their plain versions; a (1, 4) grid ran K15 and K16; K21c row by "
+          f"row (max_abs_err {gemm_err:.3e}), its gathered A exact")
+
+    # -- 2. the main path
+    h = GRID_COLS
+    xs = {s: randn(world_of(s), GRID_ROWS, h) for s in GRID_TIMED}
+    hw = world_of(GRID_HIER)
+    dcn, ici = GRID_HIER
+    hctx = hier.HierarchicalContext("ici", "dcn", ici, dcn)
+    tctx = ctx_of((2, 2))
+    ma, ka, na = GRID_GEMM["ag"]
+    mr, kr, nr = GRID_GEMM["rs"]
+    a_ag, b_ag = randn(4, ma, ka), randn(4, ka, na) * ka ** -0.5
+    a_rs, b_rs = randn(4, mr, kr), randn(4, kr, nr) * (4 * kr) ** -0.5
+    xh = randn(hw, GRID_ROWS, h)
+    # The EP path's traffic at world 4 (two slices of two).
+    moe_h, e = MOE_FIELDS["hidden_size"], MOE_FIELDS["num_experts"]
+    topk, ffn = MOE_FIELDS["num_experts_per_tok"], MOE_FIELDS[
+        "moe_intermediate_size"]
+    xe = randn(EP_WORLD, EP_TOKENS, moe_h)
+    router = randn(moe_h, e, dtype=f32) * moe_h ** -0.5
+    gate_up = randn(e, moe_h, 2 * ffn) * moe_h ** -0.5
+    down = randn(e, ffn, moe_h) * ffn ** -0.5
+    routed = [route(xe[r], router, topk) for r in range(EP_WORLD)]
+    ids = torch.stack([i for i, _ in routed])
+    wts = torch.stack([p for _, p in routed])
+    cap = EP_TOKENS * topk
+    hlayer = HierarchicalEPAll2AllLayer("ici", EP_WORLD, e, topk, cap, moe_h,
+                                        dcn_size=dcn)
+    flayer = EPAll2AllLayer("ep", EP_WORLD, e, topk, cap, moe_h)
+    # The SP path's sequence at (dcn, ici): 32,768 tokens, B = 1.
+    hh, hkv, d = 32, 8, 128
+    qg, kg, vg = (randn(1, nh, SP_ATTN_CONTEXT, d) for nh in (hh, hkv, hkv))
+
+    def shards(t, world):
+        b, nh, s, dd = t.shape
+        return t.reshape(b, nh, world, s // world, dd).movedim(
+            2, 0).contiguous()
+
+    q, k, v = (shards(t, hw) for t in (qg, kg, vg))
+    got = {}
+
+    def ep_round(lay):
+        recv, recv_e, recv_c, plan = lay.dispatch(xe, ids)
+        out, _ = ep_experts(recv, recv_c, recv_e, gate_up, down, moe_utils,
+                            grouped_matmul, gated_silu)
+        return (recv, recv_e, recv_c), lay.combine(out, recv_c, plan, wts,
+                                                   ids)
+
+    def main_path():
+        with torch.inference_mode():
+            for s, x in xs.items():
+                c = ctx_of(s)
+                got[("ag", s)] = torus.all_gather_torus(x, c)
+                got[("rs", s)] = torus.reduce_scatter_torus(x, c)
+                got[("ar", s)] = torus.all_reduce_torus(x, c)
+            got["ag_gemm"] = ag_gemm(a_ag, b_ag, tctx)
+            got["gemm_rs"] = gemm_rs(a_rs, b_rs, tctx)
+            got["ag2d"] = hier.all_gather_2d(xh, hctx)
+            got["rs2d"] = hier.reduce_scatter_2d(xh, hctx)
+            got["ar2d"] = hier.all_reduce_2d(xh, hctx)
+            got["fast2d"] = fast_allgather_2d(xh, hctx)
+            got["ag_gemm2d"] = ag_gemm(a_ag, b_ag, hctx)
+            got["gemm_rs2d"] = gemm_rs(a_rs, b_rs, hctx)
+            got["ep"] = ep_round(hlayer)
+            got["sp2d"] = sp.sp_ag_attention_2d(q, k, v, hctx)
+        torch.cuda.synchronize()
+
+    launches = counted(main_path)
+    want = expect(all_gather_torus=2 * len(GRID_TIMED),
+                  reduce_scatter_torus=2 * len(GRID_TIMED) + 1,
+                  ag_gemm_torus=1, matmul=4, all_gather=3 * dcn,
+                  reduce_scatter=2 * dcn, ag_gemm=dcn * dcn,
+                  gemm_rs=dcn * dcn, all_to_all=2 * dcn, grouped_matmul=2,
+                  sp_ag_attention_fused=dcn * dcn)
+    print(f"[grid path] main path: K21a/K21b/all_reduce_torus on {GRID_ROWS}"
+          f"x{h} bf16 a rank over grids {GRID_TIMED}; ag_gemm {GRID_GEMM['ag']}"
+          f" and gemm_rs {GRID_GEMM['rs']} a rank on a (2, 2) TorusContext; "
+          f"at (dcn, ici) = {GRID_HIER}: the four hierarchical collectives, "
+          f"the two GEMMs, HierarchicalEPAll2AllLayer ({EP_TOKENS} tokens a "
+          f"rank, top {topk} of {e}) and sp_ag_attention_2d over "
+          f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}")
+    if launches != want:
+        raise AssertionError(f"grid path launches {short(launches)} != "
+                             f"{short(want)}")
+
+    # -- 3. checks
+    with torch.inference_mode():
+        for s, x in xs.items():
+            exact(f"K21a {s} main path", got[("ag", s)],
+                  torus.all_gather_torus_plain(x))
+            exact(f"K21b {s} main path", got[("rs", s)],
+                  torus.reduce_scatter_torus_plain(x, s))
+            exact(f"all_reduce_torus {s} main path", got[("ar", s)],
+                  plain_all_reduce(x, s))
+        e21c = check_rows("K21c main path (2, 2) gate_up", got["ag_gemm"],
+                          ag_gemm_plain(a_ag.float(), b_ag.float()),
+                          *TP_TOL[bf16], 0.0)
+        errs["ag_gemm_torus"] = max(errs["ag_gemm_torus"], e21c)
+        # The compositions' plain versions, in their roundings: each rank's
+        # partial rounded to bf16 (K6's, K14's), then K21b's ring adds or
+        # K14's rank-order sum and the slices' f32 ring.
+        plain_rs = torus.reduce_scatter_torus_plain(torch.stack(
+            [matmul_reference(a_rs[r], b_rs[r]) for r in range(4)]), (2, 2))
+        check_rows("gemm_rs_torus main path (2, 2) down vs its plain version "
+                   "(K6 partials in bf16, K21b's ring adds)", got["gemm_rs"],
+                   plain_rs, *TP_TOL[bf16], 0.0)
+        mi = a_rs.shape[1] // dcn
+        acc = None
+        for st in range(dcn):
+            part = torch.cat([gemm_rs_plain(
+                a_rs[hctx.slice_rows(dd), (dd + 2 * dcn - 1 - st) % dcn * mi:
+                     ((dd + 2 * dcn - 1 - st) % dcn + 1) * mi],
+                b_rs[hctx.slice_rows(dd)]) for dd in range(dcn)]).float()
+            acc = part if acc is None else torch.roll(
+                acc.reshape(dcn, ici, *acc.shape[1:]), 1, dims=0).reshape(
+                    acc.shape) + part
+        plain_rs2d = acc.to(bf16)
+        plain_h = hier.HierarchicalContext("ici", "dcn", ici, dcn,
+                                           ag_method="xla", rs_method="xla")
+        for key, fn in (("ag2d", hier.all_gather_2d),
+                        ("rs2d", hier.reduce_scatter_2d),
+                        ("ar2d", hier.all_reduce_2d),
+                        ("fast2d", hier.all_gather_2d)):
+            exact(f"{key} main path", got[key], fn(xh, plain_h))
+        check_rows("ag_gemm on the HierarchicalContext", got["ag_gemm2d"],
+                   ag_gemm_plain(a_ag.float(), b_ag.float()), *TP_TOL[bf16],
+                   0.0)
+        check_rows("gemm_rs on the HierarchicalContext vs its plain version "
+                   "(K14's per slice, the slices' f32 ring)", got["gemm_rs2d"],
+                   plain_rs2d, *TP_TOL[bf16], 0.0)
+        flat = ep_round(flayer)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(
+            got["ep"][0] + (got["ep"][1],), flat[0] + (flat[1],)))
+        print(f"[grid path] HierarchicalEPAll2AllLayer at (dcn, ici) = "
+              f"{GRID_HIER}: the exchanged blocks, counts, expert ids and the "
+              f"combine bit for bit equal to EPAll2AllLayer's on the same "
+              f"routing: {same}")
+        if not same:
+            raise AssertionError("the two-level EP layer differs from the "
+                                 "flat layer")
+        ref = fa.flash_attention(qg, kg, vg)
+        out2d = got["sp2d"].movedim(0, 2).reshape(ref.shape)
+        check_rows(f"sp_ag_attention_2d {SP_ATTN_CONTEXT} tokens vs world-1 "
+                   "flash_attention", out2d, ref, 5e-2, 1e-2, 0.1)
+    print("[grid path] the torus and hierarchical collectives bit for bit "
+          "against their plain versions on the main path")
+
+    # -- 4. times
+    libs = {"all_gather": lambda x: x.reshape(1, -1, x.shape[-1]).expand(
+                x.shape[0], -1, -1).contiguous(),
+            "reduce_scatter": lambda x: x.view(x.shape[0], x.shape[0], -1,
+                                               x.shape[-1]).sum(
+                0, dtype=f32).to(x.dtype)}
+    rows = {}
+    with torch.inference_mode():
+        for s, x in xs.items():
+            w = world_of(s)
+            c = ctx_of(s)
+            shard = x[0].numel() * x.element_size()
+            t = {"ag": time_ms(lambda: torus.all_gather_torus(x, c), 20),
+                 "rs": time_ms(lambda: torus.reduce_scatter_torus(x, c), 20),
+                 "ar": time_ms(lambda: torus.all_reduce_torus(x, c), 20),
+                 "K15": time_ms(lambda: all_gather(x, AllGatherContext(
+                     "tp", w)), 20),
+                 "K16": time_ms(lambda: reduce_scatter(
+                     x, ReduceScatterContext("tp", w)), 20),
+                 "K17": time_ms(lambda: all_reduce(x, AllReduceContext(
+                     "tp", w)), 20),
+                 "ag_plain": time_ms(lambda: torus.all_gather_torus_plain(x),
+                                     5),
+                 "rs_plain": time_ms(
+                     lambda: torus.reduce_scatter_torus_plain(x, s), 3),
+                 "ag_lib": time_ms(lambda: libs["all_gather"](x), 20),
+                 "rs_lib": time_ms(lambda: libs["reduce_scatter"](x), 20)}
+            b_ag_ms, b_ag_by = collective_bound("all_gather", w, shard)
+            b_rs_ms, b_rs_by = collective_bound("reduce_scatter", w, shard)
+            b_ar_ms, _ = collective_bound("all_reduce", w, shard)
+            rows[s] = (t, (b_ag_ms, b_ag_by), (b_rs_ms, b_rs_by))
+            print(f"[times] grid {s} (W = {w}) on {tuple(x.shape)} bf16 (W "
+                  f"ranks sharing one card's SMs and HBM, every put a copy "
+                  f"inside it, no NVLink): K21a all_gather_torus "
+                  f"{t['ag']:.4f} ms (bound {b_ag_ms:.4f} ms by {b_ag_by}, "
+                  f"{b_ag_ms / t['ag']:.1%}), plain {t['ag_plain']:.4f}, "
+                  f"library (expand().contiguous()) {t['ag_lib']:.4f}, K15 "
+                  f"over the flat world (auto) {t['K15']:.4f}; K21b "
+                  f"reduce_scatter_torus {t['rs']:.4f} ms (bound "
+                  f"{b_rs_ms:.4f} ms, {b_rs_ms / t['rs']:.1%}), plain "
+                  f"{t['rs_plain']:.4f}, library (f32 sum over the ranks) "
+                  f"{t['rs_lib']:.4f}, K16 flat (auto) {t['K16']:.4f}; "
+                  f"all_reduce_torus {t['ar']:.4f} ms (bound {b_ar_ms:.4f}), "
+                  f"K17 flat (auto) {t['K17']:.4f}; {card}")
+        k21c = time_ms(lambda: ag_gemm(a_ag, b_ag, tctx), 10)
+        k21c_plain = time_ms(lambda: torus.ag_gemm_torus_plain(a_ag, b_ag), 2,
+                             warmup=1)
+        full_a = a_ag.reshape(1, -1, ka)
+        k21c_lib = time_ms(lambda: torch.matmul(full_a, b_ag), 10)
+        k12 = time_ms(lambda: ag_gemm(a_ag, b_ag, AllGatherGEMMContext(
+            "tp", 4, "fused")), 10)
+        grs = time_ms(lambda: gemm_rs(a_rs, b_rs, tctx), 10)
+        k14 = time_ms(lambda: gemm_rs(a_rs, b_rs, GEMMReduceScatterContext(
+            "tp", 4, "fused")), 10)
+        hier_t = {
+            "all_gather_2d": time_ms(lambda: hier.all_gather_2d(xh, hctx), 10),
+            "reduce_scatter_2d": time_ms(
+                lambda: hier.reduce_scatter_2d(xh, hctx), 10),
+            "all_reduce_2d": time_ms(lambda: hier.all_reduce_2d(xh, hctx),
+                                     10),
+            "fast_allgather_2d": time_ms(lambda: fast_allgather_2d(xh, hctx),
+                                         10),
+            "ag_gemm 2d": time_ms(lambda: ag_gemm(a_ag, b_ag, hctx), 5),
+            "gemm_rs 2d": time_ms(lambda: gemm_rs(a_rs, b_rs, hctx), 5),
+            "EP round trip 2d": time_ms(lambda: ep_round(hlayer), 3),
+            "EP round trip flat": time_ms(lambda: ep_round(flayer), 3),
+            "sp_ag_attention_2d": time_ms(
+                lambda: sp.sp_ag_attention_2d(q, k, v, hctx), 2),
+            "K20 world 4": time_ms(lambda: sp.sp_ag_attention_fused(q, k, v),
+                                   2),
+            "K1 world 1": time_ms(lambda: fa.flash_attention(qg, kg, vg), 2),
+            "SDPA": time_ms(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True, enable_gqa=True), 2)}
+    bms_c, by_c = tp_collective_bound("ag_gemm", 4, ma, ka, na, 2)
+    print(f"[times] K21c ag_gemm on a (2, 2) TorusContext, a {tuple(a_ag.shape)}"
+          f" b {tuple(b_ag.shape)} bf16: {k21c:.4f} ms (bound {bms_c:.4f} ms "
+          f"by {by_c}, {bms_c / k21c:.1%}); plain {k21c_plain:.4f}; library "
+          f"(torch.matmul of the gathered A, no gather) {k21c_lib:.4f}; K12 "
+          f"fused at world 4 {k12:.4f}; gemm_rs on the (2, 2) TorusContext "
+          f"(4 K6 + K21b) {grs:.4f} ms, K14 fused at world 4 {k14:.4f}; "
+          f"{card}")
+    print(f"[times] hierarchical at (dcn, ici) = {GRID_HIER} on {tuple(xh.shape)}"
+          f" bf16 and the GEMM, EP and SP shapes above (CUDA events): "
+          + ", ".join(f"{nm} {t:.4f} ms" for nm, t in hier_t.items())
+          + f"; {card}")
+    s0 = GRID_TIMED[0]
+    t0, (b_ag_ms, b_ag_by), (b_rs_ms, b_rs_by) = rows[s0]
+    note = ("W ranks in one launch on one card: no NVLink; (2, 2, 2) "
+            "beside it")
+    t1 = rows[GRID_TIMED[1]][0]
+    records.append(("all_gather_torus", t0["ag"], t0["ag_plain"], b_ag_ms,
+                    b_ag_by, t0["ag_lib"], {
+                        "shape": f"grid {s0}, {tuple(xs[s0].shape)} bf16",
+                        "library_note": "x.reshape(1, W*m, n).expand(W, -1, "
+                                        "-1).contiguous(); " + note,
+                        "grid_2x2x2_ms": t1["ag"], "k15_flat_ms": t0["K15"],
+                        "k15_flat_2x2x2_ms": t1["K15"]}))
+    records.append(("reduce_scatter_torus", t0["rs"], t0["rs_plain"], b_rs_ms,
+                    b_rs_by, t0["rs_lib"], {
+                        "shape": f"grid {s0}, {tuple(xs[s0].shape)} bf16",
+                        "library_note": "x.view(W, W, m, n).sum(0, dtype=f32)"
+                                        ".to(bf16); " + note,
+                        "grid_2x2x2_ms": t1["rs"], "k16_flat_ms": t0["K16"],
+                        "k16_flat_2x2x2_ms": t1["K16"],
+                        "all_reduce_torus_ms": t0["ar"],
+                        "k17_flat_ms": t0["K17"]}))
+    records.append(("ag_gemm_torus", k21c, k21c_plain, bms_c, by_c, k21c_lib, {
+        "shape": f"(2, 2) grid, a {tuple(a_ag.shape)} b {tuple(b_ag.shape)} "
+                 "bf16",
+        "library_note": "torch.matmul of the gathered A with the stacked B "
+                        "(GEMM only, no gather)",
+        "k12_fused_ms": k12, "gemm_rs_torus_ms": grs, "k14_fused_ms": k14,
+        "hierarchical_ms": hier_t}))
+    del xs, xh, got, a_ag, b_ag, a_rs, b_rs, q, k, v, qg, kg, vg, xe
+    del gate_up, down, flat
+    release_symmetric_buffers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[grid path] the phase took {time.perf_counter() - t_phase:.1f} s "
+          "(host clock)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3186,6 +3657,8 @@ def main() -> int:
         sp_ag_attention_fused)
     from triton_distributed_tpu_torch.kernels.reduce_scatter import (
         reduce_scatter)
+    from triton_distributed_tpu_torch.kernels.torus import (
+        ag_gemm_torus, all_gather_torus, reduce_scatter_torus)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
         grouped_matmul, grouped_matmul_reference, grouped_matmul_w8a8,
         grouped_matmul_w8a8_reference)
@@ -3220,7 +3693,8 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels in "
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
-    for lib in ("flash_attention", "all_to_all", "sp_ag_attention"):
+    for lib in ("flash_attention", "all_to_all", "sp_ag_attention",
+                "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{k[:48]} {regs} registers, spill stores {st} B, loads {ld} B"
             for k, regs, st, ld in _build.resource_usage(lib)))
@@ -3593,7 +4067,10 @@ def main() -> int:
                 "moe_reduce_rs_fused": moe_reduce_rs_fused,
                 "ag_gemm_w8a8": ag_gemm_w8a8,
                 "fast_all_to_all": fast_all_to_all,
-                "sp_ag_attention_fused": sp_ag_attention_fused}
+                "sp_ag_attention_fused": sp_ag_attention_fused,
+                "all_gather_torus": all_gather_torus,
+                "reduce_scatter_torus": reduce_scatter_torus,
+                "ag_gemm_torus": ag_gemm_torus}
     total_launches = dict.fromkeys(KERNELS, 0)
 
     def counted(fn):
@@ -4300,6 +4777,11 @@ def main() -> int:
     print(f"[sp path] device memory held: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     sp_path(dev, card, counted, expect, short, records, errs)
+
+    # -- 16. grid path --------------------------------------------------
+    print(f"[grid path] device memory held: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    grid_path(dev, card, counted, expect, short, records, errs)
 
     kernels = []
     for nm, ms, plain, bms, by, lib, *extra in records:

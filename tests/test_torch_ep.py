@@ -269,8 +269,9 @@ def test_ep_roundtrip_matches_jax(ep4_mesh, experts, topk, n_loc, cap):
 
 
 def test_ep_layer_plan_and_refusals():
-    """The send plan's rank-local tables, and the two-axis layer naming the
-    slice it waits for."""
+    """The send plan's rank-local tables, and the two-axis layer: the flat
+    layer's routing over a (dcn 2, ici 2) mesh, its dispatch equal to the
+    flat layer's bit for bit."""
     ep, experts, topk, n_loc, cap, hidden = 4, 8, 2, 8, 32, 16
     tokens, ids, _ = _ep_case(ep, experts, topk, n_loc, hidden, 7)
     _, layer = _layers(ep, experts, topk, cap, hidden)
@@ -291,5 +292,8 @@ def test_ep_layer_plan_and_refusals():
     with pytest.raises(ValueError, match="ep_size"):
         layer.dispatch(_stack(tokens, ep)[:2], i[:2])
     import triton_distributed_tpu_torch.layers.ep_a2a_layer as ep_mod
-    with pytest.raises(NotImplementedError, match="two-axis"):
-        ep_mod.HierarchicalEPAll2AllLayer
+    hier = ep_mod.HierarchicalEPAll2AllLayer(
+        "ici", ep, experts, topk, cap, hidden, dcn_size=2)
+    assert isinstance(hier, ep_mod.EPAll2AllLayer) and hier.ici_size == 2
+    got = hier.dispatch(_stack(tokens, ep), i)
+    assert torch.equal(got[1], recv_e) and torch.equal(got[2], counts)

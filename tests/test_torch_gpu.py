@@ -1649,3 +1649,230 @@ def test_ep_sp_kernels_reject_unsupported_inputs(cuda):
     q = torch.zeros(4, 1, 2, 16, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         sp.sp_ag_attention_fused(q, q, q)
+
+
+# ---- the process grid: K21 (torus.cu) and the hierarchical ops ------------
+
+#: (sizes, rows a rank, columns): the two-axis grids both ways round, the
+#: three-axis one, rows on and off the 2 * nd pieces (the last pieces short
+#: or empty), columns off 8.
+TORUS_CASES = [((2, 2), 8, 64), ((2, 4), 6, 40), ((4, 2), 13, 72),
+               ((2, 2, 2), 12, 48), ((2, 2, 2), 8, 24), ((2, 2, 2), 100, 40),
+               ((2, 4), 70, 24)]
+
+
+def _torus_ctx(sizes, **kw):
+    from triton_distributed_tpu_torch.kernels.torus import TorusContext
+    return TorusContext(("x", "y", "z")[:len(sizes)], sizes, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sizes,m,n", TORUS_CASES)
+def test_torus_collectives_bit_exact(cuda, dtype, sizes, m, n):
+    """K21a and K21b against their plain versions (the CPU's run of the
+    same wrappers) bit for bit, and `all_reduce_torus` (K21b then K21a),
+    over 5 back-to-back calls each with fresh inputs, queued before any
+    check; one launch of each kernel a call."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    ctx = _torus_ctx(sizes)
+    world = ctx.world_size
+    gen = torch.Generator(device=cuda).manual_seed(world * 100 + m + n)
+    before = (torus.all_gather_torus.launches,
+              torus.reduce_scatter_torus.launches)
+    runs = []
+    for _ in range(5):
+        x = _randn(gen, dtype, cuda, world, m, n)
+        xr = _randn(gen, dtype, cuda, world, world * m, n)
+        runs.append((x, xr, torus.all_gather_torus(x, ctx),
+                     torus.reduce_scatter_torus(xr, ctx),
+                     torus.all_reduce_torus(x, ctx)))
+    torch.cuda.synchronize()
+    assert (torus.all_gather_torus.launches - before[0],
+            torus.reduce_scatter_torus.launches - before[1]) == (10, 10)
+    for x, xr, ag, rs, ar in runs:
+        assert torch.equal(ag.cpu(), torus.all_gather_torus(x.cpu(), ctx))
+        assert torch.equal(rs.cpu(), torus.reduce_scatter_torus(xr.cpu(),
+                                                                ctx))
+        assert torch.equal(ar.cpu(), torus.all_reduce_torus(x.cpu(), ctx))
+
+
+def test_torus_collectives_under_faults_and_repeats(cuda):
+    """A straggler rank (about 1 ms of cycles), for_correctness, and 100
+    back-to-back calls of each kernel on the (2, 4) grid with fresh
+    inputs: bit for bit every time."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    world, m, n = 8, 16, 64
+    for kw in ({"straggler": (5, 2_000_000)}, {"for_correctness": True}, {}):
+        ctx = _torus_ctx((2, 4), **kw)
+        reps = 100 if not kw else 2
+        ins = [(_randn(gen, torch.bfloat16, cuda, world, m, n),
+                _randn(gen, torch.bfloat16, cuda, world, world * m, n))
+               for _ in range(reps)]
+        outs = [(torus.all_gather_torus(x, ctx),
+                 torus.reduce_scatter_torus(xr, ctx)) for x, xr in ins]
+        torch.cuda.synchronize()
+        for (x, xr), (ag, rs) in zip(ins, outs):
+            assert torch.equal(ag, torus.all_gather_torus_plain(x)), kw
+            assert torch.equal(rs, torus.reduce_scatter_torus_plain(
+                xr, (2, 4))), kw
+
+
+def test_torus_degenerate_grids_run_single_axis_kernels(cuda):
+    """A (1, 4) grid runs K15 and K16, a (2, 2, 1) grid K21 on two axes."""
+    from triton_distributed_tpu_torch.kernels import torus
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.kernels.reduce_scatter import (
+        reduce_scatter)
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    x = _randn(gen, torch.float32, cuda, 4, 8, 32)
+    xr = _randn(gen, torch.float32, cuda, 4, 32, 32)
+    counts = lambda: (all_gather.launches, reduce_scatter.launches,  # noqa
+                      torus.all_gather_torus.launches,
+                      torus.reduce_scatter_torus.launches)
+    for sizes, want in (((1, 4), (1, 1, 0, 0)), ((2, 2, 1), (0, 0, 1, 1))):
+        ctx = _torus_ctx(sizes)
+        before = counts()
+        ag, rs = torus.all_gather_torus(x, ctx), torus.reduce_scatter_torus(
+            xr, ctx)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        assert torch.equal(ag.cpu(), torus.all_gather_torus(x.cpu(), ctx))
+        assert torch.equal(rs.cpu(), torus.reduce_scatter_torus(xr.cpu(),
+                                                                ctx))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sizes,m,k,n", [((2, 2), 64, 256, 384),
+                                         ((2, 4), 6, 128, 96),
+                                         ((2, 2, 2), 12, 64, 136),
+                                         ((2, 2, 2), 100, 64, 72)])
+def test_ag_gemm_torus_kernel(cuda, dtype, sizes, m, k, n):
+    """K21c against its plain version row by row (as K12), the gathered A
+    exactly, over 5 back-to-back calls; one launch a call; and through
+    `ag_gemm` on the TorusContext."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    ctx = _torus_ctx(sizes)
+    world = ctx.world_size
+    gen = torch.Generator(device=cuda).manual_seed(world + m + k + n)
+    before = torus.ag_gemm_torus.launches
+    for i in range(5):
+        a = _randn(gen, dtype, cuda, world, m, k)
+        b = _randn(gen, dtype, cuda, world, k, n) * k ** -0.5
+        fn = ag_gemm if i else torus.ag_gemm_torus
+        out, gathered = fn(a, b, ctx, return_gathered=True)
+        ref = torus.ag_gemm_torus_plain(a.float(), b.float())
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (world, world * m, n)
+        assert torch.equal(gathered, a.reshape(1, world * m, k).expand(
+            world, -1, -1))
+        _assert_rows_close("ag_gemm_torus", out, ref, *GEMM_TOL[dtype])
+    assert torus.ag_gemm_torus.launches == before + 5
+
+
+def test_gemm_rs_torus_kernels(cuda):
+    """`gemm_rs` on a TorusContext: W K6 launches and one K21b, equal to
+    the CPU's run of the same composition within K14's bound."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    ctx = _torus_ctx((2, 4))
+    a = _randn(gen, torch.bfloat16, cuda, 8, 64, 128)
+    b = _randn(gen, torch.bfloat16, cuda, 8, 128, 96) * 128 ** -0.5
+    before = (matmul.launches, torus.reduce_scatter_torus.launches)
+    out = gemm_rs(a, b, ctx)
+    torch.cuda.synchronize()
+    assert (matmul.launches - before[0],
+            torus.reduce_scatter_torus.launches - before[1]) == (8, 1)
+    ref = gemm_rs_plain(a.float(), b.float())
+    _assert_rows_close("gemm_rs_torus", out, ref, *GEMM_TOL[torch.bfloat16])
+
+
+def test_hierarchical_ops_kernels(cuda):
+    """The two-level ops at (dcn 2, ici 4) on the card against the CPU's
+    run of the same functions: the gathers and the exchange bit for bit,
+    the reductions bit for bit (K16's order and the slices' f32 sum are
+    the plain versions'), the GEMMs row by row; dcn launches of the ICI
+    kernel for each collective stage."""
+    from triton_distributed_tpu_torch.kernels import hierarchical as hier
+    from triton_distributed_tpu_torch.kernels.allgather import all_gather
+    from triton_distributed_tpu_torch.kernels.low_latency_all_to_all import (
+        fast_all_to_all)
+    from triton_distributed_tpu_torch.kernels.low_latency_allgather import (
+        fast_allgather_2d)
+
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    ctx = hier.HierarchicalContext("ici", "dcn", 4, 2)
+    x = _randn(gen, torch.bfloat16, cuda, 8, 12, 64)
+    xr = _randn(gen, torch.bfloat16, cuda, 8, 96, 64)
+    before = (all_gather.launches, fast_all_to_all.launches)
+    got = {"ag": hier.all_gather_2d(x, ctx),
+           "fast": fast_allgather_2d(x, ctx),
+           "rs": hier.reduce_scatter_2d(xr, ctx),
+           "ar": hier.all_reduce_2d(x[:, :10].contiguous(), ctx)}
+    send = _randn(gen, torch.float32, cuda, 8, 8, 16, 32)
+    counts = torch.randint(1, 17, (8, 8, 1), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    scales = _randn(gen, torch.float32, cuda, 8, 8, 16, 3)
+    got["a2a"] = hier.hierarchical_all_to_all(send, counts, ctx, scales)
+    torch.cuda.synchronize()
+    assert (all_gather.launches - before[0],
+            fast_all_to_all.launches - before[1]) == (2 + 2 + 2, 2)
+    want = {"ag": hier.all_gather_2d(x.cpu(), ctx),
+            "fast": fast_allgather_2d(x.cpu(), ctx),
+            "rs": hier.reduce_scatter_2d(xr.cpu(), ctx),
+            "ar": hier.all_reduce_2d(x[:, :10].cpu(), ctx),
+            "a2a": hier.hierarchical_all_to_all(send.cpu(), counts.cpu(),
+                                                ctx, scales.cpu())}
+    for name in ("ag", "fast", "rs", "ar"):
+        assert torch.equal(got[name].cpu(), want[name]), name
+    for g, w in zip(got["a2a"], want["a2a"]):
+        assert torch.equal(g.cpu(), w)
+    a = _randn(gen, torch.bfloat16, cuda, 8, 64, 128)
+    b = _randn(gen, torch.bfloat16, cuda, 8, 128, 96) * 128 ** -0.5
+    _assert_rows_close("ag_gemm 2d", ag_gemm(a, b, ctx),
+                       ag_gemm_plain(a.float(), b.float()),
+                       *GEMM_TOL[torch.bfloat16])
+    a2 = _randn(gen, torch.bfloat16, cuda, 8, 128, 64)
+    _assert_rows_close("gemm_rs 2d", gemm_rs(a2, b[:, :64], ctx),
+                       gemm_rs_plain(a2.float(), b[:, :64].float()),
+                       *GEMM_TOL[torch.bfloat16])
+
+
+def test_hierarchical_sp_attention_and_ep_kernels(cuda):
+    """`sp_ag_attention_2d` at (dcn 2, ici 2) against world-1 K1 over the
+    whole sequence, row by row, with dcn * dcn K20 launches; the
+    two-level EP layer's dispatch bit for bit the flat layer's."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+    from triton_distributed_tpu_torch.kernels.hierarchical import (
+        HierarchicalContext)
+    from triton_distributed_tpu_torch.layers import (
+        EPAll2AllLayer, HierarchicalEPAll2AllLayer)
+
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    world, s = 4, 1024
+    qg, kg, vg = (_randn(gen, torch.bfloat16, cuda, 1, n, s, 128)
+                  for n in (8, 2, 2))
+
+    def shards(t):
+        return t.reshape(1, t.shape[1], world, -1, 128).movedim(
+            2, 0).contiguous()
+
+    before = sp.sp_ag_attention_fused.launches
+    out = sp.sp_ag_attention_2d(shards(qg), shards(kg), shards(vg),
+                                HierarchicalContext("sp", "dcn", 2, 2))
+    torch.cuda.synchronize()
+    assert sp.sp_ag_attention_fused.launches == before + 4
+    _rows_close(out.movedim(0, 2).reshape(1, 8, s, 128),
+                flash_attention(qg, kg, vg), 5e-2, 1e-2, 0.1)
+    flat = EPAll2AllLayer("ep", 8, 32, 4, 64, 128)
+    two = HierarchicalEPAll2AllLayer("ici", 8, 32, 4, 64, 128, dcn_size=2)
+    x = _randn(gen, torch.bfloat16, cuda, 8, 16, 128)
+    ids = torch.randint(0, 32, (8, 16, 4), generator=gen, device=cuda)
+    a, b = flat.dispatch(x, ids), two.dispatch(x, ids)
+    for u, v in zip(a[:3], b[:3]):
+        assert torch.equal(u, v)

@@ -328,6 +328,55 @@ def test_ep_sp_path_runs_without_jax():
         "16,", "32)", "(4,", "1,", "4,", "16,", "64)", "True"]
 
 
+def test_grid_path_runs_without_jax():
+    """The process grid (the multi-axis mesh, `kernels/torus.py`'s K21
+    wrappers and plain versions, `kernels/hierarchical.py`,
+    `fast_allgather_2d`, `ag_gemm` / `gemm_rs` on both contexts,
+    `sp_ag_attention_2d`, `HierarchicalEPAll2AllLayer`) imports and runs
+    with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['triton_distributed_tpu'] = None\n"
+        "import torch\n"
+        "from triton_distributed_tpu_torch.kernels import hierarchical as h\n"
+        "from triton_distributed_tpu_torch.kernels import torus\n"
+        "from triton_distributed_tpu_torch.kernels import sp_ag_attention "
+        "as sp\n"
+        "from triton_distributed_tpu_torch.kernels.allgather_gemm import "
+        "ag_gemm\n"
+        "from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter "
+        "import gemm_rs\n"
+        "from triton_distributed_tpu_torch.kernels.low_latency_allgather "
+        "import fast_allgather_2d\n"
+        "from triton_distributed_tpu_torch.layers import (\n"
+        "    HierarchicalEPAll2AllLayer)\n"
+        "from triton_distributed_tpu_torch.parallel import (\n"
+        "    make_hierarchical_mesh, make_mesh)\n"
+        "mesh = make_mesh({'x': 2, 'y': 2, 'z': 2}, device='cpu')\n"
+        "t = torus.TorusContext(mesh.axes, mesh.sizes)\n"
+        "x = torch.randn(8, 6, 16)\n"
+        "a = torus.all_reduce_torus(x, t)\n"
+        "g = ag_gemm(x, torch.randn(8, 16, 5), t)\n"
+        "r = gemm_rs(torch.randn(8, 16, 4), torch.randn(8, 4, 3), t)\n"
+        "c = h.create_hierarchical_context(make_hierarchical_mesh(\n"
+        "    2, 2, device='cpu'), 'ici', 'dcn')\n"
+        "f = fast_allgather_2d(x[:4], c)\n"
+        "q = torch.randn(4, 1, 2, 8, 32)\n"
+        "o = sp.sp_ag_attention_2d(q, q, q, c)\n"
+        "lay = HierarchicalEPAll2AllLayer('ici', 4, 8, 2, 16, 16, dcn_size=2)\n"
+        "d = lay.dispatch(x[:4], torch.randint(0, 8, (4, 6, 2)))\n"
+        "print(tuple(a.shape), tuple(g.shape), tuple(r.shape),\n"
+        "      tuple(f.shape), tuple(o.shape), tuple(d[0].shape))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == [
+        "(8,", "6,", "16)", "(8,", "48,", "5)", "(8,", "2,", "3)", "(4,",
+        "24,", "16)", "(4,", "1,", "2,", "8,", "32)", "(4,", "4,", "16,",
+        "16)"]
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

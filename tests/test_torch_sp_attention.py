@@ -238,19 +238,22 @@ def test_sp_ring_attention_diff_grads_match_jax(sp4_mesh):
 
 
 def test_sp_launch_counts_and_refusals():
-    """On the CPU the compositions launch no kernel; the gather's one K15
-    call goes through `all_gather` (counted only on the card), and the
-    two-level variant names the slice it waits for."""
+    """On the CPU the compositions launch no kernel (the two-level form
+    over a (dcn 2, ici 2) mesh included); the gather's one K15 call goes
+    through `all_gather` (counted only on the card)."""
+    from triton_distributed_tpu_torch.kernels.hierarchical import (
+        HierarchicalContext)
     q, k, v = (_shards(x) for x in _qkv(1, 1, 2, 2, WORLD * 16, 32))
     before = (fa.flash_attention.launches, ag.all_gather.launches,
               sp.sp_ag_attention_fused.launches)
     for fn in (sp.sp_ring_attention, sp.sp_ring_attention_zigzag,
                sp.sp_ag_attention_gather, sp.sp_ag_attention_fused):
         assert torch.isfinite(fn(q, k, v)).all()
+    two = sp.sp_ag_attention_2d(q, k, v, HierarchicalContext("sp", "dcn",
+                                                             2, 2))
+    assert torch.isfinite(two).all()
     assert (fa.flash_attention.launches, ag.all_gather.launches,
             sp.sp_ag_attention_fused.launches) == before
-    with pytest.raises(NotImplementedError, match="two-axis"):
-        sp.sp_ag_attention_2d(q, k, v, None)
     with pytest.raises(ValueError, match="does not match"):
         sp.sp_ag_attention_fused(q, k[:, :, :, :8], v[:, :, :, :8])
     with pytest.raises(ValueError, match="q_offset"):

@@ -13,6 +13,7 @@ kernels call :func:`allocate` for a fresh id above the built-in range.
 from __future__ import annotations
 
 import itertools
+import threading
 
 # ---- kernel-level collectives -------------------------------------
 ALLGATHER = 0
@@ -91,3 +92,23 @@ def builtin_ids() -> dict:
     """name -> id for every built-in (used by the uniqueness test)."""
     return {k: v for k, v in globals().items()
             if k.isupper() and isinstance(v, int) and not k.startswith("_")}
+
+
+#: The AG-stage id paired with each RS id (JAX `kernels/torus.py`
+#: `_paired_ag_id` :157): an all-reduce composed of a reduce-scatter and an
+#: all-gather gives its second kernel an id of its own.
+_paired_ag_ids: dict = {}
+_paired_ag_ids_lock = threading.Lock()
+
+
+def paired_ag_id(rs_id: int) -> int:
+    """The id of the all-gather stage of an all-reduce whose reduce-scatter
+    runs under ``rs_id``: `ALLREDUCE_RING_AG` for the default
+    (`ALLGATHER`), else one id allocated for ``rs_id`` at first use and
+    cached, so repeated calls reuse it."""
+    if rs_id == ALLGATHER:
+        return ALLREDUCE_RING_AG
+    with _paired_ag_ids_lock:
+        if rs_id not in _paired_ag_ids:
+            _paired_ag_ids[rs_id] = allocate()
+        return _paired_ag_ids[rs_id]

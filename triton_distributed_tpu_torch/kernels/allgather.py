@@ -79,6 +79,9 @@ class AllGatherContext:
     collective_id: int = cids.ALLGATHER
     straggler: Optional[tuple] = None
     for_correctness: bool = False
+    #: Which group of ranks this is (a slice of a hierarchical mesh; 0 for
+    #: a whole mesh): each group keys its own instance.
+    group: int = 0
 
     #: "auto" takes "push_all" up to this many bytes a shard, else "ring"
     #: (the crossover of chip_smoke.py's sweep on an H100, PERF.md).
@@ -135,7 +138,7 @@ def _launch(x, ctx, method):
     world = x.shape[0]
     _check("all_gather", x, world)
     inst = symmetric_buffers("all_gather", ctx.collective_id, method.value,
-                             x.dtype, world, x.device)
+                             x.dtype, world, x.device, group=ctx.group)
     # In the one-process emulation the output is every rank's receive
     # buffer: rank r's slice is where the peers put into.
     out = torch.empty((world, world * x.shape[1], *x.shape[2:]),

@@ -18,9 +18,14 @@ choice does not change the result.  Rows are padded to the row tile and
 sliced back, as the JAX wrapper does.  ``"auto"`` takes the JAX shape-only
 rule: ``"ll"`` while the padded gathered rows are at most 256, else
 ``"fused"``; the model-driven `choose_ll_or_fused` rests on the TPU's ICI
-constants and waits for a model of this card's.  The hierarchical and torus
-contexts, the fault-injection fields and the observability event are not
-ported.
+constants and waits for a model of this card's.  The fault-injection
+fields and the observability event are not ported.
+
+``ctx`` may also be a `kernels.torus.TorusContext` (`ag_gemm_torus`, K21c:
+the gather over every axis of a process grid, each piece multiplied as it
+lands) or a `kernels.hierarchical.HierarchicalContext` (`_ag_gemm_2d`: a
+DCN ring of slice chunks, K12 over each slice at each of its dcn steps, so
+dcn * dcn K12 launches), as in JAX.
 
 `ag_gemm_w8a8` (JAX :390, K13) is the ring on int8 rows: x (W, m, k)
 quantized per row on the fly, rows padded to 32 (`round_up_rows` of int8),
@@ -83,6 +88,8 @@ class AllGatherGEMMContext:
     world_size: int
     method: str = "auto"
     collective_id: int = cids.AG_GEMM
+    #: The group of ranks (a slice's index; 0 for a whole mesh).
+    group: int = 0
 
     #: "auto" picks the one-shot ll method up to this many (padded)
     #: gathered rows: the decode regime.
@@ -121,6 +128,14 @@ def ag_gemm(a_shard, b, ctx: AllGatherGEMMContext,
     or f32, both operands alike and contiguous, at most 8 ranks; anything
     else raises.  Each launch of K12 adds one to ``ag_gemm.launches`` (and
     an ``ll`` launch also to ``ag_gemm.ll_launches``)."""
+    from triton_distributed_tpu_torch.kernels.hierarchical import (
+        HierarchicalContext)
+    from triton_distributed_tpu_torch.kernels.torus import (
+        TorusContext, ag_gemm_torus)
+    if isinstance(ctx, HierarchicalContext):
+        return _ag_gemm_2d(a_shard, b, ctx, return_gathered)
+    if isinstance(ctx, TorusContext):
+        return ag_gemm_torus(a_shard, b, ctx, return_gathered)
     if ctx.world_size <= 1:
         m, k = a_shard.shape
         method = ctx.resolve_method(m, a_shard.dtype, k=k, n=b.shape[1])
@@ -160,7 +175,8 @@ def _launch(a_shard, b, ctx, method, return_gathered):
         a_p = a_shard.new_zeros((world, mp, k))
         a_p[:, :m] = a_shard
     inst = symmetric_buffers("ag_gemm", ctx.collective_id, method,
-                             a_shard.dtype, world, a_shard.device)
+                             a_shard.dtype, world, a_shard.device,
+                             group=ctx.group)
     gathered = inst.buffer("gathered", (world, mp, k), a_shard.dtype)
     out = torch.empty((world, world, mp, n), dtype=a_shard.dtype,
                       device=a_shard.device)
@@ -184,6 +200,55 @@ def _launch(a_shard, b, ctx, method, return_gathered):
         return out
     # A copy: the instance's buffer is the next call's.
     return out, gathered[:, :, :m].clone().reshape(world, world * m, k)
+
+
+def _ag_gemm_slice(a, b, ctx, return_gathered):
+    """`ag_gemm` over one slice's rank-stacked rows (a slice of one rank
+    runs the world-1 product)."""
+    if ctx.world_size > 1:
+        return ag_gemm(a, b, ctx, return_gathered)
+    res = ag_gemm(a[0], b[0], ctx, return_gathered)
+    return tuple(t[None] for t in res) if return_gathered else res[None]
+
+
+def _ag_gemm_2d(a_shard, b, hctx, return_gathered: bool):
+    """The two-level AG-GEMM (JAX `_ag_gemm_2d` :191): a (W, m, k), b (W, k,
+    n) over a (dcn, ici) mesh -> (W, W*m, n) [, the gathered A].  At step s
+    = 0 .. dcn-1 every slice d runs K12 (``hctx.gemm_method``) over its ICI
+    ranks on the rows it holds, slice (d - s) mod dcn's, then the rows hop
+    one slice along the DCN ring (JAX's ``ppermute``: a roll of the stack
+    along the dcn axis).  The step-s products land at that slice's place
+    in the global row order."""
+    dcn, ici = hctx.dcn_size, hctx.ici_size
+    world = dcn * ici
+    if (a_shard.dim() != 3 or b.dim() != 3 or a_shard.shape[0] != world
+            or b.shape[0] != world or a_shard.shape[2] != b.shape[1]):
+        raise ValueError(f"ag_gemm at (dcn {dcn}, ici {ici}): want a_shard "
+                         f"(W, m, k) and b (W, k, n), got "
+                         f"{tuple(a_shard.shape)} and {tuple(b.shape)}")
+    _, m, k = a_shard.shape
+    n = b.shape[2]
+    out = a_shard.new_empty((dcn, ici, dcn, ici * m, n))
+    gathered = (a_shard.new_empty((dcn, ici, dcn, ici * m, k))
+                if return_gathered else None)
+    cur = a_shard.contiguous()
+    for s in range(dcn):
+        for d in range(dcn):
+            rows = hctx.slice_rows(d)
+            res = _ag_gemm_slice(cur[rows], b[rows].contiguous(),
+                                 hctx._ag_gemm_ctx(d), return_gathered)
+            src = (d - s) % dcn
+            if return_gathered:
+                out[d, :, src], gathered[d, :, src] = res
+            else:
+                out[d, :, src] = res
+        if s < dcn - 1:
+            cur = torch.roll(cur.reshape(dcn, ici, m, k), 1, dims=0).reshape(
+                world, m, k)
+    out = out.reshape(world, world * m, n)
+    if not return_gathered:
+        return out
+    return out, gathered.reshape(world, world * m, k)
 
 
 def ag_gemm_w8a8_plain(a_q, b_q, scales, scale_b, out_dtype):

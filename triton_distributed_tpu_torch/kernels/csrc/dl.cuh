@@ -79,6 +79,27 @@ struct Team {
   int base;
 };
 
+// A team's ranks as a process grid of nd <= 3 axes, rank g row-major over
+// them: g's coordinate along axis a is (g / stride[a]) % size[a].  The torus
+// kernels (torus.cu) walk it; the other kernels see only the flat Team.
+struct Grid {
+  int nd;
+  int size[3];
+  int stride[3];
+};
+
+__device__ __forceinline__ int grid_coord(const Grid& g, int r, int axis) {
+  return r / g.stride[axis] % g.size[axis];
+}
+
+// The ring neighbour of rank r ``dir`` steps along ``axis``, every other
+// coordinate kept (JAX torus.py `_neighbor`).
+__device__ __forceinline__ int grid_neighbor(const Grid& g, int r, int axis,
+                                             int dir) {
+  const int w = g.size[axis], c = grid_coord(g, r, axis);
+  return r + ((((c + dir) % w) + w) % w - c) * g.stride[axis];
+}
+
 __device__ __forceinline__ int rank(const Team& t) {
   return t.base + blockIdx.y;
 }
@@ -271,6 +292,33 @@ __device__ __forceinline__ void entry_barrier(const Team& t, Symm<u64> sig,
     barrier_neighbors<S>(t, sig, target);
   else
     barrier_all<S>(t, sig, target);
+}
+
+// The entry barrier of a grid (JAX `dl.entry_barrier(axis, w,
+// neighbors_only)` over each axis in turn): every block of every rank adds
+// one to word ``word`` of, along every axis of size > 1, its two ring
+// neighbours (``neighbors_only``) or every other rank of the axis; then
+// waits until the word holds ``target`` times the adds it receives from one
+// block of each of those peers (as many as it makes).  ``target`` is the
+// blocks a rank over the instance's calls, this one's included.
+template <Scope S = Scope::gpu>
+__device__ __forceinline__ void grid_barrier(const Team& t, const Grid& g,
+                                             Symm<u64> sig, int word,
+                                             u64 target,
+                                             bool neighbors_only) {
+  const int me = rank(t), tid = threadIdx.x;
+  int n = 0;
+  for (int a = 0; a < g.nd; ++a) {
+    const int w = g.size[a];
+    if (w < 2) continue;
+    const int k = neighbors_only ? 2 : w - 1;
+    for (int j = 0; j < k; ++j, ++n)
+      if (tid == n)
+        notify<S>(sig[grid_neighbor(g, me, a,
+                                    neighbors_only ? (j ? -1 : 1) : j + 1)] +
+                  word);
+  }
+  wait<S>(sig[me] + word, 1, 0, (u64)n * target, "grid barrier");
 }
 
 // The P blocks of this rank wait for each other (one signal a block on the

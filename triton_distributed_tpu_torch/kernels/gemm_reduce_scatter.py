@@ -18,6 +18,12 @@ sliced back.  ``"auto"`` takes the JAX shape-only rule: ``"ll"`` while W
 padded chunks make at most 256 rows, else ``"fused"``.  At world 1 every
 method is the nonoverlap product.
 
+``ctx`` may also be a `kernels.torus.TorusContext` (`gemm_rs_torus`: the
+partial products on K6, then K21b over every axis of the grid) or a
+`kernels.hierarchical.HierarchicalContext` (`_gemm_rs_2d`: K14 over each
+slice at each of dcn steps, dcn * dcn launches, the slices' results summed
+in f32 along a DCN ring), as in JAX.
+
 On a CUDA tensor `gemm_rs` launches the kernel or raises; on a CPU tensor
 it computes the plain version, `gemm_rs_plain`.
 """
@@ -53,6 +59,8 @@ class GEMMReduceScatterContext:
     world_size: int
     method: str = "auto"
     collective_id: int = cids.GEMM_RS
+    #: The group of ranks (a slice's index; 0 for a whole mesh).
+    group: int = 0
 
     #: "auto" picks the ll method up to this many (padded) rows.
     LL_MAX_ROWS = 256
@@ -101,6 +109,14 @@ def gemm_rs(a, b, ctx: GEMMReduceScatterContext):
     anything else raises.  Each launch of K14 adds one to
     ``gemm_rs.launches`` (and an ``ll`` launch also to
     ``gemm_rs.ll_launches``)."""
+    from triton_distributed_tpu_torch.kernels.hierarchical import (
+        HierarchicalContext)
+    from triton_distributed_tpu_torch.kernels.torus import (
+        TorusContext, gemm_rs_torus)
+    if isinstance(ctx, HierarchicalContext):
+        return _gemm_rs_2d(a, b, ctx)
+    if isinstance(ctx, TorusContext):
+        return gemm_rs_torus(a, b, ctx)
     world = ctx.world_size
     if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != world
             or b.shape[0] != world or a.shape[2] != b.shape[1]
@@ -132,7 +148,7 @@ def _launch(a, b, ctx, method):
         a_p = a.new_zeros((world, world, mcp, k))
         a_p[:, :, :mc] = a.reshape(world, world, mc, k)
     inst = symmetric_buffers("gemm_rs", ctx.collective_id, method, a.dtype,
-                             world, a.device)
+                             world, a.device, group=ctx.group)
     rbuf = inst.buffer("rbuf", (world, mcp, n), a.dtype)
     stage = (inst.buffer("stage", (world * mcp, n), a.dtype)
              if method == "ll" else None)
@@ -151,6 +167,44 @@ def _launch(a, b, ctx, method):
     if method == "ll":
         gemm_rs.ll_launches += 1
     return out[:, :mc] if mcp != mc else out
+
+
+def _gemm_rs_2d(a, b, hctx):
+    """The two-level GEMM-RS (JAX `_gemm_rs_2d` :166): a (W, M, k), b (W,
+    k, n) over a (dcn, ici) mesh, W | M -> (W, M/W, n).  At step s = 0 ..
+    dcn-1 every slice d runs K14 (``hctx.gemm_method``) over its ICI ranks
+    on the rows owned by slice (d + dcn - 1 - s) mod dcn, and adds the
+    result in f32 into an accumulator that hops one slice along the DCN
+    ring between steps (JAX's ``ppermute``: a roll of the stack along the
+    dcn axis); after the last step each slice holds its own rows, cast to
+    a's dtype."""
+    dcn, ici = hctx.dcn_size, hctx.ici_size
+    world = dcn * ici
+    if (a.dim() != 3 or b.dim() != 3 or a.shape[0] != world
+            or b.shape[0] != world or a.shape[2] != b.shape[1]
+            or a.shape[1] % world):
+        raise ValueError(f"gemm_rs at (dcn {dcn}, ici {ici}): want a (W, M, "
+                         f"k) with W | M and b (W, k, n), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    mt, k = a.shape[1:]
+    mi = mt // dcn
+    ar = a.reshape(world, dcn, mi, k)
+
+    def part(s):
+        outs = []
+        for d in range(dcn):
+            rows = hctx.slice_rows(d)
+            c = (d + 2 * dcn - 1 - s) % dcn
+            outs.append(gemm_rs(ar[rows, c].contiguous(),
+                                b[rows].contiguous(), hctx._gemm_rs_ctx(d)))
+        return torch.cat(outs).float()
+
+    acc = part(0)
+    for s in range(1, dcn):
+        acc = torch.roll(acc.reshape(dcn, ici, *acc.shape[1:]), 1,
+                         dims=0).reshape(acc.shape)
+        acc = acc + part(s)
+    return acc.to(a.dtype)
 
 
 def _check(a, b, world):

@@ -63,6 +63,8 @@ class AllToAllContext:
     method: str = "auto"
     straggler: Optional[tuple] = None
     for_correctness: bool = False
+    #: The group of ranks (a slice's index; 0 for a whole mesh).
+    group: int = 0
 
 
 def create_all_to_all_context(axis: str, world_size: int,
@@ -134,7 +136,7 @@ def _launch(send, counts, scales, ctx):
     if send.numel() == 0:
         raise ValueError(f"fast_all_to_all: empty send {tuple(send.shape)}")
     inst = symmetric_buffers("all_to_all", ctx.collective_id, "push", None,
-                             world, send.device)
+                             world, send.device, group=ctx.group)
     # In the one-process emulation the outputs are every rank's receive
     # buffers: rank r's row is where the peers put into.
     recv = torch.empty_like(send)

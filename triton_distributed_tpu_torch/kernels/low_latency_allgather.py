@@ -1,19 +1,20 @@
 """Low-latency all-gather for small (decode-path) payloads (port of
 `triton_distributed_tpu/kernels/low_latency_allgather.py`
 `create_fast_allgather_context` :44, `fast_allgather` :55 and
-`fast_allgather_packed` :75).
+`fast_allgather_packed` :75 and `fast_allgather_2d` :61).
 
 Both are K15's one-shot ``"push_all"`` method (`kernels.allgather`): one
 traversal, every shard straight to every rank, which on this card's
 cooperative launch signals each arrival beside its data, so no flag is
 packed into the payload.  `fast_allgather_packed` gathers several small
-tensors with one launch.  `fast_allgather_2d` (the two-level variant over
-`hierarchical.py`'s two-axis mesh) is not ported: the one-process mesh has
-one axis.
+tensors with one launch.  `fast_allgather_2d` is the two-level form over a
+(dcn, ici) mesh: `hierarchical.all_gather_2d` with the ICI stage on
+push_all.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -21,6 +22,7 @@ import torch
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels.allgather import (
     AllGatherContext, AllGatherMethod, all_gather)
+from triton_distributed_tpu_torch.kernels.hierarchical import all_gather_2d
 
 #: The packed payload's row is padded to this many bytes, the kernel's
 #: 16-byte copy unit (the JAX package pads to 128 lanes for Mosaic).
@@ -38,6 +40,15 @@ def create_fast_allgather_context(axis: str, world_size: int,
 def fast_allgather(x, ctx: AllGatherContext):
     """The one-shot push all-gather: x (W, m, n) -> (W, W*m, n)."""
     return all_gather(x, ctx)
+
+
+def fast_allgather_2d(x, hctx):
+    """The two-level low-latency all-gather: x (W, m, ...) -> (W, W*m,
+    ...) over the (dcn, ici) mesh of ``hctx``
+    (`kernels.hierarchical.HierarchicalContext`), the ICI stage forced onto
+    the one-shot push_all (K15, one launch a slice)."""
+    return all_gather_2d(x, dataclasses.replace(
+        hctx, ag_method=AllGatherMethod.PUSH_ALL))
 
 
 def fast_allgather_packed(tensors: Sequence[torch.Tensor],

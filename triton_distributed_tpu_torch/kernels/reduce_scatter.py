@@ -72,6 +72,8 @@ class ReduceScatterContext:
     collective_id: int = cids.REDUCE_SCATTER
     straggler: Optional[tuple] = None
     for_correctness: bool = False
+    #: The group of ranks (a slice's index; 0 for a whole mesh).
+    group: int = 0
 
     def resolve_method(self) -> ReduceScatterMethod:
         """The method named, ``"auto"`` taken as ``"scatter_reduce"``."""
@@ -143,7 +145,8 @@ def _launch(x, ctx, method):
     _check("reduce_scatter", x, world, _build.DTYPE_CODES)
     elems = x[0].numel() // world
     inst = symmetric_buffers("reduce_scatter", ctx.collective_id,
-                             method.value, x.dtype, world, x.device)
+                             method.value, x.dtype, world, x.device,
+                             group=ctx.group)
     ring = method == ReduceScatterMethod.RING
     buf = inst.buffer("staging" if ring else "rbuf",
                       (2 if ring else world, elems), x.dtype)

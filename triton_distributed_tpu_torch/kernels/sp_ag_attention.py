@@ -32,9 +32,14 @@ ranks that share a causal offset into one K1 launch and skip the (rank,
 chunk) pairs in the causal future, whose JAX partials are fully masked
 (lse ~ -inf) and merge out exactly; so the ring runs W K1 launches (one a
 step), the zigzag 3 W and the gather W.  JAX's ``block_q``/``block_k`` are
-TPU tiling knobs with no counterpart here.  `sp_ag_attention_2d` (two-level,
-over `hierarchical.py`'s (dcn, ici) mesh) waits for the two-axis process
-grid and raises.
+TPU tiling knobs with no counterpart here.
+- `sp_ag_attention_2d` (:568) is the two-level form over a (dcn, ici) mesh
+  (`kernels.hierarchical.HierarchicalContext`): dcn steps, each one K20
+  launch a slice over the KV chunks the slice holds (slice (d - s) mod dcn
+  at step s, placed by ``kv_base``), the steps' partials merged by lse
+  with `_merge`, the KV shards hopping one slice along the DCN ring (JAX's
+  ``ppermute``, a roll of the stack along the dcn axis) between steps:
+  dcn * dcn K20 launches.
 
 On a CUDA tensor K20's wrapper launches the kernel or raises; on a CPU
 tensor every kernel underneath runs its plain version.
@@ -211,7 +216,8 @@ def sp_ag_attention_fused(q, k_shard, v_shard, axis: str = "sp", *,
                           scale: Optional[float] = None, q_offset=None,
                           kv_base=0, return_lse: bool = False,
                           collective_id: int = cids.SP_AG_FUSED,
-                          straggler=None, for_correctness: bool = False):
+                          straggler=None, for_correctness: bool = False,
+                          group: int = 0):
     """Fused SP all-gather attention, causal prefill (JAX
     `sp_ag_attention_fused`): q (W, B, H, S_loc, D), k_shard/v_shard (W, B,
     Hkv, S_loc, D) -> out (W, B, H, S_loc, D) [, lse (W, B, H, S_loc) f32,
@@ -219,7 +225,8 @@ def sp_ag_attention_fused(q, k_shard, v_shard, axis: str = "sp", *,
     or W ints) place each rank's queries and the KV chunks in the global
     sequence: chunk c starts at kv_base[r] + c * S_loc, rank r's queries at
     q_offset[r] (default r * S_loc, and 0).  ``straggler`` (None or (rank,
-    cycles)) and ``for_correctness`` are the collectives' fault injection.
+    cycles)) and ``for_correctness`` are the collectives' fault injection;
+    ``group`` (a slice's index) keys the instance of one group of ranks.
 
     The kernel takes contiguous bf16 or f32 CUDA tensors with D in {64,
     128} and at most 8 ranks; anything else raises.  Each launch of K20
@@ -247,7 +254,7 @@ def sp_ag_attention_fused(q, k_shard, v_shard, axis: str = "sp", *,
                                                    base, scale)
     else:
         out, lse = _launch(q, k_shard, v_shard, q_off, base, scale,
-                           collective_id, straggler, for_correctness)
+                           collective_id, straggler, for_correctness, group)
     return (out, lse) if return_lse else out
 
 
@@ -255,7 +262,7 @@ sp_ag_attention_fused.launches = 0
 
 
 def _launch(q, k, v, q_off, base, scale, collective_id, straggler,
-            for_correctness):
+            for_correctness, group):
     world, b, h, s_loc, d = q.shape
     hkv = k.shape[2]
     if world > MAX_WORLD:
@@ -263,7 +270,7 @@ def _launch(q, k, v, q_off, base, scale, collective_id, straggler,
                          f"{MAX_WORLD}")
     _check(_flat(q), _flat(k), _flat(v))
     inst = symmetric_buffers("sp_ag_attention", collective_id, "fused",
-                             q.dtype, world, q.device)
+                             q.dtype, world, q.device, group=group)
     kbuf = inst.buffer("k", (world, b, hkv, s_loc, d), q.dtype)
     vbuf = inst.buffer("v", (world, b, hkv, s_loc, d), q.dtype)
     out = torch.empty_like(q)
@@ -285,13 +292,39 @@ def _launch(q, k, v, q_off, base, scale, collective_id, straggler,
     return out, lse
 
 
-def sp_ag_attention_2d(q, k_shard, v_shard, hctx, **kw):
-    """Two-level SP attention over a (dcn, ici) mesh (JAX
-    `sp_ag_attention_2d` :568): waits for the two-axis process grid."""
-    raise NotImplementedError(
-        "sp_ag_attention_2d needs the two-axis process grid (the (dcn, ici) "
-        "mesh of kernels/hierarchical.py), the next slice of the port; not "
-        "yet ported")
+def sp_ag_attention_2d(q, k_shard, v_shard, hctx, *,
+                       scale: Optional[float] = None):
+    """Two-level causal SP attention (JAX `sp_ag_attention_2d`): q (W, B,
+    H, S_loc, D), k_shard/v_shard (W, B, Hkv, S_loc, D) over the (dcn, ici)
+    mesh of ``hctx``, global rank g = dcn_index * ici + ici_index owning
+    rows [g * S_loc, (g + 1) * S_loc) -> (W, B, H, S_loc, D).  See the
+    module docstring for the schedule."""
+    dcn, ici = hctx.dcn_size, hctx.ici_size
+    world, s_loc = q.shape[0], q.shape[3]
+    if world != dcn * ici or k_shard.shape[0] != world:
+        raise ValueError(f"sp_ag_attention_2d at (dcn {dcn}, ici {ici}): q "
+                         f"{tuple(q.shape)}, k {tuple(k_shard.shape)}")
+    kv = (k_shard, v_shard)
+    out = lse = None
+    for s in range(dcn):
+        parts = []
+        for d in range(dcn):
+            rows = hctx.slice_rows(d)
+            parts.append(sp_ag_attention_fused(
+                q[rows], kv[0][rows], kv[1][rows], hctx.ici_axis, scale=scale,
+                q_offset=[g * s_loc for g in range(world)[rows]],
+                kv_base=(d - s) % dcn * ici * s_loc, return_lse=True,
+                collective_id=hctx.collective_id, group=d))
+        o_s = torch.cat([p[0] for p in parts])
+        l_s = torch.cat([p[1] for p in parts])
+        if out is None:
+            out, lse = o_s.float(), l_s
+        else:
+            out, lse = _merge(out, lse, o_s, l_s)
+        if s < dcn - 1:
+            kv = tuple(torch.roll(t.reshape(dcn, ici, *t.shape[1:]), 1,
+                                  dims=0).reshape(t.shape) for t in kv)
+    return out.to(q.dtype)
 
 
 def _zigzag_order(world: int):

@@ -22,6 +22,13 @@ barrier keeps a rank from writing into a peer that has not yet entered the
 call, i.e. is still reading its buffers in the last one.  A method's
 barrier adds differ from another method's, so each (collective id, method)
 pair keys its own instance.
+
+An instance has `SIGNAL_WORDS` words a rank unless its kernels need more:
+the torus kernels (``csrc/torus.cu``) give every (phase, lane, ring
+position) or (stage, lane, step) its own word, so no wait can be met by
+another lane's adds, and size their instances by their grid.  A kernel
+that runs once per group of ranks (the hierarchical collectives launch the
+intra-slice kernel once a slice) keys one instance a group.
 """
 
 from __future__ import annotations
@@ -52,10 +59,11 @@ class SymmetricBuffers:
     on one device: rank r's copy of a buffer is row r of a rank-stacked
     tensor, reached by the kernels through a table of per-rank pointers."""
 
-    def __init__(self, world: int, device):
+    def __init__(self, world: int, device, words: int = SIGNAL_WORDS):
         self.world = world
         self.device = torch.device(device)
-        self.signals = torch.zeros((world, SIGNAL_WORDS), dtype=torch.int64,
+        self.words = words
+        self.signals = torch.zeros((world, words), dtype=torch.int64,
                                    device=self.device)
         #: The sum, over this instance's calls so far, of the blocks a rank.
         self.epoch = 0
@@ -91,15 +99,19 @@ _instances: dict[tuple, SymmetricBuffers] = {}
 
 
 def symmetric_buffers(op: str, collective_id: int, method: str, dtype,
-                      world: int, device) -> SymmetricBuffers:
+                      world: int, device, *, group: int = 0,
+                      words: int = SIGNAL_WORDS) -> SymmetricBuffers:
     """The instance of collective ``collective_id`` running ``op``'s
-    ``method`` at ``world`` on ``device`` in ``dtype``, made at first use.
-    Sequential calls share an instance; concurrent ones need distinct ids
-    (`collective_ids`)."""
-    key = (op, collective_id, method, dtype, world, torch.device(device))
+    ``method`` at ``world`` on ``device`` in ``dtype`` for the group of
+    ranks ``group`` (a slice's index, 0 for a whole mesh), with ``words``
+    signal words a rank, made at first use.  Sequential calls share an
+    instance; concurrent ones need distinct ids (`collective_ids`) or
+    groups."""
+    key = (op, collective_id, method, dtype, world, torch.device(device),
+           group, words)
     inst = _instances.get(key)
     if inst is None:
-        inst = _instances[key] = SymmetricBuffers(world, device)
+        inst = _instances[key] = SymmetricBuffers(world, device, words)
     return inst
 
 

@@ -2,4 +2,4 @@
 world W, and the expert-parallel AllToAll layer."""
 
 from triton_distributed_tpu_torch.layers.ep_a2a_layer import (  # noqa: F401
-    EPAll2AllLayer)
+    EPAll2AllLayer, HierarchicalEPAll2AllLayer)

@@ -15,9 +15,13 @@ is XLA code in the JAX layer; every rank's routing is computed in one pass
 (rank r's destinations offset by r * W, so the stable order and the slots
 are each rank's own).
 
-`HierarchicalEPAll2AllLayer` (the two-level dispatch over a (dcn, ici)
-mesh) waits for the two-axis process grid: naming it raises
-`NotImplementedError`.
+`HierarchicalEPAll2AllLayer` is the same layer over a (dcn, ici) mesh
+(`parallel.make_hierarchical_mesh`): its exchanges are
+`kernels.hierarchical.hierarchical_all_to_all` (the DCN hop to the proxy of
+the same ICI position in the destination slice, then K19 over each slice),
+global EP rank g = dcn_index * ici_size + ici_index.  The routing and the
+combine are the flat layer's, so the two layers give the same result on
+the same routing.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import dataclasses
 import torch
 
 from triton_distributed_tpu_torch import collective_ids as cids
-from triton_distributed_tpu_torch.kernels import moe_utils
+from triton_distributed_tpu_torch.kernels import hierarchical, moe_utils
 from triton_distributed_tpu_torch.kernels.low_latency_all_to_all import (
     AllToAllContext, fast_all_to_all)
 
@@ -135,10 +139,25 @@ class EPAll2AllLayer:
                 ep, n_loc, -1)
 
 
-def __getattr__(name):
-    if name == "HierarchicalEPAll2AllLayer":
-        raise NotImplementedError(
-            "HierarchicalEPAll2AllLayer needs the two-axis process grid "
-            "(the (dcn, ici) mesh of kernels/hierarchical.py), the next "
-            "slice of the port; not yet ported")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+@dataclasses.dataclass
+class HierarchicalEPAll2AllLayer(EPAll2AllLayer):
+    """The two-level EP layer (JAX `HierarchicalEPAll2AllLayer` :122):
+    ``axis`` is the ICI (intra-slice) axis, ``dcn_axis`` spans the
+    ``dcn_size`` slices, and ``ep_size`` is the whole dcn * ici world."""
+
+    dcn_axis: str = "dcn"
+    dcn_size: int = 1
+
+    @property
+    def ici_size(self) -> int:
+        return self.ep_size // self.dcn_size
+
+    def _hctx(self, cid) -> hierarchical.HierarchicalContext:
+        return hierarchical.HierarchicalContext(
+            ici_axis=self.axis, dcn_axis=self.dcn_axis,
+            ici_size=self.ici_size, dcn_size=self.dcn_size,
+            collective_id=cid)
+
+    def _exchange(self, send_tokens, counts, cid, send_scales=None):
+        return hierarchical.hierarchical_all_to_all(
+            send_tokens, counts, self._hctx(cid), send_scales=send_scales)
