@@ -19,7 +19,9 @@ non-zero):
    on ragged and negative-offset cases in f32, each output held row by
    row and in relative L2; the grouped GEMM (K8) at the Qwen3-30B-A3B
    expert shapes (prefill and decode buckets) and on ragged and f32
-   cases, and the matmul (K6) through ``ag_gemm(method="fused" | "ll")``
+   cases, with the same rows bit for bit inside buckets of 16, 64 and 256
+   rows an expert (its two wgmma tiles) and over two launches, and the
+   matmul (K6) through ``ag_gemm(method="fused" | "ll")``
    at the Qwen3-8B MLP shape, row by row; the int8 grouped GEMM (K9) bit
    for bit against its exact plain version on `MoEMLP.quantize_params`
    output;
@@ -43,8 +45,9 @@ non-zero):
    the float weights; then ``ag_gemm(method="fused" | "ll")`` at world 1
    (K6) at 2048 and 8 rows against the "xla" method;
 7. times: each kernel, its bound, its plain version and the PyTorch
-   library call for the same function, then prefill and decode times,
-   int8 against float decode in alternating windows;
+   library call for the same function, the host time of a K8 call, then
+   prefill and decode times, int8 against float decode in alternating
+   windows;
 8. profile: one traced prefill and eight traced decode steps of the
    Engine path (float and int8), and eight traced scheduler steps of each
    scheduler, with the device's busy share and the kernels that take its
@@ -162,6 +165,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -308,11 +312,24 @@ TP_CHECK_SHAPE, TP_CHECK_STEPS, TP_CHECK_REL_L2 = (4, 64), 3, 1e-4
 TP_REPEATS = 100
 TP_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
 
+#: Calls of K8's wrapper whose host time is averaged.
+HOST_CALLS = 500
+
 #: Device cycles (about 50 ms at the H100's 1.98 GHz boost clock) that the
 #: stream spins before a timed run.  Every timed run below is queued by the
 #: host well within that, so its launches run back to back and the events
 #: time the device, not the host's launch rate.
 QUEUE_AHEAD_CYCLES = 100_000_000
+
+
+def kernel_entry(mangled: str) -> str:
+    """A kernel's mangled name without the anonymous namespace that every
+    kernel of a library shares, cut to 64 characters: its own name and
+    template arguments."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if m:
+        mangled = mangled[m.end(1) + int(m.group(1)):]
+    return mangled[:64]
 
 
 def card_line() -> str:
@@ -373,8 +390,9 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 #: breakdown (first match wins); the port's own kernels first.
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
-                      "w8a8_kernel", "grouped_tile_", "ag_gemm_",
-                      "gemm_rs_", "ag_group_gemm_", "moe_reduce_rs_")),
+                      "w8a8_kernel", "grouped_tile_", "wgmma_grouped_",
+                      "ag_gemm_", "gemm_rs_", "ag_group_gemm_",
+                      "moe_reduce_rs_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
     ("elementwise and reductions", ("elementwise", "reduce", "index",
                                     "embedding", "softmax", "cat")),
@@ -3693,11 +3711,11 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels in "
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
-    for lib in ("flash_attention", "all_to_all", "sp_ag_attention",
-                "torus"):
+    for lib in ("flash_attention", "grouped_matmul", "all_to_all",
+                "sp_ag_attention", "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
-            f"{k[:48]} {regs} registers, spill stores {st} B, loads {ld} B"
-            for k, regs, st, ld in _build.resource_usage(lib)))
+            f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
+            f"loads {ld} B" for k, regs, st, ld in _build.resource_usage(lib)))
 
     # -- 3. kernels vs plain --------------------------------------------
     print("[kernels vs plain] out: atol=rtol=1e-2 (about one bf16 ulp at "
@@ -3982,6 +4000,28 @@ def main() -> int:
                       f"({ne}x{k}x{n}) out {out_dtype}", "grouped_matmul",
                       grouped_matmul(a, b, out_dtype),
                       grouped_matmul_reference(a, b, torch.float32))
+    # The tile promise: the same 16 rows an expert at other places inside
+    # buckets of 16, 64 and 256 rows (K8's 64- and 128-row wgmma tiles)
+    # give the same bits, and so does a second launch.
+    for nm, k, n, out_dtype in moe_products:
+        rows, b = randn(ne, MOE_DECODE_CAP, k), randn(ne, k, n) * k ** -0.5
+        outs = []
+        for cap, at in ((MOE_DECODE_CAP, 0), (64, 40), (MOE_PREFILL_CAP, 100)):
+            a = torch.zeros(ne, cap, k, device=dev, dtype=torch.bfloat16)
+            a[:, at:at + MOE_DECODE_CAP] = rows
+            outs.append(grouped_matmul(a, b, out_dtype)[
+                :, at:at + MOE_DECODE_CAP])
+        outs.append(grouped_matmul(a, b, out_dtype)[
+            :, at:at + MOE_DECODE_CAP])
+        torch.cuda.synchronize()
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        print(f"  grouped_matmul {nm} tile promise ({ne}x{{16,64,256}}x{k})@"
+              f"({ne}x{k}x{n}) out {out_dtype}: the same rows in buckets of "
+              f"16, 64 and 256 and a second launch "
+              f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("grouped_matmul: a row's product depends on "
+                                 "its bucket or differs between launches")
     a, b = randn(5, 37, 136), randn(5, 136, 200)
     gemm_case("grouped_matmul ragged (5x37x136)@(5x136x200) bf16",
               "grouped_matmul", grouped_matmul(a, b),
@@ -4609,6 +4649,32 @@ def main() -> int:
         if m == W8A8_ROWS[0]:
             records.append(("matmul", ms, plain, bms, by, lib))
     del k6_a, k6_b
+
+    # Host time a call of K8's wrapper: the wgmma path encodes two tensor
+    # maps on the host for every call, the f32 path encodes none; a decode
+    # step calls K8 96 times.  The device spins while the host queues the
+    # calls, so their time is the host's alone; windows alternate.
+    host = {torch.bfloat16: [], torch.float32: []}
+    ops = {dt: (torch.randn(8, 16, 256, generator=gen, device=dev).to(dt),
+                torch.randn(8, 256, 384, generator=gen, device=dev).to(dt))
+           for dt in host}
+    for dt in (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16):
+        grouped_matmul(*ops[dt])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            grouped_matmul(*ops[dt])
+        host[dt].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    print(f"[times] grouped_matmul (K8) host time a call, windows of "
+          f"{HOST_CALLS} calls of (8x16x256)@(8x256x384): bf16 (wgmma tile, "
+          f"two tensor maps encoded) "
+          + " / ".join(f"{us:.2f}" for us in host[torch.bfloat16])
+          + " us, f32 (no tensor map) "
+          + " / ".join(f"{us:.2f}" for us in host[torch.float32])
+          + f" us; {card}")
+    del ops
 
     # K4 (with its delta prologue) and K5 (reading K4's delta) each alone,
     # and the wrapper's pair, at both training shapes.  The plain version

@@ -599,11 +599,17 @@ def test_tiny_int8_scheduler_gpu_matches_cpu(cuda):
 
 GEMM_TOL = {torch.bfloat16: (2e-2, 1e-2, 0.0), torch.float32: (1e-4, 1e-5, 0.0)}
 
-#: (E, m, k, n): a decode bucket (16 rows, the 16-row tile), 64 rows (the
-#: 64-row tile), a prefill bucket (the 128-row tile), ragged m, n and k on
-#: 16-byte rows, k and n off 16-byte rows (loads by element), one group.
+#: (E, m, k, n): a decode bucket (16 rows) and 64 rows (the 64-row wgmma
+#: tile), a prefill bucket (the 128-row wgmma tile), ragged m, n and k on
+#: 16-byte rows, k and n off 16-byte rows (bf16: the mma.sync tile, loads
+#: by element), one group; then the wgmma tile's edges: m off 64 with
+#: E > 1 on each tile shape (a box past m must not read the next group's
+#: rows), k off the 64-deep stage, n off the 256-wide tile, and one group
+#: at K6's width (Qwen3-8B's gate_up).
 GROUPED_SHAPES = [(8, 16, 256, 384), (4, 64, 128, 256), (3, 256, 512, 640),
-                  (5, 37, 136, 200), (3, 70, 100, 77), (1, 130, 64, 96)]
+                  (5, 37, 136, 200), (3, 70, 100, 77), (1, 130, 64, 96),
+                  (6, 40, 128, 256), (4, 100, 256, 512), (2, 128, 200, 256),
+                  (2, 64, 128, 264), (1, 128, 4096, 24576)]
 
 
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])

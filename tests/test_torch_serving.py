@@ -301,6 +301,31 @@ def test_toy_scheduler_greedy_matches_jax(toy):
     assert sched.slots.radix.hit_tokens == 3 * 16
 
 
+def test_suffix_prefill_past_position_table_matches_jax(toy):
+    """A paged prefix hit whose suffix bucket runs past ``max_seq_len``:
+    the second request matches 40 tokens and its 17-token suffix takes
+    bucket 32 (positions 40-71 of a 64-row position table).  The padded
+    positions read the table's last row, as JAX's gather clamps, so both
+    schedulers give the same tokens."""
+    jm, params, tm = toy
+    rng = np.random.default_rng(11)
+    prefix = [int(t) for t in rng.integers(1, 61, 40)]
+    prompts = [prefix + [int(t) for t in rng.integers(1, 61, extra)]
+               for extra in (1, 17)]
+    kw = dict(num_slots=2, max_seq=64, prefill_buckets=(16, 32, 64),
+              page_size=8)
+
+    def reqs(cls):
+        return [cls(prompt=p, max_new_tokens=2, arrival_time=0.01 * i)
+                for i, p in enumerate(prompts)]
+
+    want = tokens_of(jax_sched(jm, params, "paged", **kw).run(
+        reqs(JaxRequest)))
+    sched, got = run_port(tm, "paged", reqs(Request), **kw)
+    assert sched.slots.radix.hit_tokens == 40
+    assert got == want and all(len(t) == 2 for t in got)
+
+
 @pytest.fixture(scope="module")
 def qwen():
     mesh = Mesh(np.array(jax.devices()[:1]), ("tp",))

@@ -1,10 +1,12 @@
 // One output tile of a row-major product out (M, N) = a (M, K) @ b (K, N),
-// f32 accumulation, written in bf16 or f32: the body of the grouped GEMM
-// (K8 and its one-group case K6, grouped_matmul.cu) and of the collective
-// GEMMs (K12 ag_gemm.cu, K14 gemm_rs.cu), which call it from persistent
-// blocks.  A caller that runs a second tile in the same block syncs the
-// block first (`__syncthreads()`): the shared ring of one tile is reused by
-// the next.
+// f32 accumulation, written in bf16 or f32: the body of the collective
+// GEMMs (K12 ag_gemm.cu, K14 gemm_rs.cu, K21c torus.cu, and through
+// tile_body.cuh K11 ag_group_gemm.cu and K10 moe_reduce_rs.cu), which call
+// it from persistent blocks, and of the grouped GEMM (K8, K6:
+// grouped_matmul.cu) for operands off 16-byte rows and f32 operands; K8
+// and K6 on 16-byte rows run the `wgmma` tile of wgmma_tile.cuh.  A
+// caller that runs a second tile in the same block syncs the block first
+// (`__syncthreads()`): the shared ring of one tile is reused by the next.
 //
 // bf16 (`Bf16Tile`): the tensor cores.  a and b tiles arrive by cp.async in
 // a ring of 2-4 stages, the copies of the next stages in flight while the

@@ -88,8 +88,13 @@ class ToyModel:
                                    quantized=cfg.quantize_kv_cache)
 
     def _kv(self, ids, positions):
+        """Token and position embedding, and its K and V.  Positions past
+        the table (a suffix prefill's padding beyond ``max_seq_len``) read
+        its last row, as the JAX toy's gather clamps; the paged insert
+        drops their K/V."""
         p = self.params
-        x = p["embed"][ids.long()] + p["pe"][positions.long()]
+        pos = positions.long().clamp(max=self.config.max_seq_len - 1)
+        x = p["embed"][ids.long()] + p["pe"][pos]
         return x, x @ p["wk"], x @ p["wv"]
 
     def prefill(self, ids, cache: KVCache):
