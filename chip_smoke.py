@@ -13,7 +13,9 @@ non-zero):
 3. kernels vs plain: each kernel against its plain PyTorch version, in
    f32 from the same bf16 inputs, at the main paths' shapes and edge
    cases; the paged decode kernels also bit for bit against the dense
-   ones over the same logical K/V (float and int8); the int8 GEMM bit for
+   ones over the same logical K/V (float and int8), and each row of K3's
+   and K3q's main-path state run alone bit for bit against the same row in
+   the batch; the int8 GEMM bit for
    bit against its exact plain version at the Qwen3-8B MLP shapes; the
    flash backward (K4 dq, K5 dk/dv) at the training shapes in bf16 and
    on ragged and negative-offset cases in f32, each output held row by
@@ -45,13 +47,13 @@ non-zero):
    the float weights; then ``ag_gemm(method="fused" | "ll")`` at world 1
    (K6) at 2048 and 8 rows against the "xla" method;
 7. times: each kernel, its bound, its plain version and the PyTorch
-   library call for the same function, the host time of a K8 call, then
-   prefill and decode times, int8 against float decode in alternating
-   windows;
+   library call for the same function, K3 at a capacity 16 times its
+   rows' need, the host time of a K3 and of a K8 call, then prefill and
+   decode times, int8 against float decode in alternating windows;
 8. profile: one traced prefill and eight traced decode steps of the
    Engine path (float and int8), and eight traced scheduler steps of each
-   scheduler, with the device's busy share and the kernels that take its
-   time;
+   scheduler, with the device's busy share, the kernels that take its
+   time and, for the schedulers, the device time a step;
 9. TP path: tensor parallelism at world 4, the 4 ranks in one process on
    the one card: K12 (``ag_gemm``) and K14 (``gemm_rs``) against their
    plain versions row by row in both methods at the Qwen3-8B shapes
@@ -324,12 +326,13 @@ QUEUE_AHEAD_CYCLES = 100_000_000
 
 def kernel_entry(mangled: str) -> str:
     """A kernel's mangled name without the anonymous namespace that every
-    kernel of a library shares, cut to 64 characters: its own name and
-    template arguments."""
-    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    kernel of a library shares (at the top or inside ``tdt``) and without
+    the leading ``_ZN``, cut to 64 characters: its own name and template
+    arguments."""
+    m = re.search(r"(\d+)_GLOBAL__N_", mangled)
     if m:
-        mangled = mangled[m.end(1) + int(m.group(1)):]
-    return mangled[:64]
+        mangled = mangled[:m.start()] + mangled[m.end(1) + int(m.group(1)):]
+    return mangled.removeprefix("_ZN")[:64]
 
 
 def card_line() -> str:
@@ -407,12 +410,14 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_phase(label: str, fn, card: str, top: int = 6) -> None:
+def profile_phase(label: str, fn, card: str, top: int = 6,
+                  steps: int = 0) -> None:
     """One traced call of ``fn`` under torch.profiler: its host time, the
     summed device time of its kernels (one stream, so no overlap), the
     device's busy share of the host time, the device time by kernel kind,
-    and the kernels that took most of it.  Tracing adds host time, so
-    the share is a lower bound."""
+    and the kernels that took most of it; with ``steps`` (the decode steps
+    ``fn`` runs), the device time a step and the decode kernels' share of
+    it.  Tracing adds host time, so the share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -441,6 +446,14 @@ def profile_phase(label: str, fn, card: str, top: int = 6) -> None:
     print(f"[profile] {label}: host {t_host:.2f} ms (traced), device "
           f"{dev_us / 1e3:.2f} ms, busy {dev_us / 1e3 / t_host:.0%}; "
           f"{card}; by kind: {by_kind}; top kernels: {tops}")
+    if steps:
+        dec = [e for e in kern if "decode_kernel" in e.key]
+        dec_us = sum(e.self_device_time_total for e in dec)
+        print(f"[profile] {label}: device {dev_us / 1e3 / steps:.3f} ms a "
+              f"step, of which the decode kernels (K2/K3) "
+              f"{dec_us / 1e3 / steps:.3f} ms in "
+              f"{sum(e.count for e in dec) / steps:.0f} launches; host "
+              f"{t_host / steps:.2f} ms a step (traced); {card}")
 
 
 def check_close(name, got, want, atol, rtol):
@@ -3656,8 +3669,9 @@ def main() -> int:
         _launch_bwd, flash_attention, flash_attention_backward,
         flash_attention_backward_reference, flash_attention_reference)
     from triton_distributed_tpu_torch.kernels.flash_decode import (
-        flash_decode, flash_decode_paged, flash_decode_paged_reference,
-        flash_decode_reference, gather_pages, quantize_kv)
+        DECODE_CHUNK, flash_decode, flash_decode_paged,
+        flash_decode_paged_reference, flash_decode_reference, gather_pages,
+        quantize_kv)
     from triton_distributed_tpu_torch.kernels.allgather_gemm import (
         AllGatherGEMMContext, ag_gemm, ag_gemm_w8a8)
     from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
@@ -3711,11 +3725,17 @@ def main() -> int:
     print(f"[build] {len(paths)} kernels in "
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
-    for lib in ("flash_attention", "grouped_matmul", "all_to_all",
-                "sp_ag_attention", "torus"):
+    for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
+                "grouped_matmul", "all_to_all", "sp_ag_attention", "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
-            f"loads {ld} B" for k, regs, st, ld in _build.resource_usage(lib)))
+            f"loads {ld} B, static shared {sm} B"
+            for k, regs, st, ld, sm in _build.resource_usage(lib)))
+    print(f"[build] decode kernels: chunks of {DECODE_CHUNK} positions, "
+          "dynamic shared memory (the stage buffers) "
+          + ", ".join(f"{nm} {2 * DECODE_CHUNK * 128 * size // 1024} KB"
+                      for nm, size in (("bf16", 2), ("f32", 4), ("int8", 1)))
+          + " at D = 128")
 
     # -- 3. kernels vs plain --------------------------------------------
     print("[kernels vs plain] out: atol=rtol=1e-2 (about one bf16 ulp at "
@@ -3790,9 +3810,30 @@ def main() -> int:
         kp[0] = vp[0] = 1e4
         k3_pools.append((kp, vp))
     k3_q = randn(SLOTS, 32, 128)
-    paged_case(f"q 8x32x128, pool {k3_pages}x8x16x128 (shuffled pages, "
-               f"null page 1e4), kv_len={list(K3_KV_LEN)}", k3_q,
-               *k3_pools[0], k3_table, k3_len)
+    k3_batch = paged_case(f"q 8x32x128, pool {k3_pages}x8x16x128 "
+                          f"(shuffled pages, null page 1e4), "
+                          f"kv_len={list(K3_KV_LEN)}", k3_q, *k3_pools[0],
+                          k3_table, k3_len)
+
+    def rows_alone(name, batch, call):
+        """Each row of K3's main-path state run alone (B = 1), bit for bit
+        against the same row in the batch, and the batch run again."""
+        again = call(slice(None))
+        if not all(torch.equal(a, b) for a, b in zip(again, batch)):
+            raise AssertionError(f"{name}: two calls of the batch differ")
+        for i in range(len(K3_KV_LEN)):
+            got = call(slice(i, i + 1))
+            if not all(torch.equal(a, b[i:i + 1])
+                       for a, b in zip(got, batch)):
+                raise AssertionError(f"{name}: row {i} (kv_len "
+                                     f"{K3_KV_LEN[i]}) alone differs from "
+                                     "the same row in the batch")
+        print(f"  {name}: each of the {len(K3_KV_LEN)} rows run alone "
+              "(B = 1) bit-identical to the batch, out and lse; the batch "
+              "again bit-identical")
+
+    rows_alone("flash_decode_paged", k3_batch, lambda r: flash_decode_paged(
+        k3_q[r], *k3_pools[0], k3_table[r].contiguous(), k3_len[r]))
     # Page sizes 16 and 24 (not a power of two), each bit for bit against
     # the dense kernel over the same logical K/V.
     kc, vc = randn(SLOTS, 8, MAX_SEQ, 128), randn(SLOTS, 8, MAX_SEQ, 128)
@@ -3854,15 +3895,21 @@ def main() -> int:
             code[0] = 127
             sc[0] = float("nan")
         k3q_pools.append((kp[0], vp[0], kp[1], vp[1]))
-    int8_case("flash_decode_paged_int8",
-              f"q 8x32x128, int8 pool {k3_pages}x8x16x128 (shuffled pages, "
-              f"null page codes 127, scales NaN), kv_len={list(K3_KV_LEN)}",
-              flash_decode_paged(k3_q, *k3q_pools[0][:2], k3_table, k3_len,
-                                 k_scale=k3q_pools[0][2],
-                                 v_scale=k3q_pools[0][3]),
-              flash_decode_paged_reference(
-                  k3_q.float(), *k3q_pools[0][:2], k3_table, k3_len,
-                  k_scale=k3q_pools[0][2], v_scale=k3q_pools[0][3]))
+    k3q_batch = int8_case(
+        "flash_decode_paged_int8",
+        f"q 8x32x128, int8 pool {k3_pages}x8x16x128 (shuffled pages, null "
+        f"page codes 127, scales NaN), kv_len={list(K3_KV_LEN)}",
+        flash_decode_paged(k3_q, *k3q_pools[0][:2], k3_table, k3_len,
+                           k_scale=k3q_pools[0][2], v_scale=k3q_pools[0][3]),
+        flash_decode_paged_reference(
+            k3_q.float(), *k3q_pools[0][:2], k3_table, k3_len,
+            k_scale=k3q_pools[0][2], v_scale=k3q_pools[0][3]))
+    rows_alone("flash_decode_paged_int8", k3q_batch,
+               lambda r: flash_decode_paged(
+                   k3_q[r], *k3q_pools[0][:2], k3_table[r].contiguous(),
+                   k3_len[r], k_scale=k3q_pools[0][2],
+                   v_scale=k3q_pools[0][3]))
+    del k3_batch, k3q_batch
     kq, vq, ksq, vsq = int8_cache(SLOTS, 8, MAX_SEQ, 128, kv_len=k3_len)
     dense = flash_decode(k3_q, kq, vq, k3_len, k_scale=ksq, v_scale=vsq)
     for ps in (PAGE, 24):
@@ -4536,7 +4583,47 @@ def main() -> int:
     bms, by = bound(nbytes(k3_q, k3_len, out) + kv_bytes + SLOTS * 32 * 4
                     + 4 * n_pages, 4 * 32 * d * n_pos)
     records.append(("flash_decode_paged", ms, plain, bms, by, lib))
-    del k3_pools
+    # What the chunks past every row's length cost: the same rows and pools
+    # through a table of 2,048 pages (a capacity of 32,768 positions), the
+    # added entries on the null page, in windows alternating with K3's.
+    wide_table = torch.zeros((SLOTS, 16 * MAX_SEQ // PAGE), dtype=torch.int32,
+                             device=dev)
+    wide_table[:, :MAX_SEQ // PAGE] = k3_table
+    wide = {MAX_SEQ: [], 16 * MAX_SEQ: []}
+    for cap in (MAX_SEQ, 16 * MAX_SEQ, 16 * MAX_SEQ, MAX_SEQ):
+        tbl = k3_table if cap == MAX_SEQ else wide_table
+        wide[cap].append(per_layer_ms(lambda k_, v_: flash_decode_paged(
+            k3_q, k_, v_, tbl, k3_len), k3_pools, 5))
+    print(f"[times] flash_decode_paged (K3) at its main-path state, capacity "
+          f"{MAX_SEQ} ({MAX_SEQ // DECODE_CHUNK} chunks a row) against "
+          f"{16 * MAX_SEQ} ({16 * MAX_SEQ // DECODE_CHUNK} chunks a row, the "
+          f"same lengths) in alternating windows: "
+          + "; ".join(f"{cap}: " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                      for cap, ts in wide.items()) + f"; {card}")
+    # Host time a call of K3's wrapper (the kernel's scratch and counters
+    # included), float against int8 pools in windows of HOST_CALLS calls
+    # in the order float, int8, int8, float; the device spins meanwhile.
+    host = {"float": [], "int8": []}
+    k3_calls = {
+        "float": lambda: flash_decode_paged(k3_q, *k3_pools[0], k3_table,
+                                            k3_len),
+        "int8": lambda: flash_decode_paged(
+            k3_q, *k3q_pools[0][:2], k3_table, k3_len,
+            k_scale=k3q_pools[0][2], v_scale=k3q_pools[0][3])}
+    for label in ("float", "int8", "int8", "float"):
+        k3_calls[label]()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            k3_calls[label]()
+        host[label].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    print(f"[times] flash_decode_paged (K3, one launch a call) host time a "
+          f"call at its main-path state, windows of {HOST_CALLS} calls: "
+          + ", ".join(f"{label} " + " / ".join(f"{us:.2f}" for us in ts)
+                      + " us" for label, ts in host.items()) + f"; {card}")
+    del k3_pools, wide_table
 
     # K2q at the int8 Engine path's decode state, the same kv_len and q as
     # K2 above: codes and scales from the int8 prefill and decode.  The SDPA
@@ -4796,7 +4883,8 @@ def main() -> int:
                       in window.items()) + f"; {card}")
     for label, sched in kept.items():
         profile_phase(f"scheduler {label} x8",
-                      lambda: [sched.step() for _ in range(8)], card)
+                      lambda: [sched.step() for _ in range(8)], card,
+                      steps=8)
 
     # -- 9. TP path ----------------------------------------------------
     # The serving phases are done: free their caches and schedulers.  The

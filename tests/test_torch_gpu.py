@@ -35,8 +35,9 @@ from triton_distributed_tpu_torch.kernels.flash_attention import (
     flash_attention_backward_reference, flash_attention_diff,
     flash_attention_reference)
 from triton_distributed_tpu_torch.kernels.flash_decode import (
-    flash_decode, flash_decode_paged, flash_decode_paged_reference,
-    flash_decode_reference, gather_pages, quantize_kv)
+    DECODE_CHUNK, flash_decode, flash_decode_paged,
+    flash_decode_paged_reference, flash_decode_reference, gather_pages,
+    quantize_kv)
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
     AllGatherGEMMContext, ag_gemm, ag_gemm_plain)
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
@@ -117,28 +118,38 @@ def test_flash_decode_kernel(cuda, dtype, d, group):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
-def _scatter_to_pages(gen, kc, vc, kv_len, ps):
-    """A pool holding the dense caches' positions below kv_len in
-    shuffled physical pages (page 0 filled with garbage), and its table;
-    pages past a row's length map to page 0."""
-    b, hkv, s, d = kc.shape
+def _paged_of(gen, cache, kv_len, ps):
+    """The pools and table holding a dense cache's positions below kv_len
+    in shuffled pages; the null page and every unmapped position hold
+    garbage (1e4, or codes 127 and NaN scales)."""
+    k, v, ks, vs = cache
+    b, hkv, s = k.shape[:3]
     t = -(-s // ps)
     need = [-(-int(n) // ps) for n in kv_len.tolist()]
-    p = 1 + sum(need)
-    perm = 1 + torch.randperm(p - 1, generator=gen, device=kc.device)
-    table = torch.zeros((b, t), dtype=torch.int32, device=kc.device)
-    kp = torch.full((p, hkv, ps, d), 1e4, dtype=kc.dtype, device=kc.device)
-    vp = torch.full_like(kp, -1e4)
+    perm = 1 + torch.randperm(sum(need), generator=gen, device=k.device)
+    table = torch.zeros((b, t), dtype=torch.int32, device=k.device)
     at = 0
     for i, n in enumerate(need):
         table[i, :n] = perm[at:at + n].to(torch.int32)
         at += n
-        for j in range(n):
-            lo, hi = j * ps, min((j + 1) * ps, s)
-            pg = int(table[i, j])
-            kp[pg, :, :hi - lo] = kc[i, :, lo:hi]
-            vp[pg, :, :hi - lo] = vc[i, :, lo:hi]
-    return kp, vp, table
+    mapped = table != 0
+    pools = []
+    for x, fill in ((k, 127 if ks is not None else 1e4),
+                    (v, 127 if ks is not None else -1e4),
+                    (ks, float("nan")), (vs, float("nan"))):
+        if x is None:
+            pools.append(None)
+            continue
+        tail = x.shape[3:]
+        padded = torch.full((b, hkv, t * ps, *tail), fill, dtype=x.dtype,
+                            device=x.device)
+        padded[:, :, :s] = x
+        blocks = padded.reshape(b, hkv, t, ps, *tail).transpose(1, 2)
+        pool = torch.full((1 + sum(need), hkv, ps, *tail), fill,
+                          dtype=x.dtype, device=x.device)
+        pool[table[mapped].long()] = blocks[mapped]
+        pools.append(pool)
+    return pools, table
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -154,7 +165,8 @@ def test_flash_decode_paged_kernel(cuda, dtype, d, group, page_size):
     kc = _randn(gen, dtype, cuda, b, hkv, s, d)
     vc = _randn(gen, dtype, cuda, b, hkv, s, d)
     kv_len = torch.tensor([1, 17, 150, s], dtype=torch.int32, device=cuda)
-    kp, vp, table = _scatter_to_pages(gen, kc, vc, kv_len, page_size)
+    (kp, vp, _, _), table = _paged_of(gen, (kc, vc, None, None), kv_len,
+                                      page_size)
     before = flash_decode_paged.launches
     out, lse = flash_decode_paged(q, kp, vp, table, kv_len)
     assert flash_decode_paged.launches == before + 1
@@ -435,27 +447,8 @@ def test_flash_decode_paged_int8_kernel(cuda, dtype, group, page_size):
     q = _randn(gen, dtype, cuda, b, hkv * group, d)
     kv_len = torch.tensor([1, 17, 150, s], dtype=torch.int32, device=cuda)
     k_q, v_q, ks, vs = _int8_kv(gen, cuda, b, hkv, s, d, kv_len)
-    t = -(-s // page_size)
-    need = [-(-int(n) // page_size) for n in kv_len.tolist()]
-    p = 1 + sum(need)
-    perm = 1 + torch.randperm(p - 1, generator=gen, device=cuda)
-    table = torch.zeros((b, t), dtype=torch.int32, device=cuda)
-    kp = torch.full((p, hkv, page_size, d), 127, dtype=torch.int8,
-                    device=cuda)
-    vp = torch.full_like(kp, 127)
-    ksp = torch.full((p, hkv, page_size), float("nan"), device=cuda)
-    vsp = torch.full_like(ksp, float("nan"))
-    at = 0
-    for i, n in enumerate(need):
-        table[i, :n] = perm[at:at + n].to(torch.int32)
-        at += n
-        for j in range(n):
-            lo, hi = j * page_size, min((j + 1) * page_size, s)
-            pg = int(table[i, j])
-            kp[pg, :, :hi - lo] = k_q[i, :, lo:hi]
-            vp[pg, :, :hi - lo] = v_q[i, :, lo:hi]
-            ksp[pg, :, :hi - lo] = ks[i, :, lo:hi]
-            vsp[pg, :, :hi - lo] = vs[i, :, lo:hi]
+    (kp, vp, ksp, vsp), table = _paged_of(gen, (k_q, v_q, ks, vs), kv_len,
+                                          page_size)
     before = flash_decode_paged.int8_launches
     out, lse = flash_decode_paged(q, kp, vp, table, kv_len, k_scale=ksp,
                                   v_scale=vsp)
@@ -470,6 +463,134 @@ def test_flash_decode_paged_int8_kernel(cuda, dtype, group, page_size):
     assert torch.equal(out, dense) and torch.equal(lse, dense_lse)
     assert torch.equal(gather_pages(ksp, table)[:, :, :s][
         ~ks.isnan()], ks[~ks.isnan()])
+
+
+# The split-KV body (csrc/decode_body.cuh) cuts each row into chunks of
+# DECODE_CHUNK positions and combines a row's chunks in order, inside the
+# launch; a row's result must not depend on the batch, the capacity or the
+# layout.
+CH = DECODE_CHUNK
+
+
+def _decode_cache(gen, device, dtype, quant, b, hkv, s, d, kv_len):
+    """(k, v, k_scale, v_scale) dense caches: float in ``dtype`` (scales
+    None), or int8 codes with NaN scales past kv_len."""
+    if quant:
+        return _int8_kv(gen, device, b, hkv, s, d, kv_len)
+    return (_randn(gen, dtype, device, b, hkv, s, d),
+            _randn(gen, dtype, device, b, hkv, s, d), None, None)
+
+
+def _decode(q, cache, kv_len, table=None):
+    k, v, ks, vs = cache
+    if table is None:
+        return flash_decode(q, k, v, kv_len, k_scale=ks, v_scale=vs)
+    return flash_decode_paged(q, k, v, table, kv_len, k_scale=ks,
+                              v_scale=vs)
+
+
+def _decode_reference(q, cache, kv_len, table=None):
+    k, v, ks, vs = cache
+    if ks is None:
+        k, v = k.float(), v.float()
+    if table is None:
+        return flash_decode_reference(q.float(), k, v, kv_len, k_scale=ks,
+                                      v_scale=vs)
+    return flash_decode_paged_reference(q.float(), k, v, table, kv_len,
+                                        k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page_size", [1, 16, 24])
+def test_flash_decode_chunk_edges(cuda, dtype, quant, page_size):
+    """Rows at CH - 1, CH, CH + 1 positions, several chunks and the full
+    capacity (not a multiple of CH): dense and paged against the plain
+    version, and bit for bit against each other."""
+    b, hkv, g, d, s = 5, 2, 4, 128, 4 * CH + 37
+    gen = torch.Generator(device=cuda).manual_seed(page_size * 5 + quant)
+    q = _randn(gen, dtype, cuda, b, hkv * g, d)
+    kv_len = torch.tensor([CH - 1, CH, CH + 1, 3 * CH + 5, s],
+                          dtype=torch.int32, device=cuda)
+    cache = _decode_cache(gen, cuda, dtype, quant, b, hkv, s, d, kv_len)
+    pools, table = _paged_of(gen, cache, kv_len, page_size)
+    counter = "int8_launches" if quant else "launches"
+    before = (getattr(flash_decode, counter),
+              getattr(flash_decode_paged, counter))
+    dense = _decode(q, cache, kv_len)
+    paged = _decode(q, pools, kv_len, table)
+    assert (getattr(flash_decode, counter),
+            getattr(flash_decode_paged, counter)) == tuple(
+                n + 1 for n in before)
+    ref, ref_lse = _decode_reference(q, cache, kv_len)
+    torch.cuda.synchronize()
+    assert bool(dense[0].isfinite().all())
+    torch.testing.assert_close(dense[0].float(), ref, **OUT_TOL[dtype])
+    torch.testing.assert_close(dense[1], ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(paged[0], dense[0]) and torch.equal(paged[1],
+                                                           dense[1])
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_capacity_far_above_lengths(cuda, quant, paged):
+    """A capacity of 16,384 positions over rows of 1..700: every chunk past
+    a row's length exits, and each row's out and lse are bit for bit those
+    of a capacity that just holds the longest row."""
+    b, hkv, g, d, wide, tight = 3, 2, 4, 128, 16384, 704
+    gen = torch.Generator(device=cuda).manual_seed(41 + quant + 2 * paged)
+    q = _randn(gen, torch.bfloat16, cuda, b, hkv * g, d)
+    kv_len = torch.tensor([1, 200, 700], dtype=torch.int32, device=cuda)
+    cache = _decode_cache(gen, cuda, torch.bfloat16, quant, b, hkv, wide, d,
+                          kv_len)
+    short = tuple(None if x is None else x[:, :, :tight].contiguous()
+                  for x in cache)
+    if paged:
+        cache, table = _paged_of(gen, cache, kv_len, 16)
+        short, short_table = _paged_of(gen, short, kv_len, 16)
+    else:
+        table = short_table = None
+    got = _decode(q, cache, kv_len, table)
+    want = _decode(q, short, kv_len, short_table)
+    ref, ref_lse = _decode_reference(q, short, kv_len, short_table)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0].float(), ref,
+                               **OUT_TOL[torch.bfloat16])
+    torch.testing.assert_close(got[1], ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_row_alone_matches_batch(cuda, quant, paged):
+    """Each row of an 8-row batch at the scheduler's lengths (1 .. 2048)
+    run alone (B = 1) gives out and lse bit for bit those of the batch, and
+    two back-to-back calls of the batch are bit-identical."""
+    lens = (1, 15, 16, 17, 513, 1000, 1928, 2048)
+    b, hkv, g, d, s = len(lens), 2, 4, 128, 2048
+    gen = torch.Generator(device=cuda).manual_seed(7 + quant + 2 * paged)
+    q = _randn(gen, torch.bfloat16, cuda, b, hkv * g, d)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    cache = _decode_cache(gen, cuda, torch.bfloat16, quant, b, hkv, s, d,
+                          kv_len)
+    table = None
+    if paged:
+        cache, table = _paged_of(gen, cache, kv_len, 16)
+    batch = _decode(q, cache, kv_len, table)
+    again = _decode(q, cache, kv_len, table)
+    torch.cuda.synchronize()
+    assert torch.equal(batch[0], again[0]) and torch.equal(batch[1],
+                                                           again[1])
+    for i in range(b):
+        if paged:
+            alone = _decode(q[i:i + 1], cache, kv_len[i:i + 1],
+                            table[i:i + 1].contiguous())
+        else:
+            alone = _decode(q[i:i + 1], tuple(
+                None if x is None else x[i:i + 1] for x in cache),
+                kv_len[i:i + 1])
+        assert torch.equal(alone[0], batch[0][i:i + 1]), f"row {i} out"
+        assert torch.equal(alone[1], batch[1][i:i + 1]), f"row {i} lse"
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])

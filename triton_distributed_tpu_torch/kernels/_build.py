@@ -87,10 +87,11 @@ def build(names) -> dict[str, Path]:
     return paths
 
 
-def resource_usage(name: str) -> list[tuple[str, int, int, int]]:
-    """(kernel, registers, spill store bytes, spill load bytes) of every
-    kernel of ``csrc/<name>.cu``, from ptxas's report of its build (the
-    kernel's mangled name)."""
+def resource_usage(name: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes, static
+    shared memory bytes) of every kernel of ``csrc/<name>.cu``, from
+    ptxas's report of its build (the kernel's mangled name).  Dynamic
+    shared memory is set at launch and is not in the report."""
     log = _library_path(name).with_suffix(".log").read_text()
     rows, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
@@ -105,7 +106,9 @@ def resource_usage(name: str) -> list[tuple[str, int, int, int]]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel is not None:
-            rows.append((kernel, int(m.group(1)), *spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((kernel, int(m.group(1)), *spills,
+                         int(smem.group(1)) if smem else 0))
             kernel = None
     return rows
 

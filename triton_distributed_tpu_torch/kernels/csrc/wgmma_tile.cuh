@@ -36,6 +36,7 @@
 #include <stdio.h>
 
 #include "gemm_tile.cuh"
+#include "mbarrier.cuh"
 
 namespace tdt {
 namespace wgmma {
@@ -50,60 +51,6 @@ constexpr int BOX_N = 64;      // n per TMA box of b: 128 bytes
 constexpr int ROW_BYTES = 128;     // a swizzled row
 constexpr int ATOM_BYTES = 1024;   // the swizzle atom: 8 rows of 128 bytes
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-
-// ---- mbarrier ------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// One arrival that also expects ``bytes`` of TMA transactions.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done;
-}
-
-// Until the barrier's phase is not ``parity``.  A wait that outlasts
-// SPIN_BUDGET_CYCLES (about 10 s at the H100's 1.98 GHz boost clock) traps,
-// so a fault in the ring's protocol fails the launch instead of hanging it.
-constexpr long long SPIN_BUDGET_CYCLES = 20000000000LL;
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > SPIN_BUDGET_CYCLES) {
-      printf("tdt wgmma: block %d thread %d waits on barrier %p for phase "
-             "%u\n", blockIdx.x, threadIdx.x, bar, parity ^ 1);
-      __trap();
-    }
-  }
-}
 
 // ---- TMA -----------------------------------------------------------------
 
@@ -250,7 +197,7 @@ struct Tile {
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], C * WG);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
     const int wg = threadIdx.x / WG;

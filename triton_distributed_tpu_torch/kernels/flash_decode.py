@@ -6,7 +6,10 @@ Port of `triton_distributed_tpu/kernels/flash_decode.py` `flash_decode`
 as the hand-written CUDA kernels ``csrc/flash_decode.cu`` and
 ``csrc/flash_decode_paged.cu``, which share one body
 (``csrc/decode_body.cuh``) and so agree bit for bit on the same logical
-K/V.  Both take a float cache or an int8 one with per-token f32 scales
+K/V.  The body splits each row's cache into chunks of `DECODE_CHUNK`
+positions, one block each, and combines a row's chunks in order inside the
+same launch, so a row's result does not depend on the other rows of the
+batch.  Both take a float cache or an int8 one with per-token f32 scales
 (``k_scale``/``v_scale``, from `quantize_kv`): the K scale multiplies the
 scores, the V scale the softmax weights.
 
@@ -42,13 +45,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _F, _P],
+    "flash_decode": [_P] * 10 + [_I] * 7 + [_F, _P],
 }
 _PAGED_SIGNATURES = {
-    "flash_decode_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _F, _P],
+    "flash_decode_paged": [_P] * 11 + [_I] * 9 + [_F, _P],
 }
+
+#: Positions per chunk of the decode kernels (``DECODE_CH`` of
+#: ``csrc/decode_body.cuh``, which refuses any other value): each (row, KV
+#: head) is cut into chunks of this many positions, one block each.
+DECODE_CHUNK = 128
+
+#: (device index, stream) -> the kernels' int32 counters, one per (row, KV
+#: head), zero between calls (the block that combines a row resets its own).
+_COUNTERS: dict = {}
 
 
 def quantize_kv(k, v):
@@ -158,11 +168,14 @@ def flash_decode(q, k_cache, v_cache, kv_len, *, k_scale=None, v_scale=None,
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     if out.numel():
         lib = _build.load_library("flash_decode", _SIGNATURES)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, cnt = _split_scratch(q, hkv, s, stream)
         rc = lib.flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), kv_len.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, hkv, s, d,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), _ptr(part), _ptr(cnt),
+            _build.DTYPE_CODES[q.dtype], b, h, hkv, s, d, DECODE_CHUNK,
+            float(scale), stream)
         _build.check(lib, rc, "flash_decode kernel launch")
         if k_scale is None:
             flash_decode.launches += 1
@@ -210,13 +223,14 @@ def flash_decode_paged(q, k_pool, v_pool, page_table, kv_len, *,
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
     if out.numel():
         lib = _build.load_library("flash_decode_paged", _PAGED_SIGNATURES)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part, cnt = _split_scratch(q, hkv, t * ps, stream)
         rc = lib.flash_decode_paged(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _build.DTYPE_CODES[q.dtype], b, h, hkv, p, ps,
-            t, d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            kv_len.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(part),
+            _ptr(cnt), _build.DTYPE_CODES[q.dtype], b, h, hkv, p, ps, t, d,
+            DECODE_CHUNK, float(scale), stream)
         _build.check(lib, rc, "flash_decode_paged kernel launch")
         if k_scale is None:
             flash_decode_paged.launches += 1
@@ -231,6 +245,27 @@ flash_decode_paged.int8_launches = 0
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _split_scratch(q, hkv, capacity, stream):
+    """The scratch of a kernel call over ``capacity`` positions a row: f32
+    partials, G * (D + 2) a (row, KV head, chunk), and the counters, or
+    (None, None) when one chunk holds every row.  The counters are kept per
+    device and stream (zeroed once, reset by the kernel), so calls on one
+    stream share them in order and two streams never do."""
+    chunks = -(-capacity // DECODE_CHUNK)
+    if chunks <= 1:
+        return None, None
+    b, h, d = q.shape
+    part = torch.empty(b * h * chunks * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    key = (q.device.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < b * hkv:
+        cnt = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
+                          device=q.device)
+        _COUNTERS[key] = cnt
+    return part, cnt
 
 
 def _check(name, q, k, v, kv_len, k_scale, v_scale):
