@@ -165,12 +165,15 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -1588,9 +1591,11 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
     torch.cuda.reset_peak_memory_stats()
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
+    wg0 = ag_gemm.wgmma_launches
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine.serve(prompts, GEN_LEN, cache=cache)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
+    wg12 = ag_gemm.wgmma_launches - wg0
     tokens = served[0]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
@@ -1602,10 +1607,14 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
           f"{t_serve[0]:.1f} ms (first call); launches {short(launches)} "
           f"(want {short(want)}: per layer one K11 and one K10 in prefill, "
           f"K12/K14 once a forward, ll in decode {ll}, decode's MoE on the "
-          f"xla path, two K8 a rank); peak memory {peak:.2f} GiB; {card}")
+          f"xla path, two K8 a rank); K12 on the wgmma body {wg12} of "
+          f"{launches['ag_gemm']}; peak memory {peak:.2f} GiB; {card}")
     if launches != want or ll != (nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"MoE TP launch counts {launches}, ll {ll} != "
                              f"{want}")
+    if wg12 != launches["ag_gemm"]:
+        raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12 "
+                             "launches left the wgmma body")
     if tokens.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError("MoE TP tokens: bad shape or outside the "
@@ -1873,6 +1882,18 @@ def tp_collective_bound(op: str, world: int, rows: int, k: int, n: int,
     return bound(moved * esize, flops)
 
 
+def ag_gemm_variants():
+    """`scripts/torch_ag_gemm_variants.py` of this checkout, which builds
+    K12's ablations from a copy of the sources."""
+    path = Path(__file__).resolve().parent / "scripts" / \
+        "torch_ag_gemm_variants.py"
+    spec = importlib.util.spec_from_file_location("torch_ag_gemm_variants",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
             expect, short, records, errs) -> None:
     """The TP path: Qwen3-8B at world TP_WORLD in mode ``fused``, the W
@@ -1895,9 +1916,15 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
        world-1 run's ``tokens``) within 3x the world-1 run's bf16 error
        (``floor``) of the world-1 logits;
     4. K12 and K14 times per method at the prefill and decode shapes with
-       their bounds, plain versions and library yardsticks; world-4 prefill
-       and decode beside world 1 in alternating windows; one traced
-       prefill and eight traced decode steps.
+       their bounds, plain versions and library yardsticks; K12 at decode
+       without its GEMM (`scripts/torch_ag_gemm_variants.py`'s ``nogemm``
+       build), the protocol alone; world-4 prefill and decode beside world 1 in
+       alternating windows; one traced prefill and eight traced decode
+       steps.
+
+    Every K12 call reports the body it ran (the `wgmma` + TMA ring on bf16
+    16-byte rows, else the first bodies), checked against `kernel_body`;
+    the world-4 `Engine.serve` runs every K12 launch on the `wgmma` body.
 
     On one card every put is a copy inside one HBM: the times say what the
     GEMMs and the copies cost here, not what NVLink overlap would buy.  The
@@ -1905,7 +1932,7 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     end."""
     from triton_distributed_tpu_torch import Engine, Qwen3
     from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-        AllGatherGEMMContext, ag_gemm, ag_gemm_plain)
+        AllGatherGEMMContext, ag_gemm, ag_gemm_plain, kernel_body)
     from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
         GEMMReduceScatterContext, gemm_rs, gemm_rs_plain)
     from triton_distributed_tpu_torch.language.core import (
@@ -1956,17 +1983,28 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
         ("ragged", "gemm_rs", 2, 2 * 100, 1024, 768, bf16),
         ("ragged f32", "ag_gemm", 8, 37, 512, 384, f32),
         ("ragged f32", "gemm_rs", 8, 8 * 37, 512, 384, f32),
+        ("off 16-byte rows", "ag_gemm", 3, 5, 100, 77, bf16),
     ]
     timed = {}
     for label, op, world, rows, k, n, dtype in cases:
         a, b = operands(op, world, rows, k, n, dtype)
         ref = plain(op, a.float(), b.float())
         for method in ("fused", "ll"):
+            wg0 = ag_gemm.wgmma_launches
             out = run(op, world, method, a, b)
             torch.cuda.synchronize()
+            body = ""
+            if op == "ag_gemm":
+                took = ag_gemm.wgmma_launches - wg0
+                want_body = kernel_body(a, b)
+                body = f", body {'wgmma' if took else want_body}"
+                if (took == 1) != (want_body == "wgmma"):
+                    raise AssertionError(f"ag_gemm {label} {method}: "
+                                         f"{took} wgmma launches for a "
+                                         f"{want_body} operand")
             e = check_rows(f"{op} {label} world {world} {method} "
-                           f"a{tuple(a.shape)} b{tuple(b.shape)} {dtype}",
-                           out, ref, *TP_TOL[dtype], 0.0)
+                           f"a{tuple(a.shape)} b{tuple(b.shape)} {dtype}"
+                           f"{body}", out, ref, *TP_TOL[dtype], 0.0)
             errs[op] = max(errs[op], e)
         if world == w:
             timed[(op, label)] = (a, b, rows, k, n)
@@ -1990,6 +2028,25 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
                 raise AssertionError(f"{op} {method}: a back-to-back call "
                                      "disagrees with its plain version")
             del ins, outs
+    # A row's bits on the Hopper body whatever the call's rows and method:
+    # rank r's first row alone (the narrow decode tile), inside 16 rows a
+    # rank (the 64-row tile) and 17 (the 128-row tile), ll and fused.
+    for label in ("decode QKV", "decode gate_up"):
+        k, n = timed[("ag_gemm", label)][3:]
+        a, b = operands("ag_gemm", w, 17, k, n, bf16)
+        first, same = None, []
+        for rows in (1, 16, 17):
+            for method in ("ll", "fused"):
+                row = run("ag_gemm", w, method, a[:, :rows].contiguous(),
+                          b).reshape(w, w, rows, n)[:, :, 0]
+                first = row if first is None else first
+                same.append(torch.equal(row, first))
+        print(f"  ag_gemm {label} world {w} k {k} n {n}: a row alone, in 16 "
+              f"and in 17 rows a rank, ll and fused: bit for bit "
+              f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise AssertionError(f"ag_gemm {label}: a row's bits depend on "
+                                 "the other rows or the method")
 
     # -- 2. card vs CPU, 2 layers in f32
     two = dataclasses.replace(cfg, num_layers=2, dtype="float32")
@@ -2039,15 +2096,18 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     cache4 = model4.create_cache(BATCH, max_seq=CACHE_SEQ)
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
+    wg0 = ag_gemm.wgmma_launches
     torch.cuda.reset_peak_memory_stats()
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine4.serve(prompts, GEN_LEN, cache=cache4)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
+    wg12 = ag_gemm.wgmma_launches - wg0
     tokens4 = served[0]
     print(f"[tp path] Engine.serve at world {w}, {BATCH} requests x {PROMPT} "
           f"prompt tokens, gen_len {GEN_LEN}, greedy: {t_serve[0]:.1f} ms "
           f"(first call); launches {short(launches)}, of which ll: K12 "
-          f"{ll[0]}, K14 {ll[1]}; tokens equal to the world-1 run's: "
+          f"{ll[0]}, K14 {ll[1]}; K12 on the wgmma body {wg12}; tokens "
+          f"equal to the world-1 run's: "
           f"{int((tokens4 == tokens).sum())} of {tokens.numel()}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
@@ -2055,6 +2115,9 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     if launches != want or ll != (2 * nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"TP launch counts {launches}, ll {ll} != "
                              f"{want}")
+    if wg12 != launches["ag_gemm"]:
+        raise AssertionError(f"TP: {launches['ag_gemm'] - wg12} K12 "
+                             "launches left the wgmma body")
     if tokens4.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens4 >= 0) & (tokens4 < cfg.vocab_size)).all()):
         raise AssertionError("world-4 tokens: bad shape or outside the "
@@ -2086,9 +2149,12 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
           "(every put a copy inside one HBM, no NVLink); CUDA events; "
           f"library: one bf16 cuBLAS product, GEMM only, no gather or "
           f"scatter; {card}")
+    k12 = {}
     for (op, label), (a, b, rows, k, n) in timed.items():
         ms = {method: time_ms(lambda: run(op, w, method, a, b), 20)
               for method in ("fused", "ll")}
+        if op == "ag_gemm":
+            k12[label] = ms
         plain_ms = time_ms(lambda: plain(op, a, b), 3)
         if op == "ag_gemm":
             full = a.reshape(-1, k)
@@ -2111,6 +2177,35 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
                              "library_note": lib_name + ", no gather or "
                              "scatter (one card: the collective's copies "
                              "stay in one HBM)"}))
+    variants = ag_gemm_variants()
+    path, tmp = variants.build_variant("nogemm")
+    undo = variants.use_variant(path, True)
+    try:
+        for label in ("decode QKV", "decode gate_up"):
+            a, b = timed[("ag_gemm", label)][:2]
+            bare = {method: time_ms(lambda: run("ag_gemm", w, method, a, b),
+                                    20)
+                    for method in ("fused", "ll")}
+            print(f"[times] K12 {label} a{tuple(a.shape)} "
+                  f"b{tuple(b.shape)} without its GEMM (the protocol "
+                  "alone: entry barrier, copies, signals, arrival "
+                  f"waits, launch): fused {bare['fused']:.4f} ms, ll "
+                  f"{bare['ll']:.4f} ms, beside the full call's "
+                  f"{k12[label]['fused']:.4f} / {k12[label]['ll']:.4f} "
+                  "ms: the GEMM and its epilogue "
+                  f"{1 - bare['fused'] / k12[label]['fused']:.0%} / "
+                  f"{1 - bare['ll'] / k12[label]['ll']:.0%} of the call; "
+                  f"{card}")
+            k12[label]["protocol"] = bare
+    finally:
+        undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec in records:
+        if rec[0] == "ag_gemm":
+            rec[6].update({"body": "wgmma", **{
+                f"{label} {method}_ms".replace(" ", "_"): v
+                for label, ms in k12.items() for method, v in ms.items()
+                if method != "protocol"}})
     del timed
 
     window = {"world 1": [], f"world {w}": []}
@@ -3455,7 +3550,9 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
             got["sp2d"] = sp.sp_ag_attention_2d(q, k, v, hctx)
         torch.cuda.synchronize()
 
+    wg0 = ag_gemm.wgmma_launches
     launches = counted(main_path)
+    wg12 = ag_gemm.wgmma_launches - wg0
     want = expect(all_gather_torus=2 * len(GRID_TIMED),
                   reduce_scatter_torus=2 * len(GRID_TIMED) + 1,
                   ag_gemm_torus=1, matmul=4, all_gather=3 * dcn,
@@ -3468,10 +3565,14 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
           f"at (dcn, ici) = {GRID_HIER}: the four hierarchical collectives, "
           f"the two GEMMs, HierarchicalEPAll2AllLayer ({EP_TOKENS} tokens a "
           f"rank, top {topk} of {e}) and sp_ag_attention_2d over "
-          f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}")
+          f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}; K12 "
+          f"(_ag_gemm_2d) on the wgmma body {wg12} of {launches['ag_gemm']}")
     if launches != want:
         raise AssertionError(f"grid path launches {short(launches)} != "
                              f"{short(want)}")
+    if wg12 != launches["ag_gemm"]:
+        raise AssertionError("grid path: a K12 launch of _ag_gemm_2d left "
+                             "the wgmma body")
 
     # -- 3. checks
     with torch.inference_mode():
@@ -3726,7 +3827,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
-                "grouped_matmul", "all_to_all", "sp_ag_attention", "torus"):
+                "grouped_matmul", "ag_gemm", "all_to_all", "sp_ag_attention",
+                "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"

@@ -950,18 +950,27 @@ def test_moe_layer_w8a8_gpu_matches_cpu(cuda):
 #: world (loads and copies by element).
 TP_SHAPES = [(4, 64, 256, 384), (4, 1, 512, 256), (2, 37, 136, 200),
              (8, 16, 128, 96), (3, 5, 100, 77)]
+#: K12 alone, beside TP_SHAPES: Qwen3-8B's decode QKV slice at one row a
+#: rank (ll on the narrow 64 x 64 tile, 24 of the rank's 33 blocks), a
+#: prefill of several
+#: waves with m and n off the tile, and world 8 at 16 rows a rank with n =
+#: 1536 (16 blocks a rank).
+AG_SHAPES = TP_SHAPES + [(4, 1, 4096, 1536), (4, 200, 512, 1000),
+                         (8, 16, 1024, 1536)]
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("world,m,k,n", TP_SHAPES)
+@pytest.mark.parametrize("world,m,k,n", AG_SHAPES)
 def test_ag_gemm_kernel(cuda, method, dtype, world, m, k, n):
     """K12 against its plain version, row by row, over 5 back-to-back calls
     with fresh inputs (stale signals would show); the gathered A exactly;
-    one launch a call."""
+    one launch a call, on the Hopper body exactly when the operands are
+    bf16 on 16-byte rows (f32 and the off-16-byte case keep the first
+    bodies)."""
     gen = torch.Generator(device=cuda).manual_seed(world * 1000 + m + k + n)
     ctx = AllGatherGEMMContext("tp", world, method)
-    before = ag_gemm.launches
+    before = (ag_gemm.launches, ag_gemm.wgmma_launches)
     for _ in range(5):
         a = _randn(gen, dtype, cuda, world, m, k)
         b = _randn(gen, dtype, cuda, world, k, n) * k ** -0.5
@@ -972,7 +981,54 @@ def test_ag_gemm_kernel(cuda, method, dtype, world, m, k, n):
         assert torch.equal(gathered, a.reshape(1, world * m, k).expand(
             world, -1, -1))
         _assert_rows_close("ag_gemm", out, ref, *GEMM_TOL[dtype])
-    assert ag_gemm.launches == before + 5
+    wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+    assert (ag_gemm.launches - before[0],
+            ag_gemm.wgmma_launches - before[1]) == (5, 5 if wgmma else 0)
+
+
+@pytest.mark.parametrize("world,k,n", [(4, 4096, 1536), (4, 4096, 6144),
+                                       (8, 1024, 1536)])
+def test_ag_gemm_decode_row_alone(cuda, world, k, n):
+    """The decode form (ll at one row a rank, on the narrow tile where the
+    wide one leaves blocks idle) is deterministic and a row's result
+    depends on its own row only: rank 0's row gives the same bits whatever
+    the other ranks' rows hold."""
+    gen = torch.Generator(device=cuda).manual_seed(world + k + n)
+    ctx = AllGatherGEMMContext("tp", world, "ll")
+    a = _randn(gen, torch.bfloat16, cuda, world, 1, k)
+    b = _randn(gen, torch.bfloat16, cuda, world, k, n) * k ** -0.5
+    out = ag_gemm(a, b, ctx)
+    again = ag_gemm(a, b, ctx)
+    other = a.clone()
+    other[1:] = _randn(gen, torch.bfloat16, cuda, world - 1, 1, k)
+    moved = ag_gemm(other, b, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, 0], moved[:, 0])
+
+
+@pytest.mark.parametrize("world,k,n", [(4, 4096, 1536), (4, 512, 1000),
+                                       (2, 1024, 4096), (4, 4096, 6144)])
+def test_ag_gemm_row_independent_of_batch_and_method(cuda, world, k, n):
+    """On the Hopper body a row's bits do not depend on how many rows the
+    call holds or on the method: every rank's first row alone (the narrow
+    decode tile, or the wide one for gate_up's 6144 columns), inside 16
+    rows a rank (the 64-row tile), 17 (the 128-row tile at world 4) and
+    200 (several waves), in ``ll`` and ``fused``, gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(world * 7 + k + n)
+    a = _randn(gen, torch.bfloat16, cuda, world, 200, k)
+    b = _randn(gen, torch.bfloat16, cuda, world, k, n) * k ** -0.5
+    first = None
+    for rows in (1, 16, 17, 200):
+        for method in ("ll", "fused"):
+            wg0 = ag_gemm.wgmma_launches
+            out = ag_gemm(a[:, :rows].contiguous(), b,
+                          AllGatherGEMMContext("tp", world, method))
+            assert ag_gemm.wgmma_launches == wg0 + 1
+            row = out.reshape(world, world, rows, n)[:, :, 0]
+            if first is None:
+                first = row
+            assert torch.equal(row, first), (rows, method)
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])

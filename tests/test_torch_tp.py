@@ -47,7 +47,7 @@ from triton_distributed_tpu.ops import shard_map_op
 from triton_distributed_tpu_torch import (
     ContinuousBatchingScheduler, Engine, ModelConfig, PagedKVCache, Qwen3)
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-    AllGatherGEMMContext, ag_gemm)
+    AllGatherGEMMContext, ag_gemm, kernel_body, ll_tile_n)
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     GEMMReduceScatterContext, gemm_rs)
 from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
@@ -114,10 +114,13 @@ def _stack_columns(w, world):
 #: (world, rows a rank, dtype): world 2 in f32, world 4 in bf16 on a row
 #: count that pads to the row tile.
 KERNEL_CASES = [(2, 16, "float32"), (4, 5, "bfloat16")]
+#: K12 also at the decode shape: one row a rank at world 4 in bf16 (JAX
+#: pads it to 16 rows; the port's Hopper body gathers the 4 rows alone).
+AG_CASES = KERNEL_CASES + [(4, 1, "bfloat16")]
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])
-@pytest.mark.parametrize("world,m,dtype", KERNEL_CASES)
+@pytest.mark.parametrize("world,m,dtype", AG_CASES)
 def test_ag_gemm_matches_jax(meshes, world, m, dtype, method):
     """out_r = all_gather(a) @ b_r on every rank, and the gathered A."""
     k, n = 128, 128
@@ -141,6 +144,34 @@ def test_ag_gemm_matches_jax(meshes, world, m, dtype, method):
                tol)
         _close(gathered[r],
                np.asarray(want_g, np.float32)[:, r * k:(r + 1) * k], F32)
+
+
+def test_ag_gemm_body_by_operand():
+    """K12's body follows the operands alone: bf16 on 16-byte rows takes
+    the Hopper body, bf16 off them (k or n not a multiple of 8, or an
+    operand off 16-byte alignment) the `mma.sync` tile, f32 the f32 tile."""
+    bf16 = torch.bfloat16
+    a, b = torch.zeros(4, 1, 4096, dtype=bf16), torch.zeros(4, 4096, 1536,
+                                                           dtype=bf16)
+    assert kernel_body(a, b) == "wgmma"
+    assert kernel_body(a.float(), b.float()) == "f32"
+    assert kernel_body(torch.zeros(3, 5, 100, dtype=bf16),
+                       torch.zeros(3, 100, 77, dtype=bf16)) == "mma"
+    assert kernel_body(torch.zeros(3, 5, 100, dtype=bf16),
+                       torch.zeros(3, 100, 72, dtype=bf16)) == "mma"
+    flat = torch.zeros(4 * 4096 + 1, dtype=bf16)
+    assert kernel_body(flat[1:].view(4, 1, 4096), b) == "mma"
+
+
+@pytest.mark.parametrize("n,blocks,want", [
+    (1536, 33, 64), (6144, 33, 256), (1536, 16, 256), (4096, 66, 64),
+    (2112, 33, 64), (2120, 33, 256)])
+def test_ag_gemm_ll_tile_n(n, blocks, want):
+    """The decode form's tile width: narrow (64) while its column tiles fit
+    one wave of the rank's blocks.  Qwen3-8B's QKV (n 1536) and gate_up
+    (6144) slices at world 4 (33 blocks a rank), 8 (16) and 2 (66), and
+    the edge at 33 blocks: 33 narrow tiles, then 34."""
+    assert ll_tile_n(n, blocks) == want
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])

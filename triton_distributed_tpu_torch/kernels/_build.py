@@ -47,29 +47,35 @@ def _nvcc() -> str:
         "triton_distributed_tpu_torch are built from source at first use")
 
 
-def _library_path(name: str) -> Path:
+def _library_path(name: str, csrc: Path | None = None,
+                  build_dir: Path | None = None) -> Path:
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names) -> dict[str, Path]:
+def build(names, csrc: Path | None = None,
+          build_dir: Path | None = None) -> dict[str, Path]:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` per source, all started together.  Returns name -> path."""
-    paths = {n: _library_path(n) for n in names}
+    ``nvcc`` per source, all started together.  Returns name -> path.
+    ``csrc`` and ``build_dir`` (default: the package's) build another copy
+    of the sources, such as a measurement's variant of a kernel."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    paths = {n: _library_path(n, csrc, build_dir) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n, p in todo.items():
         fd, tmp = tempfile.mkstemp(prefix=f".{p.name}.", suffix=".tmp",
-                                   dir=BUILD_DIR)
+                                   dir=build_dir)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(csrc / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))
@@ -119,13 +125,19 @@ def load_library(name: str, signatures: dict) -> ctypes.CDLL:
     cudaError_t code as int."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.tdt_error_string.argtypes = [ctypes.c_int]
-        lib.tdt_error_string.restype = ctypes.c_char_p
+        lib = load_path(build([name])[name], signatures)
         _loaded[name] = lib
+    return lib
+
+
+def load_path(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load the built library at ``path`` with ``signatures``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.tdt_error_string.argtypes = [ctypes.c_int]
+    lib.tdt_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -13,9 +13,19 @@ n_loc).  On the card that is one launch of ``csrc/ag_gemm.cu`` (K12) over
 every rank: ``"fused"`` the ring that multiplies each chunk as it arrives
 (JAX `_ag_gemm_fused_kernel`), ``"ll"`` the one-shot push then one GEMM
 (`_ag_gemm_ll_kernel`); ``"xla"`` gathers by reshape and runs a library
-product.  Both kernel methods reduce the whole of k for every row, so the
-choice does not change the result.  Rows are padded to the row tile and
-sliced back, as the JAX wrapper does.  ``"auto"`` takes the JAX shape-only
+product.  Which body a launch runs depends on the operands only
+(`kernel_body`): bf16 on 16-byte rows (k and n multiples of 8, 16-byte
+aligned; every main-path call) the Hopper body, PR 11's `wgmma` + TMA tile
+fed by the ring, on the unpadded rows, and at decode (``ll`` with W*m <= 64
+gathered rows) on 64-column tiles where the 256-column ones leave blocks
+of a rank idle (`ll_tile_n`); f32, and bf16 off 16-byte rows, the first
+bodies (the `mma.sync` and f32 tiles), on rows padded to their row tile
+and sliced back, as the JAX wrapper does.  Both kernel methods reduce the
+whole of k for every row in one order, so on one body the choice does not
+change the result, and on the Hopper body neither do the other rows of
+the call (every tile shape and width gives an element the same bits);
+the two bodies sum in other orders, so their outputs differ within bf16
+rounding.  ``"auto"`` takes the JAX shape-only
 rule: ``"ll"`` while the padded gathered rows are at most 256, else
 ``"fused"``; the model-driven `choose_ll_or_fused` rests on the TPU's ICI
 constants and waits for a model of this card's.  The fault-injection
@@ -63,7 +73,12 @@ METHODS = ("auto", "fused", "ll", "xla")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"ag_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, ctypes.c_uint64, ctypes.POINTER(_I), _P]}
+                           _I, ctypes.c_uint64, _I, _I, ctypes.POINTER(_I),
+                           _P]}
+
+#: The Hopper body's tile widths (columns), and the most gathered rows of
+#: its one-consumer tile, on which ``ll`` may take the narrow width.
+WGMMA_TILE_N, WGMMA_NARROW_N, WGMMA_DECODE_ROWS = 256, 64, 64
 _W8A8_SIGNATURES = {"ag_gemm_w8a8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, ctypes.c_uint64,
                                      ctypes.POINTER(_I), _P]}
@@ -110,6 +125,29 @@ class AllGatherGEMMContext:
         return "ll" if rows <= self.LL_MAX_GATHERED_ROWS else "fused"
 
 
+def kernel_body(a_shard, b) -> str:
+    """The K12 body a launch on these operands runs: "wgmma" for bf16 on
+    16-byte rows (k and n multiples of 8, both operands 16-byte aligned),
+    "mma" for other bf16 (the `mma.sync` tile, loads by element), "f32"
+    (CUDA cores).  By operand only; nothing falls back on a failure."""
+    if a_shard.dtype != torch.bfloat16:
+        return "f32"
+    k, n = a_shard.shape[-1], b.shape[-1]
+    aligned = a_shard.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    return "wgmma" if k % 8 == 0 and n % 8 == 0 and aligned else "mma"
+
+
+def ll_tile_n(n: int, blocks: int) -> int:
+    """The column width of the ``ll`` Hopper body's tile at decode: 64 (the
+    narrow m64n64k16 tile) while ceil(n / 64) column tiles fit one wave of
+    ``blocks`` blocks a rank, else 256.  (Qwen3-8B at world 4, 33 blocks a
+    rank: QKV's 1536 columns take 24 narrow tiles where 6 wide ones would
+    leave 27 blocks idle; gate_up's 6144 keep 24 wide tiles.)  The width
+    changes no bit of the result, only how many blocks stream b."""
+    narrow = -(-n // WGMMA_NARROW_N) <= blocks
+    return WGMMA_NARROW_N if narrow else WGMMA_TILE_N
+
+
 def ag_gemm_plain(a_shard, b):
     """The plain version at world W: gather by reshape, an f32 product
     with every rank's shard of b, cast to a's dtype.  a_shard (W, m, k),
@@ -126,8 +164,9 @@ def ag_gemm(a_shard, b, ctx: AllGatherGEMMContext,
     itself.  World W: a_shard (W, m, k), b (W, k, n) -> (W, W*m, n), and
     the gathered A (W, W*m, k) (every rank's copy).  The kernel takes bf16
     or f32, both operands alike and contiguous, at most 8 ranks; anything
-    else raises.  Each launch of K12 adds one to ``ag_gemm.launches`` (and
-    an ``ll`` launch also to ``ag_gemm.ll_launches``)."""
+    else raises.  Each launch of K12 adds one to ``ag_gemm.launches`` (an
+    ``ll`` launch also to ``ag_gemm.ll_launches``, one of the Hopper body
+    also to ``ag_gemm.wgmma_launches``)."""
     from triton_distributed_tpu_torch.kernels.hierarchical import (
         HierarchicalContext)
     from triton_distributed_tpu_torch.kernels.torus import (
@@ -163,36 +202,43 @@ def ag_gemm(a_shard, b, ctx: AllGatherGEMMContext,
 
 ag_gemm.launches = 0
 ag_gemm.ll_launches = 0
+ag_gemm.wgmma_launches = 0
 
 
 def _launch(a_shard, b, ctx, method, return_gathered):
     world, m, k = a_shard.shape
     n = b.shape[2]
+    dev = a_shard.device
     _check(a_shard, b, world)
-    mp = round_up_rows(m, a_shard.dtype)
+    wgmma = kernel_body(a_shard, b) == "wgmma"
+    mp = m if wgmma else round_up_rows(m, a_shard.dtype)
     a_p = a_shard
     if mp != m:
         a_p = a_shard.new_zeros((world, mp, k))
         a_p[:, :m] = a_shard
     inst = symmetric_buffers("ag_gemm", ctx.collective_id, method,
-                             a_shard.dtype, world, a_shard.device,
-                             group=ctx.group)
+                             a_shard.dtype, world, dev, group=ctx.group)
     gathered = inst.buffer("gathered", (world, mp, k), a_shard.dtype)
-    out = torch.empty((world, world, mp, n), dtype=a_shard.dtype,
-                      device=a_shard.device)
+    out = torch.empty((world, world, mp, n), dtype=a_shard.dtype, device=dev)
+    narrow = False
+    if wgmma and method == "ll" and world * m <= WGMMA_DECODE_ROWS:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        narrow = ll_tile_n(n, sms // world) == WGMMA_NARROW_N
     blocks = ctypes.c_int(0)
     lib = _build.load_library("ag_gemm", _SIGNATURES)
     rc = lib.ag_gemm(
         a_p.data_ptr(), b.data_ptr(), out.data_ptr(), inst.peers(gathered),
         inst.signal_peers(), world, 0, world, int(method == "ll"),
-        _build.DTYPE_CODES[a_shard.dtype], mp, n, k, inst.epoch,
-        ctypes.byref(blocks),
-        torch.cuda.current_stream(a_shard.device).cuda_stream)
+        _build.DTYPE_CODES[a_shard.dtype], mp, n, k, inst.epoch, int(wgmma),
+        int(narrow), ctypes.byref(blocks),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"ag_gemm ({method}) kernel launch")
     inst.advance(blocks.value)
     ag_gemm.launches += 1
     if method == "ll":
         ag_gemm.ll_launches += 1
+    if wgmma:
+        ag_gemm.wgmma_launches += 1
     if mp != m:
         out = out[:, :, :m]
     out = out.reshape(world, world * m, n)

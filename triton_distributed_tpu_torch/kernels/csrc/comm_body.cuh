@@ -15,6 +15,10 @@
 //   output type (`reduce_sum_to` stores it to several ranks at once);
 // - `add_into`: port of reduce_scatter.py `emit_add_into` (:120), one
 //   f32 add of two chunks rounded to their type, over a block's range;
+// - `Crew` and the crew forms `emit_ag_ring_forward` (the ring's copies
+//   and signals alone) and `emit_push_allgather_send` (the push alone),
+//   with `ring_wait_chunk`, the consumer's wait: K12's `wgmma` body, where
+//   spare warps communicate while the others compute;
 // - `Faults` and `inject_faults`: the contexts' straggler and
 //   for_correctness knobs (language/core.py :304, :331);
 // - `launch_cooperative`: the launch of every collective kernel.
@@ -271,6 +275,154 @@ __device__ __forceinline__ void emit_ag_ring(const dl::Team& t,
     }
     compute(c, held);
   }
+}
+
+// ---- crews: the communication of a warp-specialised block ----------------
+//
+// A crew is the threads [0, n) of some whole warps of a block that sync
+// among themselves on named barrier ``id`` (never `__syncthreads`), so they
+// move and signal data while the block's other warps compute.  K12's
+// `wgmma` body runs its ring on the producer warpgroup's three spare warps
+// (`wgmma_tile.cuh`).  Its copies are inlined 16-byte loops: the crew runs
+// at the producer's 40 registers, where a call of `dl::put_nbi` would
+// spill.
+struct Crew {
+  int tid, n, id;
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+  }
+};
+
+// Block ``part`` of ``parts`` copies its share of ``bytes`` (a multiple of
+// 16, under 64 GiB, both addresses 16-byte aligned) from ``src`` to
+// ``dst``, the source read through L2, four 16-byte loads in flight a
+// thread.  32-bit unit counts: a 64-bit division compiles to a subroutine
+// call, and ptxas serializes the `wgmma`s of a kernel that holds a call.
+__device__ __forceinline__ void crew_copy(void* dst, const void* src,
+                                          size_t bytes, int part, int parts,
+                                          const Crew& c) {
+  const unsigned units = (unsigned)(bytes / 16);
+  const unsigned share = (units + parts - 1) / (unsigned)parts;
+  const unsigned start = (unsigned)part * share;
+  const unsigned lo = start < units ? start : units;
+  const unsigned hi = units - lo < share ? units : lo + share;
+  const uint4* s = static_cast<const uint4*>(src);
+  uint4* d = static_cast<uint4*>(dst);
+  const unsigned step = c.n;
+  unsigned i = lo + c.tid;
+  for (; i + 3 * step < hi; i += 4 * step) {
+    const uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + step);
+    const uint4 v2 = __ldcg(s + i + 2 * step), v3 = __ldcg(s + i + 3 * step);
+    d[i] = v0;
+    d[i + step] = v1;
+    d[i + 2 * step] = v2;
+    d[i + 3 * step] = v3;
+  }
+  for (; i < hi; i += step) d[i] = __ldcg(s + i);
+}
+
+// `dl::wait` for a crew: thread i < n spins on word i, then the crew syncs.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void crew_wait(const u64* sig, int n, int stride,
+                                          u64 value, const char* what,
+                                          const Crew& c) {
+  if (c.tid < n) dl::signal_wait_until<S>(sig + c.tid * stride, value, what);
+  c.sync();
+}
+
+// `dl::signal_after_puts` for a crew: its stores fenced, then thread i < n
+// adds one to ``words[i]``.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void crew_signal(u64* const* words, int n,
+                                            const Crew& c) {
+  dl::fence<S>();
+  c.sync();
+  if (c.tid < n) dl::notify<S>(words[c.tid]);
+}
+
+// `dl::entry_barrier` for a crew (one add a block to each peer's barrier
+// word, as the block-wide barrier makes).
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void crew_entry_barrier(const dl::Team& t,
+                                                   dl::Symm<u64> sig,
+                                                   u64 target,
+                                                   bool neighbors_only,
+                                                   const Crew& c) {
+  if (t.world <= 1) return;
+  const int me = dl::rank(t);
+  if (neighbors_only) {
+    if (c.tid < 2)
+      dl::notify<S>(sig[dl::peer_id(t, me + (c.tid ? 1 : -1))] +
+                    dl::BARRIER_WORD);
+    crew_wait<S>(sig[me] + dl::BARRIER_WORD, 1, 0, 2 * target,
+                 "barrier_neighbors", c);
+  } else {
+    if (c.tid < t.world && c.tid != me)
+      dl::notify<S>(sig[c.tid] + dl::BARRIER_WORD);
+    crew_wait<S>(sig[me] + dl::BARRIER_WORD, 1, 0,
+                 (u64)(t.world - 1) * target, "barrier_all", c);
+  }
+}
+
+// The copies and signals of `emit_ag_ring` on a crew, without the
+// computation: the neighbour entry barrier; this rank's shard into its own
+// slot and the right neighbour's (one arrival signal a block); then for s =
+// 1 .. W-2 the chunk c = (r - s) mod W: wait until all P blocks of the left
+// neighbour have delivered it and forward the block's share to the right
+// neighbour.  The consumer of the chunks waits on the same arrival words
+// itself (`ring_wait_chunk`), so the forward never waits on it.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void emit_ag_ring_forward(
+    const dl::Team& t, const void* shard, dl::Symm<char> gathered,
+    size_t bytes, dl::Symm<u64> sig, u64 target, const char* what,
+    const Crew& c) {
+  const int me = dl::rank(t), part = blockIdx.x, parts = gridDim.x;
+  char* mine = gathered[me];
+  const int right = dl::peer_id(t, me + 1);
+  char* theirs = gathered[right];
+  crew_entry_barrier<S>(t, sig, target, /*neighbors_only=*/true, c);
+  crew_copy(mine + me * bytes, shard, bytes, part, parts, c);
+  crew_copy(theirs + me * bytes, shard, bytes, part, parts, c);
+  u64* sent[2] = {sig[me] + dl::ARRIVAL_WORD + me,
+                  sig[right] + dl::ARRIVAL_WORD + me};
+  crew_signal<S>(sent, 2, c);
+  for (int s = 1; s < t.world - 1; ++s) {
+    const int ch = dl::peer_id(t, me - s);
+    crew_wait<S>(sig[me] + dl::ARRIVAL_WORD + ch, 1, 0, target, what, c);
+    crew_copy(theirs + ch * bytes, mine + ch * bytes, bytes, part, parts, c);
+    u64* word = sig[right] + dl::ARRIVAL_WORD + ch;
+    crew_signal<S>(&word, 1, c);
+  }
+}
+
+// The push of `emit_push_allgather` on a crew, without its wait: the entry
+// barrier, this rank's shard into slot rank(t) of every rank's buffer, one
+// arrival signal a block to each.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void emit_push_allgather_send(
+    const dl::Team& t, const void* shard, dl::Symm<char> gathered,
+    size_t bytes, dl::Symm<u64> sig, u64 target, const Crew& c) {
+  const int me = dl::rank(t);
+  crew_entry_barrier<S>(t, sig, target, /*neighbors_only=*/false, c);
+  for (int p = 0; p < t.world; ++p)
+    crew_copy(gathered[p] + me * bytes, shard, bytes, blockIdx.x, gridDim.x,
+              c);
+  u64* words[dl::MAX_RANKS];
+  for (int p = 0; p < t.world; ++p) words[p] = sig[p] + dl::ARRIVAL_WORD + me;
+  crew_signal<S>(words, t.world, c);
+}
+
+// One thread (a TMA producer) waits until chunk ``c``'s arrival word holds
+// ``target`` (every block of the sender delivered it), then fences the
+// generic proxy, through which the peers wrote the chunk, against the async
+// proxy, through which its TMA loads read it.  Without the fence a load may
+// read stale bytes.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void ring_wait_chunk(dl::Symm<u64> sig, int me,
+                                                int c, u64 target,
+                                                const char* what) {
+  dl::signal_wait_until<S>(sig[me] + dl::ARRIVAL_WORD + c, target, what);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // One-shot scatter-reduce: chunk c of this rank's partials ``src`` (world

@@ -62,6 +62,14 @@ constexpr int SIGNAL_WORDS = ARRIVAL_WORD + ARRIVAL_WORDS;
 #define TDT_SPIN_BUDGET_CYCLES 20000000000LL
 #endif
 
+#ifndef TDT_SPIN_REPORT
+//: Whether a spin that runs out of its budget prints what it waited for
+//: before it traps.  A library whose kernels run `wgmma` sets it to 0
+//: before its includes: a printf is a function call, and ptxas serializes
+//: every `wgmma` of a kernel that holds a call (its info C7510).
+#define TDT_SPIN_REPORT 1
+#endif
+
 enum class Scope { gpu, sys };
 
 using u64 = unsigned long long;
@@ -156,7 +164,7 @@ __device__ __forceinline__ void notify(u64* sig, u64 inc = 1) {
 }
 
 // One thread spins until ``*sig >= value`` (NVSHMEM_CMP_GE), or traps
-// after TDT_SPIN_BUDGET_CYCLES with ``what`` named.
+// after TDT_SPIN_BUDGET_CYCLES with ``what`` named (TDT_SPIN_REPORT).
 template <Scope S = Scope::gpu>
 __device__ __forceinline__ void signal_wait_until(const u64* sig, u64 value,
                                                   const char* what) {
@@ -167,9 +175,11 @@ __device__ __forceinline__ void signal_wait_until(const u64* sig, u64 value,
     __nanosleep(ns);
     if (ns < 1024) ns *= 2;
     if (clock64() - t0 > TDT_SPIN_BUDGET_CYCLES) {
+#if TDT_SPIN_REPORT
       printf("tdt dl: %s timed out: block (%d, %d) waits for %llu at %p, "
              "which holds %llu\n", what, blockIdx.x, blockIdx.y, value, sig,
              ld_acquire<S>(sig));
+#endif
       __trap();
     }
   }

@@ -97,6 +97,28 @@ namespace wg = tdt::wgmma;
 using WgTile64 = wg::Tile<1, 5>;
 using WgTile128 = wg::Tile<2, 4>;
 
+// The tiles of every group, m fastest: tile t is row tile t % mt, column
+// tile t / mt % nt of group t / (mt nt), over every k stage.
+template <class Tile, typename TO>
+struct GroupedSched {
+  const CUtensorMap* ta;
+  TO* out;
+  int M, N, mt, nt, nk;
+
+  __device__ __forceinline__ wg::At at(int t) const {
+    const int g = t / (mt * nt);
+    return {ta, t % mt * Tile::BM, g, t / mt % nt * wg::BN, g, nk};
+  }
+  __device__ __forceinline__ bool pending(int) const { return false; }
+  __device__ __forceinline__ void ready(int) {}
+  __device__ __forceinline__ void side(int) {}
+  __device__ __forceinline__ void store(int, const wg::At& w, int wgi,
+                                        const float (&acc)[Tile::ACC]) {
+    wg::store_tile(out + (size_t)w.a_grp * M * N, M, N, w.a_row, w.col, wgi,
+                   acc);
+  }
+};
+
 // Persistent blocks over every (BM x 256) tile of every group.  Compiled
 // for 384 threads (168 registers a thread at entry, so the consumers'
 // `setmaxnreg` rises from there) and launched with Tile::NT.
@@ -109,9 +131,9 @@ __global__ void __launch_bounds__(3 * wg::WG, 1)
   extern __shared__ __align__(1024) uint8_t smem[];
   const int mt = (M + Tile::BM - 1) / Tile::BM;
   const int nt = (N + wg::BN - 1) / wg::BN;
-  Tile::run(smem, &ta, &tb, out, M, N, K, ntiles, [=](int t) {
-    return make_int3(t % mt * Tile::BM, t / mt % nt * wg::BN, t / (mt * nt));
-  });
+  Tile::run(smem, &tb, ntiles,
+            GroupedSched<Tile, TO>{&ta, out, M, N, mt, nt,
+                                   (K + wg::BK - 1) / wg::BK});
 }
 
 template <class Tile, typename TO>

@@ -57,14 +57,22 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
 // so a fault in a ring's protocol fails the launch instead of hanging it.
 constexpr long long SPIN_BUDGET_CYCLES = 20000000000LL;
 
+#ifndef TDT_SPIN_REPORT
+// As dl.cuh's: 0 traps without the message, which keeps `wgmma` kernels
+// free of the printf call that makes ptxas serialize their products.
+#define TDT_SPIN_REPORT 1
+#endif
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   if (mbar_try_wait(bar, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity)) {
     if (clock64() - t0 > SPIN_BUDGET_CYCLES) {
+#if TDT_SPIN_REPORT
       printf("tdt: block (%d, %d, %d) thread %d waits on barrier %p for "
              "phase %u\n", blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x,
              bar, parity ^ 1);
+#endif
       __trap();
     }
   }

@@ -1,35 +1,44 @@
 // The Hopper GEMM tile: out (M, N) = a (M, K) @ b (K, N) per group, bf16
 // operands, f32 accumulation, written in bf16 or f32, by TMA loads into a
 // shared ring and `wgmma` products from it.  The body of the grouped GEMM
-// (K8 and its one-group case K6, grouped_matmul.cu) for operands on
-// 16-byte rows.
+// (K8 and its one-group case K6, grouped_matmul.cu) and of the
+// AllGather-GEMM (K12, ag_gemm.cu) for operands on 16-byte rows.
 //
-// Roles (one block of 128 (C + 1) threads, `Tile<C, STAGES>`):
+// Roles (one block of 128 (C + 1) threads, `Tile<C, STAGES, TN>`):
 // - Warpgroups 0 .. C - 1 consume: each owns 64 rows of the tile and issues
-//   `wgmma.mma_async m64n256k16` from the ring (a K-major, b MN-major), f32
-//   accumulators in registers (128 a thread), then writes its rows.
+//   `wgmma.mma_async m64nTNk16` (TN = 256, or 64 for a narrow tile) from
+//   the ring (a K-major, b MN-major), f32 accumulators in registers (TN / 2
+//   a thread), then hands them to the caller's epilogue.
 // - Warpgroup C produces: one thread keeps the TMA loads of the next
-//   stages in flight.  `setmaxnreg` gives the producer's registers to the
-//   consumers (40 and 232 a thread).
+//   stages in flight; its other three warps run the caller's side work (a
+//   collective's copies and signals), which never waits on the ring.
+//   `setmaxnreg` gives the producer's registers to the consumers (40 and
+//   232 a thread).
 // - The ring: STAGES stages of k = 64 (one 128-byte row of bf16, the swizzle
-//   span), each the a tile (BM x 64, one box) and the b tile (64 x 256, four
-//   boxes of 64 columns), loaded with 128-byte swizzle; a "full" mbarrier
-//   (the producer's expected bytes) and an "empty" one (every consumer
-//   thread) per stage.  A consumer keeps one stage of products in flight
-//   and frees a stage once its products are done.
+//   span), each the a tile (BM x 64, one box) and the b tile (64 x TN,
+//   TN / 64 boxes of 64 columns), loaded with 128-byte swizzle; a "full"
+//   mbarrier (the producer's expected bytes) and an "empty" one (every
+//   consumer thread) per stage.  A consumer keeps one stage of products in
+//   flight and frees a stage once its products are done.
 // - The block is persistent: it walks tiles blockIdx.x, + gridDim.x, ...
 //   and the producer loads the next tile's stages while the consumers
 //   write this one.
 //
-// Groups do not leak: a is a 3-D tensor map (k, m, group) and b (n, k,
-// group), so a box that runs past a group's M, N or K reads zeros, never
-// the next group's rows.  Rows past M and columns past N are not written.
+// A caller describes its tiles by a schedule (`at`, `pending`, `ready`,
+// `side`, `store`): tile t's a map and box, its b box, its k stages, a
+// wait the producer makes before the tile's first a load (a
+// collective's arrival signal; the first stages' b loads go out before
+// it), and the epilogue.  Groups do not leak: a is a 3-D tensor
+// map (k, m, group) and b (n, k, group), so a box that runs past a group's
+// M, N or K reads zeros, never the next group's rows.  Rows past M and
+// columns past N are not written.
 //
-// The tile promise: every tile shape runs the same instruction
-// (m64n256k16) over k in the same order (stages of 64, four k16 steps
-// each), and a row's products do not depend on the other rows of the
-// instruction, so an output element does not depend on the tile that
-// computed it.
+// The tile promise: every tile shape runs its instruction over k in the
+// same order (stages of 64, four k16 steps each), and an element's
+// products depend neither on the other rows nor on the other columns of
+// the instruction (m64n64k16 and m64n256k16 give the same bits on the
+// H100), so an output element does not depend on the tile that computed
+// it.
 #pragma once
 
 #include <cuda.h>
@@ -101,9 +110,10 @@ __device__ __forceinline__ void mma_wait() {
 
 // Keeps the compiler from moving reads or writes of the accumulators
 // across an asynchronous product.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <int R>
@@ -162,36 +172,115 @@ __device__ __forceinline__ void mma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64 f32) = a (64 x 16, K-major) @ b (16 x 64, MN-major) + (d if
+// accumulate): the narrow tile's product (K12's decode `ll`, whose 256-wide
+// tiles are too few for a rank's blocks).
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db,
+                                    int accumulate) {
+  mma_m64n256k16(d, da, db, accumulate);
+}
+__device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                    int accumulate) {
+  mma_m64n64k16(d, da, db, accumulate);
+}
+
 // ---- the tile ------------------------------------------------------------
 
-template <int C, int STAGES>
+// Where tile t lies: its a map and box (first row, group), its b box
+// (first column, group) and its nk stages of 64.
+struct At {
+  const CUtensorMap* ta;
+  int a_row, a_grp;
+  int col, b_grp;
+  int nk;
+};
+
+// The R accumulators of consumer warpgroup ``wg`` for a tile at (row0,
+// col0), 2 R columns wide, into the row-major (M, N) matrix ``o``; rows
+// past M and columns past N are dropped.  Fragment of m64nNk16: row 16
+// warp + lane / 4 (and + 8), columns 8 j + 2 (lane % 4) (and + 1).  N is a
+// multiple of 8.
+template <typename TO, int R>
+__device__ __forceinline__ void store_tile(TO* o, int M, int N, int row0,
+                                           int col0, int wg,
+                                           const float (&acc)[R]) {
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int r = row0 + wg * WG_ROWS + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const int c = col0 + j * 8 + (lane % 4) * 2;
+    if (c < N) {
+      if (r < M)
+        gemm::store2(o + (size_t)r * N + c, acc[4 * j], acc[4 * j + 1]);
+      if (r + 8 < M)
+        gemm::store2(o + (size_t)(r + 8) * N + c, acc[4 * j + 2],
+                     acc[4 * j + 3]);
+    }
+  }
+}
+
+template <int C, int STAGES, int TN_ = BN>
 struct Tile {
+  static constexpr int TN = TN_;  // columns of a tile
   static constexpr int BM = C * WG_ROWS;
   static constexpr int NT = (C + 1) * WG;  // consumers, then the producer
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * TN * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int ACC = TN / 2;  // accumulators a consumer thread
   // The ring, its barriers, and slack to align the ring to the swizzle atom.
   static constexpr int SMEM_BYTES =
       STAGES * STAGE_BYTES + 2 * STAGES * 8 + ATOM_BYTES;
   static_assert(A_BYTES % ATOM_BYTES == 0, "stage alignment");
+  static_assert(TN == 256 || TN == 64, "a m64n256k16 or m64n64k16 tile");
 
-  // Tiles blockIdx.x, + gridDim.x, ... of ``ntiles``; ``where(t)`` gives
-  // tile t's first row, first column and group (x, y, z).  Group g's out is
-  // rows [g M, (g + 1) M) of a row-major (.., N) matrix.  ta: a as (k, m,
-  // group) with box (64, BM, 1); tb: b as (n, k, group) with box (64, 64,
-  // 1); both bf16 with 128-byte swizzle.
-  template <typename TO, class Where>
+  // Stage ``kt``'s b tile of tile ``w`` (TN / 64 boxes) into stage ``st``.
+  static __device__ __forceinline__ void load_b(uint8_t* st,
+                                                const CUtensorMap* tb,
+                                                uint64_t* bar, const At& w,
+                                                int kt) {
+#pragma unroll
+    for (int j = 0; j < TN / BOX_N; ++j)
+      tma_load_3d(st + A_BYTES + j * BK * ROW_BYTES, tb, bar,
+                  w.col + j * BOX_N, kt * BK, w.b_grp);
+  }
+
+  // Tiles blockIdx.x, + gridDim.x, ... of ``ntiles``, as ``sched`` says:
+  // - ``At sched.at(t)``: tile t's a map and boxes and k stages (a map:
+  //   (k, m, group) with box (64, BM, 1); tb: b as (n, k, group) with box
+  //   (64, 64, 1); both bf16 with 128-byte swizzle);
+  // - ``sched.pending(t)``: whether tile t's a must wait; then
+  //   ``sched.ready(t)`` (the producer thread) waits, after the b tiles of
+  //   the tile's first stages are in flight and before any a load;
+  // - ``sched.side(i)``: thread i of the producer's other 96 threads, once;
+  // - ``sched.store(t, at, wg, acc)``: every consumer thread, the tile's
+  //   accumulators of its warpgroup ``wg``.
+  template <class Sched>
   static __device__ __forceinline__ void run(uint8_t* raw,
-                                             const CUtensorMap* ta,
-                                             const CUtensorMap* tb, TO* out,
-                                             int M, int N, int K, int ntiles,
-                                             Where where) {
+                                             const CUtensorMap* tb,
+                                             int ntiles, Sched sched) {
     uint8_t* ring = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(raw) + ATOM_BYTES - 1) &
         ~uintptr_t(ATOM_BYTES - 1));
     uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
     uint64_t* empty = full + STAGES;
-    const int nk = (K + BK - 1) / BK;
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) {
         mbar_init(&full[s], 1);
@@ -206,48 +295,67 @@ struct Tile {
       // The producer: the loads of every stage of every tile, in order.
       regs_dec<PRODUCER_REGS>();
       if (threadIdx.x == C * WG) {
-        tma_prefetch(ta);
+        tma_prefetch(sched.at(blockIdx.x).ta);
         tma_prefetch(tb);
         int s = 0;
         unsigned phase = 0;
         for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-          const int3 w = where(t);
-          for (int kt = 0; kt < nk; ++kt) {
+          const At w = sched.at(t);
+          int kt = 0;
+          if (sched.pending(t)) {
+            // b waits on nothing: the first stages' b boxes go out before
+            // the tile's wait, their a boxes after it.
+            const int pre = STAGES < w.nk ? STAGES : w.nk;
+            const int s0 = s;
+            for (int i = 0; i < pre; ++i) {
+              mbar_wait(&empty[s], phase ^ 1);
+              mbar_expect_tx(&full[s], STAGE_BYTES);
+              load_b(ring + s * STAGE_BYTES, tb, &full[s], w, kt + i);
+              if (++s == STAGES) {
+                s = 0;
+                phase ^= 1;
+              }
+            }
+            sched.ready(t);
+            for (int i = 0; i < pre; ++i) {
+              const int si = (s0 + i) % STAGES;
+              tma_load_3d(ring + si * STAGE_BYTES, w.ta, &full[si],
+                          (kt + i) * BK, w.a_row, w.a_grp);
+            }
+            kt += pre;
+          }
+          for (; kt < w.nk; ++kt) {
             mbar_wait(&empty[s], phase ^ 1);
             mbar_expect_tx(&full[s], STAGE_BYTES);
             uint8_t* st = ring + s * STAGE_BYTES;
-            tma_load_3d(st, ta, &full[s], kt * BK, w.x, w.z);
-#pragma unroll
-            for (int j = 0; j < BN / BOX_N; ++j)
-              tma_load_3d(st + A_BYTES + j * BK * ROW_BYTES, tb, &full[s],
-                          w.y + j * BOX_N, kt * BK, w.z);
+            tma_load_3d(st, w.ta, &full[s], kt * BK, w.a_row, w.a_grp);
+            load_b(st, tb, &full[s], w, kt);
             if (++s == STAGES) {
               s = 0;
               phase ^= 1;
             }
           }
         }
+      } else if (threadIdx.x >= C * WG + 32) {
+        sched.side(threadIdx.x - (C * WG + 32));
       }
     } else {
       // A consumer: rows [64 wg, 64 wg + 64) of each tile.
       regs_inc<CONSUMER_REGS>();
-      float acc[128] = {};
+      float acc[ACC] = {};
       int s = 0, prev = 0;
       unsigned phase = 0;
-      const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int3 w = where(t);
-        for (int kt = 0; kt < nk; ++kt) {
+        const At w = sched.at(t);
+        for (int kt = 0; kt < w.nk; ++kt) {
           mbar_wait(&full[s], phase);
           const uint8_t* st = ring + s * STAGE_BYTES;
           fence_acc(acc);
           mma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-            mma_m64n256k16(
-                acc,
-                desc(st + wg * WG_ROWS * ROW_BYTES + kk * 32, 16,
-                     ATOM_BYTES),
+            mma(acc,
+                desc(st + wg * WG_ROWS * ROW_BYTES + kk * 32, 16, ATOM_BYTES),
                 desc(st + A_BYTES + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
                      ATOM_BYTES),
                 kt | kk);
@@ -266,22 +374,7 @@ struct Tile {
         mma_wait<0>();
         fence_acc(acc);
         mbar_arrive(&empty[prev]);
-
-        // Fragment of m64nNk16: row 16 warp + lane / 4 (and + 8), columns
-        // 8 j + 2 (lane % 4) (and + 1).  N is a multiple of 8.
-        TO* o = out + (size_t)w.z * M * N;
-        const int r = w.x + wg * WG_ROWS + warp * 16 + lane / 4;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int c = w.y + j * 8 + (lane % 4) * 2;
-          if (c < N) {
-            if (r < M)
-              gemm::store2(o + (size_t)r * N + c, acc[4 * j], acc[4 * j + 1]);
-            if (r + 8 < M)
-              gemm::store2(o + (size_t)(r + 8) * N + c, acc[4 * j + 2],
-                           acc[4 * j + 3]);
-          }
-        }
+        sched.store(t, w, wg, acc);
       }
     }
   }
