@@ -338,6 +338,15 @@ def kernel_entry(mangled: str) -> str:
     return mangled.removeprefix("_ZN")[:64]
 
 
+def serialized_wgmma(path) -> tuple[int, int]:
+    """ptxas's lines in a library's build log that say it serialized a
+    kernel's `wgmma`s: those for a function call in the kernel (info
+    C7510), and all of them (any reason)."""
+    log = path.with_suffix(".log").read_text()
+    return (log.count("C7510"),
+            log.count("wgmma.mma_async instructions are serialized"))
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3266,9 +3275,15 @@ def sp_path(dev, card: str, counted, expect, short, records, errs) -> None:
                    ref_leaf.grad, 5e-2, 2e-2, 0.1)
     del leaves, flat, out1, ring_out
 
-    # -- 5. times
+    # -- 5. times.  The ring's cost: the consumers alone (no ring, no
+    # arrival wait) on the chunks the calls before left in the ring buffers.
     with torch.inference_mode():
         ms = time_ms(lambda: sp.sp_ag_attention_fused(q, k, v), 5)
+        scale = d ** -0.5
+        q_off = [r * s_loc for r in range(w)]
+        consumers = time_ms(lambda: sp._launch(
+            q, k, v, q_off, [0] * w, scale, sp.cids.SP_AG_FUSED, None, False,
+            0, ring=False), 5)
         plain = time_ms(lambda: sp.sp_ag_attention_fused_reference(q, k, v),
                         1, warmup=1)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -3282,19 +3297,28 @@ def sp_path(dev, card: str, counted, expect, short, records, errs) -> None:
     pairs = attention_pairs(SP_ATTN_CONTEXT, SP_ATTN_CONTEXT, True, 0)
     bms, by = bound(nbytes(q, k, v, q) + 4 * q[..., 0].numel(),
                     4 * hh * pairs * d)
+    # Rank W-1's causal share of the pairs, on its 1/W of the card's SMs.
+    last = attention_pairs(s_loc, SP_ATTN_CONTEXT, True, (w - 1) * s_loc)
+    rank_ms = 4 * hh * last * d / (PEAK_BF16_FLOPS / w) * 1e3
+    flop = 4 * hh * pairs * d
     print(f"[times] K20 sp_ag_attention_fused at world {w} over "
           f"{SP_ATTN_CONTEXT} tokens (Qwen3-8B heads, {s_loc} a rank, W ranks "
-          f"sharing one card's SMs and HBM, no NVLink): {ms:.4f} ms (bound "
-          f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound; {pairs} causal "
-          f"pairs a head); plain {plain:.4f} ms; SDPA causal over the whole "
-          f"sequence (library) {lib:.4f} ms; "
+          f"sharing one card's SMs and HBM, no NVLink): {ms:.4f} ms, "
+          f"{flop / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}, "
+          f"{bms / ms:.1%} of bound; {pairs} causal pairs a head; rank "
+          f"{w - 1}'s bound {rank_ms:.4f} ms, its {last / pairs:.2%} of the "
+          f"pairs on 1/{w} of the card, {rank_ms / ms:.1%} of it); the "
+          f"consumers alone on arrived chunks {consumers:.4f} ms (the ring "
+          f"{ms - consumers:.4f} ms); plain {plain:.4f} ms; SDPA causal over "
+          f"the whole sequence (library) {lib:.4f} ms; "
           + ", ".join(f"{nm} {t:.4f} ms" for nm, t in comp.items())
-          + f"; {card}")
+          + f" ({flop / comp['world-1 K1'] / 1e9:.1f} TFLOP/s); {card}")
     records.append(("sp_ag_attention_fused", ms, plain, bms, by, lib, {
         "shape": f"q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16",
         "library_note": "F.scaled_dot_product_attention causal over the "
                         "whole sequence (no ring)",
-        "composition_ms": comp}))
+        "composition_ms": comp, "rank_bound_ms": rank_ms,
+        "consumers_ms": consumers}))
     del q, k, v, qz, kz, vz, qg, kg, vg, got
     release_symmetric_buffers()
     gc.collect()
@@ -3832,7 +3856,9 @@ def main() -> int:
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"
-            for k, regs, st, ld, sm in _build.resource_usage(lib)))
+            for k, regs, st, ld, sm in _build.resource_usage(lib))
+            + "; ptxas lines of wgmma serialized: for a call (C7510) "
+            "{}, for any reason {}".format(*serialized_wgmma(paths[lib])))
     print(f"[build] decode kernels: chunks of {DECODE_CHUNK} positions, "
           "dynamic shared memory (the stage buffers) "
           + ", ".join(f"{nm} {2 * DECODE_CHUNK * 128 * size // 1024} KB"
@@ -4619,15 +4645,19 @@ def main() -> int:
                         4 * b * h * attention_pairs(sq, sk, causal, off) * d)
         return ms, plain, bms, by, lib
 
-    fa_rows = {}
+    fa_rows, fa_flop = {}, {}
     for key, idx in (("K1a", 0), ("K1b", 1), ("K1c", 3)):
         label, q, k, v, causal, off = fa_timed[idx]
         fa_rows[key] = (label,) + attention_times(q, k, v, causal, off, 50)
+        fa_flop[key] = 4 * q.shape[0] * q.shape[1] * q.shape[3] * (
+            attention_pairs(q.shape[2], k.shape[2], causal, off))
     records.append(("flash_attention",) + fa_rows["K1a"][1:])
     for key, (label, ms, plain, bms, by, lib) in fa_rows.items():
-        print(f"[times] flash_attention {key} ({label}): {ms:.4f} ms (bound "
-              f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
-              f"{plain:.4f} ms, SDPA {lib:.4f} ms; {card}")
+        flop = fa_flop[key]
+        print(f"[times] flash_attention {key} ({label}): {ms:.4f} ms, "
+              f"{flop / ms / 1e9:.1f} TFLOP/s (bound {bms:.4f} ms by {by}, "
+              f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, SDPA "
+              f"{lib:.4f} ms; {card}")
     del fa_timed
 
     # flash_decode at the Engine path's decode state: the cache after the
@@ -5075,5 +5105,21 @@ def main() -> int:
     return 0
 
 
+def spin_report() -> str | None:
+    """The wait a kernel trapped on, if one timed out (the port's
+    `_build.spin_report`), else None."""
+    try:
+        from triton_distributed_tpu_torch.kernels import _build
+    except ImportError:
+        return None
+    return _build.spin_report()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except RuntimeError:
+        report = spin_report()
+        if report:
+            print(f"[error] {report}", file=sys.stderr)
+        raise

@@ -7,7 +7,7 @@ a rank, decode 1) in both methods, bf16, the 4 ranks in one launch.
     python3 scripts/torch_ag_gemm_variants.py [VARIANT ...]
     python3 scripts/torch_ag_gemm_variants.py --ab OTHER_ROOT
 
-Variants (default: base wide nogemm nowait nostore report base):
+Variants (default: base wide nogemm nowait nostore base):
 - ``base``: the kernel as it is (decode ``ll``: 64 x 64 tiles, `wgmma`
   m64n64k16 with 12 stages of 16 KB, where `allgather_gemm.ll_tile_n`
   takes them: QKV's 24 column tiles a rank, not 6);
@@ -17,10 +17,7 @@ Variants (default: base wide nogemm nowait nostore report base):
   product or store (what K12 costs beside its GEMM);
 - ``nowait``: the producers do not wait for the gathered rows (what the
   dependency on the gather costs);
-- ``nostore``: ``ll``'s epilogue (the store) is skipped;
-- ``report``: the waits print what they waited for before they trap, as
-  the other libraries' do (a `printf` is a function call, and ptxas
-  serializes every `wgmma` of a kernel that holds one: info C7510).
+- ``nostore``: ``ll``'s epilogue (the store) is skipped.
 The cut variants give wrong results and are for timing only.  Each variant
 is built from a copy of the sources in a temporary directory (one ``nvcc``,
 seconds); the repository is not touched.  ``--ab`` times OTHER_ROOT (a
@@ -32,7 +29,8 @@ Device ms: CUDA events over back-to-back calls queued behind a device spin:
 ``ms`` rotates over 8 sets of operands (the weights come from HBM, as
 in a model's layers), ``warm_ms`` repeats one set, as `chip_smoke.py`
 times it (50 MB of QKV weights at world 4 fit the 50 MB L2).  Prints one
-JSON line a run (a variant's also counts ptxas's C7510 lines).
+JSON line a run (a variant's also counts ptxas's C7510 lines: a function
+call in a kernel makes ptxas serialize its `wgmma`s).
 """
 
 from __future__ import annotations
@@ -64,11 +62,9 @@ EDITS = {
                  "      for (int t = blockIdx.x; t < ntiles; t += gridDim.x)"
                  "\n        if (sched.pending(t)) sched.ready(t);\n")], True),
     "nowait": ([("      comm::ring_wait_chunk(p->sig, me, c, target, "
-                 "\"ag_gemm push arrival\");\n", ""),
+                 "tdt::WAIT_AG_GEMM_PUSH);\n", ""),
                 ("    comm::ring_wait_chunk(p->sig, me, held, target, "
-                 "\"ag_gemm ring arrival\");\n", "")], True),
-    "report": ([("#define TDT_SPIN_REPORT 0", "#define TDT_SPIN_REPORT 1")],
-               True),
+                 "tdt::WAIT_AG_GEMM_RING);\n", "")], True),
     "nostore": ([("    wg::store_tile(p->out + (size_t)y * M * p->n,",
                   "    if (p->m > 0) return;\n"
                   "    wg::store_tile(p->out + (size_t)y * M * p->n,")],
@@ -193,7 +189,7 @@ def main() -> int:
             print(res.stdout.strip().splitlines()[-1], flush=True)
         return 0
     names = args.variants or ["base", "wide", "nogemm", "nowait", "nostore",
-                              "report", "base"]
+                              "base"]
     built, threads = {}, []
     for name in dict.fromkeys(names):
         th = threading.Thread(target=lambda nm=name: built.__setitem__(

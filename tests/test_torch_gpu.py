@@ -78,6 +78,7 @@ def _randn(gen, dtype, device, *shape):
         (2, 8, 2, 64, 192, True, 128),      # kv_offset, group 4
         (1, 4, 1, 77, 150, False, 0),       # non-causal, ragged both
         (1, 4, 2, 65, 65, True, 0),         # one row past a tile
+        (1, 16, 2, 300, 300, True, 0),      # GQA 8, ragged
     ])
 def test_flash_attention_kernel(cuda, dtype, d, b, h, hkv, sq, sk, causal,
                                 kv_offset):
@@ -181,6 +182,100 @@ def test_flash_decode_paged_kernel(cuda, dtype, d, group, page_size):
 
 BWD_TOL = {torch.bfloat16: (2e-2, 1e-2, 0.1),
            torch.float32: (1e-4, 1e-5, 1.0)}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [100, 200, 1100])
+@pytest.mark.parametrize("kv_offset", [0, 37, -5])
+def test_flash_attention_kernel_ragged_lengths(cuda, d, s, kv_offset):
+    """Lengths off the 128-row tile and the 128-key stage, with shifted
+    diagonals: K1 against its plain version, row by row.  Rows that see no
+    key (i + kv_offset < 0) only need lse ~ -inf."""
+    from triton_distributed_tpu_torch.kernels.flash_attention import LSE_DEAD
+
+    gen = torch.Generator(device=cuda).manual_seed(s * 7 + d + kv_offset)
+    q = _randn(gen, torch.bfloat16, cuda, 2, 8, s, d)
+    k = _randn(gen, torch.bfloat16, cuda, 2, 2, s + 29, d)
+    v = _randn(gen, torch.bfloat16, cuda, 2, 2, s + 29, d)
+    out, lse = flash_attention(q, k, v, kv_offset=kv_offset, return_lse=True)
+    ref, ref_lse = flash_attention_reference(
+        q.float(), k.float(), v.float(), kv_offset=kv_offset, return_lse=True)
+    torch.cuda.synchronize()
+    live = max(0, -kv_offset)
+    torch.testing.assert_close(out[:, :, live:].float(), ref[:, :, live:],
+                               **OUT_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse[:, :, live:], ref_lse[:, :, live:],
+                               atol=1e-3, rtol=0)
+    assert bool((lse[:, :, :live] <= LSE_DEAD).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_row_alone_matches_batch(cuda, d):
+    """A (batch, head)'s rows alone give the bits they get in a call with
+    more batches and heads: a row depends on its own q, K and V only."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + d)
+    q = _randn(gen, torch.bfloat16, cuda, 3, 8, 333, d)
+    k = _randn(gen, torch.bfloat16, cuda, 3, 2, 333, d)
+    v = _randn(gen, torch.bfloat16, cuda, 3, 2, 333, d)
+    for off in (0, 37):
+        out, lse = flash_attention(q, k, v, kv_offset=off, return_lse=True)
+        for b, h in ((0, 0), (2, 5), (1, 7)):
+            hk = h // 4
+            one, one_lse = flash_attention(
+                q[b:b + 1, h:h + 1].contiguous(),
+                k[b:b + 1, hk:hk + 1].contiguous(),
+                v[b:b + 1, hk:hk + 1].contiguous(), kv_offset=off,
+                return_lse=True)
+            torch.cuda.synchronize()
+            assert torch.equal(one[0, 0], out[b, h]), (off, b, h)
+            assert torch.equal(one_lse[0, 0], lse[b, h]), (off, b, h)
+
+
+_TIMEOUT_SCRIPT = """
+import shutil, sys, tempfile
+from pathlib import Path
+import torch
+from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels import allgather as ag
+
+tmp = Path(tempfile.mkdtemp(prefix="spin_timeout_"))
+shutil.copytree(_build.CSRC, tmp / "csrc")
+src = tmp / "csrc" / "all_gather.cu"
+src.write_text("#define TDT_SPIN_BUDGET_CYCLES 200000000LL\\n"
+               + src.read_text())
+_build.CSRC, _build.BUILD_DIR = tmp / "csrc", tmp / "build"
+x = torch.ones((4, 64, 256), dtype=torch.bfloat16, device="cuda")
+ctx = ag.AllGatherContext("tp", 4, "ring", straggler=(1, 4_000_000_000))
+ag.all_gather(x, ctx)
+try:
+    _build.synchronize()
+except RuntimeError as e:
+    print(e)
+    sys.exit(0)
+print("no timeout")
+sys.exit(1)
+"""
+
+
+def test_spin_timeout_names_the_wait(cuda, tmp_path):
+    """A wait that outlasts its budget traps and the host names it: K15
+    built with a 0.1 s budget, rank 1 straggling 2 s, in a process of its
+    own (the trap kills its CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, "-c", _TIMEOUT_SCRIPT], capture_output=True,
+        text=True, timeout=300, cwd=str(tmp_path),
+        env={**os.environ, "PYTHONPATH": str(root)})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "a wait timed out: " in res.stdout, res.stdout
+    assert any(name in res.stdout for name in (
+        "barrier_neighbors (WAIT_BARRIER_NEIGHBORS)",
+        "all_gather ring arrival (WAIT_ALL_GATHER_RING)")), res.stdout
 
 
 def _assert_rows_close(name, got, ref, tol, rel_tol, floor):
@@ -1686,7 +1781,9 @@ SP_K20_GPU_CASES = [
         (2, 4, 4, 24, 128, torch.bfloat16),     # GQA 1, S_loc 24
         (1, 4, 1, 100, 64, torch.bfloat16),     # d 64, ragged tiles
         (1, 4, 2, 100, 64, torch.float32),
-        (1, 2, 2, 130, 128, torch.float32))]
+        (1, 2, 2, 130, 128, torch.float32),
+        (1, 8, 2, 200, 128, torch.bfloat16),    # S_loc off the 128-row tile
+        (1, 8, 1, 200, 64, torch.bfloat16))]    # d 64, GQA 8
 
 
 def _sp_hold(out, lse, ref_o, ref_l, dtype):
@@ -1748,6 +1845,26 @@ def test_sp_ag_attention_fused_offsets_and_faults(cuda):
         torch.cuda.synchronize()
         _sp_hold(out, lse, *sp.sp_ag_attention_fused_reference(q, k, v,
                                                                **kw),
+                 torch.bfloat16)
+
+
+def test_sp_ag_attention_fused_back_to_back(cuda):
+    """100 back-to-back K20 calls with fresh inputs, queued before any
+    check, each against its plain version."""
+    from triton_distributed_tpu_torch.kernels import sp_ag_attention as sp
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    before = sp.sp_ag_attention_fused.launches
+    runs = []
+    for _ in range(100):
+        args = tuple(_randn(gen, torch.bfloat16, cuda, 4, 1, n, 200, 128)
+                     for n in (8, 2, 2))
+        runs.append((args, sp.sp_ag_attention_fused(*args,
+                                                    return_lse=True)))
+    torch.cuda.synchronize()
+    assert sp.sp_ag_attention_fused.launches == before + 100
+    for args, (out, lse) in runs:
+        _sp_hold(out, lse, *sp.sp_ag_attention_fused_reference(*args),
                  torch.bfloat16)
 
 

@@ -9,6 +9,13 @@ and renames it into place, so a build that was cut off leaves no partial
 library behind.  ptxas's resource report (``-Xptxas -v``: registers,
 shared memory and spill bytes of every kernel) is kept beside each library
 (`resource_usage`).  There is no fallback: without ``nvcc`` this raises.
+
+A wait in a kernel that outlasts its budget records what it waited for in
+one record in mapped pinned host memory and traps (``csrc/common.cuh``
+`spin_timeout`).  The record is allocated once a process and attached to
+every library as it loads; `check` and `synchronize` name the wait in
+their exception (`spin_report`), since after a trap the context is dead
+and only host memory can still be read.
 """
 
 from __future__ import annotations
@@ -33,6 +40,77 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class _SpinRecord(ctypes.Structure):
+    """``tdt::SpinRecord`` (csrc/common.cuh)."""
+
+    _fields_ = [("what", ctypes.c_int), ("block", ctypes.c_int * 3),
+                ("thread", ctypes.c_int), ("pad", ctypes.c_int),
+                ("addr", ctypes.c_uint64), ("want", ctypes.c_uint64),
+                ("seen", ctypes.c_uint64)]
+
+
+_spin_record: _SpinRecord | None = None
+
+
+def spin_waits(csrc: Path | None = None) -> dict[int, tuple[str, str]]:
+    """id -> (enumerator, name) of every ``tdt::Wait`` in
+    ``csrc/common.cuh``: the entries of ``enum Wait`` in order from 0,
+    each named by its ``//:`` comment."""
+    text = ((csrc or CSRC) / "common.cuh").read_text()
+    body = re.search(r"enum Wait : int \{(.*?)\n\};", text, re.S)
+    if body is None:
+        raise RuntimeError("common.cuh: no enum Wait")
+    waits = {}
+    for line in body.group(1).splitlines():
+        m = re.match(r"\s*(WAIT_\w+)(?: = (\d+))?,\s*//: (.+)$", line)
+        if m:
+            i = int(m.group(2)) if m.group(2) else len(waits)
+            if i != len(waits):
+                raise RuntimeError(f"common.cuh: {m.group(1)} = {i} out of "
+                                   "order")
+            waits[i] = (m.group(1), m.group(3).strip())
+    return waits
+
+
+def spin_report() -> str | None:
+    """What the first wait of this process that timed out waited for, or
+    None."""
+    r = _spin_record
+    if r is None or r.what == 0:
+        return None
+    enum, name = spin_waits().get(r.what, (f"WAIT {r.what}", "unknown"))
+    return (f"a wait timed out: {name} ({enum}); block "
+            f"({', '.join(map(str, r.block))}) thread {r.thread} waited at "
+            f"{r.addr:#x} for {r.want}, which held {r.seen}")
+
+
+def synchronize(device=None) -> None:
+    """`torch.cuda.synchronize`, with the wait named (`spin_report`) if a
+    kernel trapped on a spin timeout."""
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        report = spin_report()
+        if report is None:
+            raise
+        raise RuntimeError(f"{e}; {report}") from e
+
+
+def _attach_spin_record(lib: ctypes.CDLL) -> None:
+    global _spin_record
+    if _spin_record is None:
+        host = ctypes.c_void_p()
+        rc = lib.tdt_spin_record_alloc(ctypes.byref(host))
+        if rc != 0:
+            raise RuntimeError(f"spin record: CUDA error {rc} "
+                               f"({lib.tdt_error_string(rc).decode()})")
+        _spin_record = _SpinRecord.from_address(host.value)
+    rc = lib.tdt_spin_record_attach(ctypes.addressof(_spin_record))
+    if rc != 0:
+        raise RuntimeError(f"spin record: CUDA error {rc} "
+                           f"({lib.tdt_error_string(rc).decode()})")
 
 
 def _nvcc() -> str:
@@ -138,11 +216,19 @@ def load_path(path: Path, signatures: dict) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.tdt_error_string.argtypes = [ctypes.c_int]
     lib.tdt_error_string.restype = ctypes.c_char_p
+    lib.tdt_spin_record_alloc.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    lib.tdt_spin_record_alloc.restype = ctypes.c_int
+    lib.tdt_spin_record_attach.argtypes = [ctypes.c_void_p]
+    lib.tdt_spin_record_attach.restype = ctypes.c_int
+    _attach_spin_record(lib)
     return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+    """Raise if a C entry point reported a CUDA error (a sticky error of an
+    earlier trap too, with the wait named)."""
     if rc != 0:
         msg = lib.tdt_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+        report = spin_report()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})"
+                           + (f"; {report}" if report else ""))

@@ -66,11 +66,6 @@
 // the row tile by the wrapper.  A failed tensor-map encode, attribute or
 // launch returns its error code; no call falls back to another body.
 
-// A wait that runs out of its budget traps without its message here: the
-// printf call would make ptxas serialize the `wgmma`s of the Hopper body
-// (info C7510), 5-12% of its time on Qwen3-8B's world-4 shapes.
-#define TDT_SPIN_REPORT 0
-
 #include <algorithm>
 
 #include "comm_body.cuh"
@@ -110,7 +105,7 @@ __global__ void __launch_bounds__(Tile::NT, gemm::MIN_BLOCKS)
   T* out = p.out + y * w * out_chunk;
   tdt::comm::emit_ag_ring(
       t, p.a + y * chunk, p.gathered, chunk * sizeof(T), p.sig, target,
-      "ag_gemm ring arrival", [&](int c, const char* held) {
+      tdt::WAIT_AG_GEMM_RING, [&](int c, const char* held) {
         gemm::run_tiles<Tile>(sm, reinterpret_cast<const T*>(held), b,
                               out + c * out_chunk, p.mp, p.n, p.k, p.vec,
                               part, parts);
@@ -233,13 +228,13 @@ struct RingSched {
   }
   __device__ __forceinline__ void ready(int t) {
     held = chunk(t);
-    comm::ring_wait_chunk(p->sig, me, held, target, "ag_gemm ring arrival");
+    comm::ring_wait_chunk(p->sig, me, held, target, tdt::WAIT_AG_GEMM_RING);
   }
   __device__ __forceinline__ void side(int i) {
     const size_t elems = (size_t)p->m * p->k;
     comm::emit_ag_ring_forward(p->team, p->a + y * elems, p->gathered,
                                elems * sizeof(bf16), p->sig, target,
-                               "ag_gemm ring forward", crew(i));
+                               tdt::WAIT_AG_GEMM_FORWARD, crew(i));
   }
   __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
                                         const float (&acc)[Tile::ACC]) {
@@ -264,7 +259,7 @@ struct LlSched {
   __device__ __forceinline__ bool pending(int) const { return !held; }
   __device__ __forceinline__ void ready(int) {
     for (int c = 0; c < p->team.world; ++c)
-      comm::ring_wait_chunk(p->sig, me, c, target, "ag_gemm push arrival");
+      comm::ring_wait_chunk(p->sig, me, c, target, tdt::WAIT_AG_GEMM_PUSH);
     held = true;
   }
   __device__ __forceinline__ void side(int i) {

@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(w8a8::NT, tdt::gemm::MIN_BLOCKS)
   const int total = w8a8::tiles(p.mp, p.n);
   tdt::comm::emit_ag_ring(
       t, p.a + y * chunk, p.gathered, chunk, p.sig, target,
-      "ag_gemm_w8a8 ring arrival", [&](int c, const char* held) {
+      tdt::WAIT_AG_GEMM_W8A8_RING, [&](int c, const char* held) {
         for (int j = part; j < total; j += parts) {
           __syncthreads();
           w8a8::tile(sm, reinterpret_cast<const int8_t*>(held), b,

@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(Body::NT, gemm::MIN_BLOCKS)
 
   tdt::comm::emit_ag_ring(
       t, p.a + y * chunk, p.gathered, chunk * sizeof(In), p.sig, target,
-      "ag_group_gemm ring arrival", [&](int c, const char* bytes) {
+      tdt::WAIT_AG_GROUP_GEMM_RING, [&](int c, const char* bytes) {
         const In* held = reinterpret_cast<const In*>(bytes);
         const int* first = p.tile_start + (size_t)c * (p.e + 1);
         TO* oc = out + c * out_chunk;

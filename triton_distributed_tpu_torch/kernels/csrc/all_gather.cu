@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
     u64* word = p.sig[right] + dl::ARRIVAL_WORD + c;
     dl::signal_after_puts(&word, 1);
     dl::wait(p.sig[me] + dl::ARRIVAL_WORD + dl::peer_id(t, me - 1 - s), 1, 0,
-             target, "all_gather ring arrival");
+             target, tdt::WAIT_ALL_GATHER_RING);
   }
 }
 
@@ -106,9 +106,9 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
                      p.sig[left] + BWD + bwd};
     dl::signal_after_puts(words, 2);
     dl::wait(p.sig[me] + dl::ARRIVAL_WORD + dl::peer_id(t, me - 1 - s), 1, 0,
-             target, "all_gather bidir ring arrival (rightwards)");
+             target, tdt::WAIT_ALL_GATHER_BIDIR_RIGHT);
     dl::wait(p.sig[me] + BWD + dl::peer_id(t, me + 1 + s), 1, 0, target,
-             "all_gather bidir ring arrival (leftwards)");
+             tdt::WAIT_ALL_GATHER_BIDIR_LEFT);
   }
 }
 

@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   for (int c = 0; c < w; ++c) words[c] = p.sig[c] + dl::ARRIVAL_WORD + me;
   dl::signal_after_puts(words, w);
   dl::wait(p.sig[me] + dl::ARRIVAL_WORD, w, 1, target,
-           "two-shot scatter arrival");
+           tdt::WAIT_TWO_SHOT_SCATTER);
   T* dsts[dl::MAX_RANKS];
   for (int q = 0; q < w; ++q)
     dsts[q] = reinterpret_cast<T*>(p.out[q]) + me * mc;
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
                       part, parts);
   for (int q = 0; q < w; ++q) words[q] = p.sig[q] + BCAST + me;
   dl::signal_after_puts(words, w);
-  dl::wait(p.sig[me] + BCAST, w, 1, target, "two-shot broadcast arrival");
+  dl::wait(p.sig[me] + BCAST, w, 1, target, tdt::WAIT_TWO_SHOT_BROADCAST);
 }
 
 template <typename T>
@@ -138,7 +138,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
       u64* word = red_left + c;
       dl::signal_after_puts(&word, 1);
     } else {
-      dl::wait(red_mine + c, 1, 0, target, "chain reduce arrival");
+      dl::wait(red_mine + c, 1, 0, target, tdt::WAIT_CHAIN_REDUCE);
       T* dst = me > 0 ? stage + o : out + o;
       comm::add_into(dst, stage + o, x + o, r);
       __syncthreads();
@@ -157,7 +157,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   if (me == 0) return;
   for (int c = 0; c < p.chunks; ++c) {
     const size_t o = c * ce;
-    dl::wait(bcast_mine + c, 1, 0, target, "chain broadcast arrival");
+    dl::wait(bcast_mine + c, 1, 0, target, tdt::WAIT_CHAIN_BROADCAST);
     if (me < w - 1) {
       comm::put_range(out_right + o, out + o, r);
       u64* word = bcast_right + c;

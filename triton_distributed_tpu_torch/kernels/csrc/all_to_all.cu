@@ -86,7 +86,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   for (int q = 0; q < W; ++q) words[q] = p.sig[q] + dl::ARRIVAL_WORD + me;
   dl::signal_after_puts(words, W);
   dl::wait(p.sig[me] + dl::ARRIVAL_WORD, W, 1, target,
-           "all_to_all arrival");
+           tdt::WAIT_ALL_TO_ALL);
 }
 
 }  // namespace

@@ -233,7 +233,7 @@ __device__ __forceinline__ void emit_push_allgather(
   for (int p = 0; p < t.world; ++p) words[p] = sig[p] + dl::ARRIVAL_WORD + me;
   dl::signal_after_puts<S>(words, t.world);
   dl::wait<S>(sig[me] + dl::ARRIVAL_WORD, t.world, 1, target,
-              "push all-gather arrival");
+              tdt::WAIT_PUSH_ALLGATHER);
 }
 
 // The ring all-gather feeding a computation: the neighbour entry barrier;
@@ -251,7 +251,7 @@ __device__ __forceinline__ void emit_ag_ring(const dl::Team& t,
                                              const void* shard,
                                              dl::Symm<char> gathered,
                                              size_t bytes, dl::Symm<u64> sig,
-                                             u64 target, const char* what,
+                                             u64 target, int what,
                                              Compute&& compute) {
   const int me = dl::rank(t), part = blockIdx.x, parts = gridDim.x;
   char* mine = gathered[me];
@@ -324,7 +324,7 @@ __device__ __forceinline__ void crew_copy(void* dst, const void* src,
 // `dl::wait` for a crew: thread i < n spins on word i, then the crew syncs.
 template <dl::Scope S = dl::Scope::gpu>
 __device__ __forceinline__ void crew_wait(const u64* sig, int n, int stride,
-                                          u64 value, const char* what,
+                                          u64 value, int what,
                                           const Crew& c) {
   if (c.tid < n) dl::signal_wait_until<S>(sig + c.tid * stride, value, what);
   c.sync();
@@ -355,12 +355,12 @@ __device__ __forceinline__ void crew_entry_barrier(const dl::Team& t,
       dl::notify<S>(sig[dl::peer_id(t, me + (c.tid ? 1 : -1))] +
                     dl::BARRIER_WORD);
     crew_wait<S>(sig[me] + dl::BARRIER_WORD, 1, 0, 2 * target,
-                 "barrier_neighbors", c);
+                 tdt::WAIT_BARRIER_NEIGHBORS, c);
   } else {
     if (c.tid < t.world && c.tid != me)
       dl::notify<S>(sig[c.tid] + dl::BARRIER_WORD);
     crew_wait<S>(sig[me] + dl::BARRIER_WORD, 1, 0,
-                 (u64)(t.world - 1) * target, "barrier_all", c);
+                 (u64)(t.world - 1) * target, tdt::WAIT_BARRIER_ALL, c);
   }
 }
 
@@ -374,7 +374,7 @@ __device__ __forceinline__ void crew_entry_barrier(const dl::Team& t,
 template <dl::Scope S = dl::Scope::gpu>
 __device__ __forceinline__ void emit_ag_ring_forward(
     const dl::Team& t, const void* shard, dl::Symm<char> gathered,
-    size_t bytes, dl::Symm<u64> sig, u64 target, const char* what,
+    size_t bytes, dl::Symm<u64> sig, u64 target, int what,
     const Crew& c) {
   const int me = dl::rank(t), part = blockIdx.x, parts = gridDim.x;
   char* mine = gathered[me];
@@ -420,7 +420,7 @@ __device__ __forceinline__ void emit_push_allgather_send(
 template <dl::Scope S = dl::Scope::gpu>
 __device__ __forceinline__ void ring_wait_chunk(dl::Symm<u64> sig, int me,
                                                 int c, u64 target,
-                                                const char* what) {
+                                                int what) {
   dl::signal_wait_until<S>(sig[me] + dl::ARRIVAL_WORD + c, target, what);
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
@@ -444,7 +444,7 @@ __device__ __forceinline__ void emit_scatter_reduce(
   for (int c = 0; c < t.world; ++c) words[c] = sig[c] + dl::ARRIVAL_WORD + me;
   dl::signal_after_puts<S>(words, t.world);
   dl::wait<S>(sig[me] + dl::ARRIVAL_WORD, t.world, 1, target,
-              "scatter-reduce arrival");
+              tdt::WAIT_SCATTER_REDUCE);
   reduce_sum(reinterpret_cast<const T*>(rbuf[me]), out, t.world, elems,
              blockIdx.x, gridDim.x);
 }

@@ -1,11 +1,13 @@
 // Helpers shared by the kernels: vector loads that widen to float, stores
 // that narrow from float, cp.async copies, bf16 tensor-core fragments
-// (ldmatrix, mma.sync), and the C error-string entry.
+// (ldmatrix, mma.sync), the spin timeout of every wait, and the C entries
+// every library exports (the error string, the spin-timeout record).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace tdt {
 
@@ -67,6 +69,101 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- the spin timeout ------------------------------------------------------
+//
+// Every wait of every library (dl.cuh's signal waits, mbarrier.cuh's phase
+// waits) spins at most TDT_SPIN_BUDGET_CYCLES, then records what it waited
+// for and traps, so a fault in a protocol fails the launch instead of
+// hanging the card.  The timeout path calls nothing: any function call in a
+// kernel, even a printf in another warp's branch, makes ptxas serialize its
+// `wgmma`s (info C7510).  The record lies in mapped pinned host memory,
+// which the host can still read once the trap has killed the context; a
+// library gets its device address once, when it is loaded
+// (`tdt_spin_record_attach`; kernels/_build.py `spin_report` reads it).  The
+// first thread of a library that times out writes it.
+
+#ifndef TDT_SPIN_BUDGET_CYCLES
+//: About 10 s at the H100's 1.98 GHz boost clock.
+#define TDT_SPIN_BUDGET_CYCLES 20000000000LL
+#endif
+
+// What a spin waited for: the record's ``what``.  kernels/_build.py names
+// each from its ``//:`` comment, so every entry has one, on its own line.
+enum Wait : int {
+  WAIT_NONE = 0,                  //: nothing (no wait timed out)
+  WAIT_MBARRIER,                  //: an mbarrier phase (TMA or bulk copies)
+  WAIT_BARRIER_ALL,               //: barrier_all
+  WAIT_BARRIER_NEIGHBORS,         //: barrier_neighbors
+  WAIT_GRID_BARRIER,              //: grid barrier
+  WAIT_BARRIER_RANK,              //: barrier_rank
+  WAIT_BROADCAST_ARRIVAL,         //: broadcast arrival
+  WAIT_BROADCAST_ROOT,            //: broadcast root outside the team (no wait)
+  WAIT_PUSH_ALLGATHER,            //: push all-gather arrival
+  WAIT_SCATTER_REDUCE,            //: scatter-reduce arrival
+  WAIT_ALL_GATHER_RING,           //: all_gather ring arrival
+  WAIT_ALL_GATHER_BIDIR_RIGHT,    //: all_gather bidir ring arrival (rightwards)
+  WAIT_ALL_GATHER_BIDIR_LEFT,     //: all_gather bidir ring arrival (leftwards)
+  WAIT_REDUCE_SCATTER_ACK,        //: reduce_scatter ack
+  WAIT_REDUCE_SCATTER_RING,       //: reduce_scatter ring arrival
+  WAIT_REDUCE_SCATTER_ACK_DRAIN,  //: reduce_scatter ack drain
+  WAIT_TWO_SHOT_SCATTER,          //: two-shot scatter arrival
+  WAIT_TWO_SHOT_BROADCAST,        //: two-shot broadcast arrival
+  WAIT_CHAIN_REDUCE,              //: chain reduce arrival
+  WAIT_CHAIN_BROADCAST,           //: chain broadcast arrival
+  WAIT_ALL_TO_ALL,                //: all_to_all arrival
+  WAIT_AG_GEMM_RING,              //: ag_gemm ring arrival
+  WAIT_AG_GEMM_FORWARD,           //: ag_gemm ring forward
+  WAIT_AG_GEMM_PUSH,              //: ag_gemm push arrival
+  WAIT_AG_GEMM_W8A8_RING,         //: ag_gemm_w8a8 ring arrival
+  WAIT_AG_GROUP_GEMM_RING,        //: ag_group_gemm ring arrival
+  WAIT_GEMM_RS_PARTIAL,           //: gemm_rs partial arrival
+  WAIT_MOE_REDUCE_RS_PARTIAL,     //: moe_reduce_rs partial arrival
+  WAIT_SP_AG_RING_FORWARD,        //: sp_ag_attention ring forward
+  WAIT_SP_AG_RING_LOAD,           //: sp_ag_attention ring arrival (TMA loads)
+  WAIT_SP_AG_RING,                //: sp_ag_attention ring arrival (f32 blocks)
+  WAIT_TORUS_ALL_GATHER,          //: torus all-gather arrival
+  WAIT_TORUS_RS_ACK,              //: torus reduce-scatter ack
+  WAIT_TORUS_RS_ARRIVAL,          //: torus reduce-scatter arrival
+  WAIT_TORUS_RS_ACK_DRAIN,        //: torus reduce-scatter ack drain
+};
+
+// The record (kernels/_build.py `_SpinRecord` mirrors it).
+struct SpinRecord {
+  int what;                 // a Wait, 0 until a spin timed out
+  int block[3];             // blockIdx
+  int thread;               // threadIdx.x
+  int pad;
+  unsigned long long addr;  // the word or mbarrier waited on
+  unsigned long long want;  // the value (or phase) waited for
+  unsigned long long seen;  // what the word held (or the phase waited past)
+};
+
+namespace {
+__device__ SpinRecord* spin_record = nullptr;
+__device__ int spin_claimed = 0;
+}  // namespace
+
+// Record the wait and trap.  Plain stores and fences only: no call.
+__device__ __forceinline__ void spin_timeout(int what, const void* addr,
+                                             unsigned long long want,
+                                             unsigned long long seen) {
+  SpinRecord* r = spin_record;
+  if (r != nullptr && atomicCAS(&spin_claimed, 0, 1) == 0) {
+    volatile SpinRecord* v = r;
+    v->block[0] = blockIdx.x;
+    v->block[1] = blockIdx.y;
+    v->block[2] = blockIdx.z;
+    v->thread = threadIdx.x;
+    v->addr = reinterpret_cast<unsigned long long>(addr);
+    v->want = want;
+    v->seen = seen;
+    __threadfence_system();
+    v->what = what;  // last: the host reads a record whose what is set
+    __threadfence_system();
+  }
+  __trap();
 }
 
 // Number of K/V tiles of BK keys that a tile of query rows [q0, q0 + BQ)
@@ -132,4 +229,23 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16 (*dst)[D + 8],
 
 extern "C" const char* tdt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The spin-timeout record in mapped pinned host memory, zeroed (one for the
+// process: the host allocates it once, through any library).
+extern "C" int tdt_spin_record_alloc(void** host) {
+  const cudaError_t e =
+      cudaHostAlloc(host, sizeof(tdt::SpinRecord),
+                    cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e == cudaSuccess) memset(*host, 0, sizeof(tdt::SpinRecord));
+  return (int)e;
+}
+
+// Point this library's kernels (on the current device) at the record.
+extern "C" int tdt_spin_record_attach(void* host) {
+  void* dev = nullptr;
+  cudaError_t e = cudaHostGetDevicePointer(&dev, host, 0);
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(tdt::spin_record, &dev, sizeof(dev));
+  return (int)e;
 }

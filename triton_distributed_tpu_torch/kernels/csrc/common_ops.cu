@@ -56,12 +56,8 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   const dl::Team& t = p.team;
   const u64 target = p.epoch + gridDim.x;
   const int root = *p.root;
-  if (root < 0 || root >= t.world) {
-    if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
-      printf("tdt broadcast: root %d outside the team of %d ranks\n", root,
-             t.world);
-    __trap();
-  }
+  if (root < 0 || root >= t.world)
+    tdt::spin_timeout(tdt::WAIT_BROADCAST_ROOT, p.root, t.world, root);
   comm::inject_faults(t, p.faults);
   dl::entry_barrier(t, p.sig, target, /*neighbors_only=*/false);
   dl::emit_broadcast(t, root, p.x + blockIdx.y * p.bytes, p.out, p.bytes,

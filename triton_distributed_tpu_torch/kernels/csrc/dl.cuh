@@ -30,14 +30,16 @@
 // the consumer's counter.  The consumer's thread spins on an acquire load
 // (`ld.acquire`) with __nanosleep, then the block syncs; the arrived data
 // is then read through L2 (cp.async.cg, ld.global.cg), never through L1 or
-// the read-only path.  A spin that outlasts its cycle budget prints what it
-// waited for and traps, so a protocol fault fails the launch instead of
-// hanging the card.
+// the read-only path.  A spin that outlasts its cycle budget records what
+// it waited for (a `tdt::Wait`) and traps (`tdt::spin_timeout`,
+// common.cuh), so a protocol fault fails the launch instead of hanging the
+// card.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
+
+#include "common.cuh"
 
 namespace dl {
 
@@ -56,19 +58,6 @@ constexpr int LOCAL_WORD = 1;
 constexpr int ARRIVAL_WORD = 2;
 constexpr int ARRIVAL_WORDS = 2 * MAX_RANKS;
 constexpr int SIGNAL_WORDS = ARRIVAL_WORD + ARRIVAL_WORDS;
-
-#ifndef TDT_SPIN_BUDGET_CYCLES
-//: About 10 s at the H100's 1.98 GHz boost clock.
-#define TDT_SPIN_BUDGET_CYCLES 20000000000LL
-#endif
-
-#ifndef TDT_SPIN_REPORT
-//: Whether a spin that runs out of its budget prints what it waited for
-//: before it traps.  A library whose kernels run `wgmma` sets it to 0
-//: before its includes: a printf is a function call, and ptxas serializes
-//: every `wgmma` of a kernel that holds a call (its info C7510).
-#define TDT_SPIN_REPORT 1
-#endif
 
 enum class Scope { gpu, sys };
 
@@ -163,25 +152,19 @@ __device__ __forceinline__ void notify(u64* sig, u64 inc = 1) {
   red_release_add<S>(sig, inc);
 }
 
-// One thread spins until ``*sig >= value`` (NVSHMEM_CMP_GE), or traps
-// after TDT_SPIN_BUDGET_CYCLES with ``what`` named (TDT_SPIN_REPORT).
+// One thread spins until ``*sig >= value`` (NVSHMEM_CMP_GE), or records
+// ``what`` (a `tdt::Wait`) and traps after TDT_SPIN_BUDGET_CYCLES.
 template <Scope S = Scope::gpu>
 __device__ __forceinline__ void signal_wait_until(const u64* sig, u64 value,
-                                                  const char* what) {
+                                                  int what) {
   if (ld_acquire<S>(sig) >= value) return;
   const long long t0 = clock64();
   unsigned ns = 32;
   while (ld_acquire<S>(sig) < value) {
     __nanosleep(ns);
     if (ns < 1024) ns *= 2;
-    if (clock64() - t0 > TDT_SPIN_BUDGET_CYCLES) {
-#if TDT_SPIN_REPORT
-      printf("tdt dl: %s timed out: block (%d, %d) waits for %llu at %p, "
-             "which holds %llu\n", what, blockIdx.x, blockIdx.y, value, sig,
-             ld_acquire<S>(sig));
-#endif
-      __trap();
-    }
+    if (clock64() - t0 > TDT_SPIN_BUDGET_CYCLES)
+      tdt::spin_timeout(what, sig, value, ld_acquire<S>(sig));
   }
 }
 
@@ -190,7 +173,7 @@ __device__ __forceinline__ void signal_wait_until(const u64* sig, u64 value,
 // i, then the block syncs.  (JAX `dl.wait`.)
 template <Scope S = Scope::gpu>
 __device__ __forceinline__ void wait(const u64* sig, int n, int stride,
-                                     u64 value, const char* what) {
+                                     u64 value, int what) {
   const int tid = threadIdx.x;
   if (tid < n) signal_wait_until<S>(sig + tid * stride, value, what);
   __syncthreads();
@@ -274,7 +257,7 @@ __device__ __forceinline__ void barrier_all(const Team& t, Symm<u64> sig,
   const int me = rank(t), tid = threadIdx.x;
   if (tid < t.world && tid != me) notify<S>(sig[tid] + BARRIER_WORD);
   wait<S>(sig[me] + BARRIER_WORD, 1, 0, (u64)(t.world - 1) * target,
-          "barrier_all");
+          tdt::WAIT_BARRIER_ALL);
 }
 
 // Ring barrier with the left and right neighbours only (two signals a
@@ -285,7 +268,8 @@ __device__ __forceinline__ void barrier_neighbors(const Team& t,
                                                   u64 target) {
   const int me = rank(t), tid = threadIdx.x;
   if (tid < 2) notify<S>(sig[peer_id(t, me + (tid ? 1 : -1))] + BARRIER_WORD);
-  wait<S>(sig[me] + BARRIER_WORD, 1, 0, 2 * target, "barrier_neighbors");
+  wait<S>(sig[me] + BARRIER_WORD, 1, 0, 2 * target,
+          tdt::WAIT_BARRIER_NEIGHBORS);
 }
 
 // The barrier at kernel entry, before the first put into a peer: a peer's
@@ -328,7 +312,7 @@ __device__ __forceinline__ void grid_barrier(const Team& t, const Grid& g,
                                     neighbors_only ? (j ? -1 : 1) : j + 1)] +
                   word);
   }
-  wait<S>(sig[me] + word, 1, 0, (u64)n * target, "grid barrier");
+  wait<S>(sig[me] + word, 1, 0, (u64)n * target, tdt::WAIT_GRID_BARRIER);
 }
 
 // The P blocks of this rank wait for each other (one signal a block on the
@@ -338,7 +322,7 @@ __device__ __forceinline__ void barrier_rank(const Team& t, Symm<u64> sig,
                                              u64 target) {
   u64* word = sig[rank(t)] + LOCAL_WORD;
   signal_after_puts<S>(&word, 1);
-  wait<S>(word, 1, 0, target, "barrier_rank");
+  wait<S>(word, 1, 0, target, tdt::WAIT_BARRIER_RANK);
 }
 
 // Broadcast: the root's ``bytes`` from ``src`` into every rank's ``dst``
@@ -363,7 +347,7 @@ __device__ __forceinline__ void emit_broadcast(const Team& t, int root,
     for (int p = 0; p < t.world; ++p) words[p] = sig[p] + word;
     signal_after_puts<S>(words, t.world);
   }
-  wait<S>(sig[me] + word, 1, 0, target, "broadcast arrival");
+  wait<S>(sig[me] + word, 1, 0, target, tdt::WAIT_BROADCAST_ARRIVAL);
 }
 
 // Spin ``cycles`` SM clock cycles (the TPU's `pl.delay`).

@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(Tile::NT, gemm::MIN_BLOCKS)
     dl::signal_after_puts(&word, 1);
   }
   dl::wait(p.sig[me] + dl::ARRIVAL_WORD, w, 1, target,
-           "gemm_rs partial arrival");
+           tdt::WAIT_GEMM_RS_PARTIAL);
   tdt::comm::reduce_sum(reinterpret_cast<const T*>(p.rbuf[me]),
                         p.out + y * o_chunk, w, o_chunk, part, parts);
 }

@@ -5,7 +5,6 @@
 #pragma once
 
 #include <stdint.h>
-#include <stdio.h>
 
 #include "common.cuh"
 
@@ -53,29 +52,14 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
 }
 
 // Until the barrier's phase is not ``parity``.  A wait that outlasts
-// SPIN_BUDGET_CYCLES (about 10 s at the H100's 1.98 GHz boost clock) traps,
-// so a fault in a ring's protocol fails the launch instead of hanging it.
-constexpr long long SPIN_BUDGET_CYCLES = 20000000000LL;
-
-#ifndef TDT_SPIN_REPORT
-// As dl.cuh's: 0 traps without the message, which keeps `wgmma` kernels
-// free of the printf call that makes ptxas serialize their products.
-#define TDT_SPIN_REPORT 1
-#endif
-
+// TDT_SPIN_BUDGET_CYCLES records itself and traps (`spin_timeout`), so a
+// fault in a ring's protocol fails the launch instead of hanging it.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   if (mbar_try_wait(bar, parity)) return;
   const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > SPIN_BUDGET_CYCLES) {
-#if TDT_SPIN_REPORT
-      printf("tdt: block (%d, %d, %d) thread %d waits on barrier %p for "
-             "phase %u\n", blockIdx.x, blockIdx.y, blockIdx.z, threadIdx.x,
-             bar, parity ^ 1);
-#endif
-      __trap();
-    }
-  }
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > TDT_SPIN_BUDGET_CYCLES)
+      spin_timeout(WAIT_MBARRIER, bar, parity ^ 1, parity);
 }
 
 // ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst`` (both

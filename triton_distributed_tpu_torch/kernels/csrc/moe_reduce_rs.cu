@@ -175,7 +175,7 @@ __global__ void __launch_bounds__(Body::NT, gemm::MIN_BLOCKS)
     dl::signal_after_puts(&word, 1);
   }
   dl::wait(p.sig[me] + dl::ARRIVAL_WORD, w, 1, target,
-           "moe_reduce_rs partial arrival");
+           tdt::WAIT_MOE_REDUCE_RS_PARTIAL);
   comm::reduce_sum(reinterpret_cast<const T*>(p.rbuf[me]), p.out + y * o_chunk,
                    w, o_chunk, part, parts);
 }

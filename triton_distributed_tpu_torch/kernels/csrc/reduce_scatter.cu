@@ -94,14 +94,15 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   for (int s = 0; s < w - 1; ++s) {
     const int slot = s % 2;
     if (s >= 2)
-      dl::wait(p.sig[me] + ACK + s - 2, 1, 0, target, "reduce_scatter ack");
+      dl::wait(p.sig[me] + ACK + s - 2, 1, 0, target,
+               tdt::WAIT_REDUCE_SCATTER_ACK);
     const T* src = s == 0 ? x + dl::peer_id(t, me - 1 - s) * elems
                           : acc + slot * elems;
     comm::put_range(stage_right + slot * elems, src, r);
     u64* word = p.sig[right] + dl::ARRIVAL_WORD + s;
     dl::signal_after_puts(&word, 1);
     dl::wait(p.sig[me] + dl::ARRIVAL_WORD + s, 1, 0, target,
-             "reduce_scatter ring arrival");
+             tdt::WAIT_REDUCE_SCATTER_RING);
     T* dst = s < w - 2 ? acc + (1 - slot) * elems : p.out + y * elems;
     comm::add_into(dst, stage + slot * elems,
                    x + dl::peer_id(t, me - 2 - s) * elems, r);
@@ -111,7 +112,8 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
     dl::signal_after_puts(&ack, 1);
   }
   for (int s = w - 3 < 0 ? 0 : w - 3; s < w - 1; ++s)
-    dl::wait(p.sig[me] + ACK + s, 1, 0, target, "reduce_scatter ack drain");
+    dl::wait(p.sig[me] + ACK + s, 1, 0, target,
+             tdt::WAIT_REDUCE_SCATTER_ACK_DRAIN);
 }
 
 template <typename T>

@@ -192,7 +192,7 @@ __device__ __forceinline__ void emit_torus_ag(const GridArgs& p,
       }
       const int expect = wrap(pos - (s + 1) * d, w);
       dl::wait(p.sig[me] + ag_word(p, ph, q, expect), 1, 0, target,
-               "torus all-gather arrival");
+               tdt::WAIT_TORUS_ALL_GATHER);
       pend_phase = ph;
       pend_c = expect;
     }
@@ -379,7 +379,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
       // it held two steps ago.
       if (s >= 2)
         dl::wait(mine + rs_word(gp, 1, t, q, s - 2), 1, 0, target,
-                 "torus reduce-scatter ack");
+                 tdt::WAIT_TORUS_RS_ACK);
       const int send = wrap(pos - (1 + s) * d, w);
       for (int e = 0; e < cells; ++e)
         comm::put_range(stage_fwd + (size_t)(slot * cap + e) * S,
@@ -390,7 +390,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
                   rs_word(gp, 0, t, q, s);
       dl::signal_after_puts(&word, 1);
       dl::wait(mine + rs_word(gp, 0, t, q, s), 1, 0, target,
-               "torus reduce-scatter arrival");
+               tdt::WAIT_TORUS_RS_ARRIVAL);
       const int recv = wrap(pos - (2 + s) * d, w);
       for (int e = 0; e < cells; ++e)
         comm::add_into(s < w - 2 ? sums + (size_t)((1 - slot) * cap + e) * S
@@ -405,7 +405,7 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
     }
     for (int s = w - 3 < 0 ? 0 : w - 3; s < w - 1; ++s)
       dl::wait(mine + rs_word(gp, 1, t, q, s), 1, 0, target,
-               "torus reduce-scatter ack drain");
+               tdt::WAIT_TORUS_RS_ACK_DRAIN);
   }
 }
 

@@ -42,7 +42,6 @@
 #pragma once
 
 #include <cuda.h>
-#include <stdio.h>
 
 #include "gemm_tile.cuh"
 #include "mbarrier.cuh"

@@ -9,8 +9,9 @@ rank-stacked (W, B, H, S_loc, D).
 
 - `sp_ag_attention_fused` (JAX :466) is one launch of
   ``csrc/sp_ag_attention.cu`` (K20) over every rank: the KV chunks go round
-  a +1 ring inside the kernel while persistent consumers fold each chunk
-  that has arrived into their online-softmax state; chunks in the causal
+  a +1 ring inside the kernel (every block's spare warps forward its
+  share) while persistent consumers fold each chunk that has arrived into
+  their online-softmax state on K1's tile body; chunks in the causal
   future are skipped.  At world 1 it is one K1 (`flash_attention`) with
   ``kv_offset``, as in JAX.  Its plain version,
   `sp_ag_attention_fused_reference`, is the TPU kernel's schedule in f32:
@@ -68,7 +69,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"sp_ag_attention_fused": (
     [_P] * 8 + [_I] * 7 + [ctypes.POINTER(_I)] * 2
-    + [ctypes.c_float, ctypes.c_uint64, _I, ctypes.c_longlong, _I,
+    + [ctypes.c_float, ctypes.c_uint64, _I, ctypes.c_longlong, _I, _I,
        ctypes.POINTER(_I), _P])}
 
 #: The plain version scores at most this many (query, key) pairs of f32 at
@@ -261,14 +262,42 @@ def sp_ag_attention_fused(q, k_shard, v_shard, axis: str = "sp", *,
 sp_ag_attention_fused.launches = 0
 
 
+#: TMA coordinates are signed 32-bit: a map's planes must stay below this.
+_TMA_PLANES = 1 << 31
+
+
+def ring_maps(world: int, b: int, h: int, hkv: int, s_loc: int, d: int):
+    """The 3-D tensor maps K20's bf16 kernel reads through, each (d, rows,
+    planes), innermost first: ``q`` over every rank's queries (plane r B H
+    + b H + h), ``kv`` over every rank's k and v inputs and ``ring`` over a
+    rank's kbuf and vbuf (chunk c of (b, hk) at `ring_plane`)."""
+    return {"q": (d, s_loc, world * b * h), "kv": (d, s_loc, world * b * hkv),
+            "ring": (d, s_loc, world * b * hkv)}
+
+
+def ring_plane(c: int, bi: int, hk: int, b: int, hkv: int) -> int:
+    """The plane of chunk ``c``'s rows of (batch ``bi``, KV head ``hk``) in
+    a rank's ring buffer (W, B, Hkv, S_loc, D) seen as (W B Hkv, S_loc, D):
+    the index K20 gives its TMA loads (and, with the rank for ``c``, of a
+    rank's own chunk in the stacked inputs)."""
+    return (c * b + bi) * hkv + hk
+
+
 def _launch(q, k, v, q_off, base, scale, collective_id, straggler,
-            for_correctness, group):
+            for_correctness, group, ring: bool = True):
+    """One K20 launch.  ``ring=False`` (bf16; for timing the consumers
+    alone): no ring and no arrival wait, the chunks read from the ring
+    buffers as the last call left them; the epoch does not move."""
     world, b, h, s_loc, d = q.shape
     hkv = k.shape[2]
     if world > MAX_WORLD:
         raise ValueError(f"sp_ag_attention_fused: world {world} > "
                          f"{MAX_WORLD}")
     _check(_flat(q), _flat(k), _flat(v))
+    if any(dims[2] >= _TMA_PLANES for dims in
+           ring_maps(world, b, h, hkv, s_loc, d).values()):
+        raise ValueError(f"sp_ag_attention_fused: {world * b * h} query "
+                         "planes exceed a tensor map's coordinates")
     inst = symmetric_buffers("sp_ag_attention", collective_id, "fused",
                              q.dtype, world, q.device, group=group)
     kbuf = inst.buffer("k", (world, b, hkv, s_loc, d), q.dtype)
@@ -284,8 +313,8 @@ def _launch(q, k, v, q_off, base, scale, collective_id, straggler,
         lse.data_ptr(), inst.peers(kbuf), inst.peers(vbuf),
         inst.signal_peers(), world, _build.DTYPE_CODES[q.dtype], b, h, hkv,
         s_loc, d, ints(*q_off), ints(*base), float(scale), inst.epoch,
-        *fault_args(straggler, for_correctness), ctypes.byref(blocks),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *fault_args(straggler, for_correctness), int(ring),
+        ctypes.byref(blocks), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "sp_ag_attention_fused kernel launch")
     inst.advance(blocks.value)
     sp_ag_attention_fused.launches += 1
