@@ -58,11 +58,14 @@ non-zero):
    the one card: K12 (``ag_gemm``) and K14 (``gemm_rs``) against their
    plain versions row by row in both methods at the Qwen3-8B shapes
    (prefill 512 rows a rank, decode 1), at world 2 (ragged, bf16) and 8
-   (ragged, f32), and over 100 back-to-back calls of each with fresh
-   inputs; a 2-layer f32 model of Qwen3-8B's widths at world 4, card
+   (ragged, f32), off 16-byte rows, and over 100 back-to-back calls of
+   each with fresh inputs, every bf16 16-byte-row call on the `wgmma`
+   body by its counter, a row's bits independent of the call's rows and
+   method; a 2-layer f32 model of Qwen3-8B's widths at world 4, card
    against CPU; the 8B weights resharded to world 4 (``Qwen3.reshard``) in
    mode ``fused`` through ``Engine.serve`` of phase 4's requests with
-   exact K1/K2/K12/K14 launches, its prefill logits and 3 decode steps
+   exact K1/K2/K12/K14 launches, all K12/K14 launches on the `wgmma`
+   body, its prefill logits and 3 decode steps
    within 3x phase 4's bf16 error of the world-1 logits; K12/K14 times
    with bounds, plain versions and library yardsticks, world-4 prefill
    and decode beside world 1 in alternating windows, profiles; the
@@ -1600,11 +1603,12 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
     torch.cuda.reset_peak_memory_stats()
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
-    wg0 = ag_gemm.wgmma_launches
+    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches)
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine.serve(prompts, GEN_LEN, cache=cache)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
-    wg12 = ag_gemm.wgmma_launches - wg0
+    wg12 = ag_gemm.wgmma_launches - wg0[0]
+    wg14 = gemm_rs.wgmma_launches - wg0[1]
     tokens = served[0]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
@@ -1616,14 +1620,16 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
           f"{t_serve[0]:.1f} ms (first call); launches {short(launches)} "
           f"(want {short(want)}: per layer one K11 and one K10 in prefill, "
           f"K12/K14 once a forward, ll in decode {ll}, decode's MoE on the "
-          f"xla path, two K8 a rank); K12 on the wgmma body {wg12} of "
-          f"{launches['ag_gemm']}; peak memory {peak:.2f} GiB; {card}")
+          f"xla path, two K8 a rank); on the wgmma body: K12 {wg12} of "
+          f"{launches['ag_gemm']}, K14 {wg14} of {launches['gemm_rs']}; "
+          f"peak memory {peak:.2f} GiB; {card}")
     if launches != want or ll != (nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"MoE TP launch counts {launches}, ll {ll} != "
                              f"{want}")
-    if wg12 != launches["ag_gemm"]:
-        raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12 "
-                             "launches left the wgmma body")
+    if (wg12, wg14) != (launches["ag_gemm"], launches["gemm_rs"]):
+        raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12 and "
+                             f"{launches['gemm_rs'] - wg14} K14 launches "
+                             "left the wgmma body")
     if tokens.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError("MoE TP tokens: bad shape or outside the "
@@ -1931,9 +1937,11 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
        alternating windows; one traced prefill and eight traced decode
        steps.
 
-    Every K12 call reports the body it ran (the `wgmma` + TMA ring on bf16
-    16-byte rows, else the first bodies), checked against `kernel_body`;
-    the world-4 `Engine.serve` runs every K12 launch on the `wgmma` body.
+    Every K12 and K14 call reports the body it ran (the `wgmma` + TMA tile
+    on bf16 16-byte rows, else the first bodies), checked against
+    `kernel_body`; the world-4 `Engine.serve` runs every K12 and K14 launch
+    on the `wgmma` body; on it a row's bits do not depend on the call's
+    other rows or the method (K12: a rank's first row; K14: a chunk's).
 
     On one card every put is a copy inside one HBM: the times say what the
     GEMMs and the copies cost here, not what NVLink overlap would buy.  The
@@ -1993,24 +2001,23 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
         ("ragged f32", "ag_gemm", 8, 37, 512, 384, f32),
         ("ragged f32", "gemm_rs", 8, 8 * 37, 512, 384, f32),
         ("off 16-byte rows", "ag_gemm", 3, 5, 100, 77, bf16),
+        ("off 16-byte rows", "gemm_rs", 3, 3 * 5, 100, 77, bf16),
     ]
     timed = {}
     for label, op, world, rows, k, n, dtype in cases:
         a, b = operands(op, world, rows, k, n, dtype)
         ref = plain(op, a.float(), b.float())
         for method in ("fused", "ll"):
-            wg0 = ag_gemm.wgmma_launches
+            counter = ag_gemm if op == "ag_gemm" else gemm_rs
+            wg0 = counter.wgmma_launches
             out = run(op, world, method, a, b)
             torch.cuda.synchronize()
-            body = ""
-            if op == "ag_gemm":
-                took = ag_gemm.wgmma_launches - wg0
-                want_body = kernel_body(a, b)
-                body = f", body {'wgmma' if took else want_body}"
-                if (took == 1) != (want_body == "wgmma"):
-                    raise AssertionError(f"ag_gemm {label} {method}: "
-                                         f"{took} wgmma launches for a "
-                                         f"{want_body} operand")
+            took = counter.wgmma_launches - wg0
+            want_body = kernel_body(a, b)
+            body = f", body {'wgmma' if took else want_body}"
+            if (took == 1) != (want_body == "wgmma"):
+                raise AssertionError(f"{op} {label} {method}: {took} wgmma "
+                                     f"launches for a {want_body} operand")
             e = check_rows(f"{op} {label} world {world} {method} "
                            f"a{tuple(a.shape)} b{tuple(b.shape)} {dtype}"
                            f"{body}", out, ref, *TP_TOL[dtype], 0.0)
@@ -2038,8 +2045,8 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
                                      "disagrees with its plain version")
             del ins, outs
     # A row's bits on the Hopper body whatever the call's rows and method:
-    # rank r's first row alone (the narrow decode tile), inside 16 rows a
-    # rank (the 64-row tile) and 17 (the 128-row tile), ll and fused.
+    # rank r's first row alone (K12: the narrow decode tile), inside 16 rows
+    # a rank (the 64-row tile) and 17 (the 128-row tile), ll and fused.
     for label in ("decode QKV", "decode gate_up"):
         k, n = timed[("ag_gemm", label)][3:]
         a, b = operands("ag_gemm", w, 17, k, n, bf16)
@@ -2055,6 +2062,25 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
               f"{'ok' if all(same) else 'FAIL'}")
         if not all(same):
             raise AssertionError(f"ag_gemm {label}: a row's bits depend on "
+                                 "the other rows or the method")
+    # K14 the same: every chunk's first row alone, inside 16 rows a chunk
+    # (the 64-row tile) and 17 (the 128-row tile in ll), ll and fused.
+    for label in ("decode O", "decode down"):
+        k, n = timed[("gemm_rs", label)][3:]
+        a, b = operands("gemm_rs", w, w * 17, k, n, bf16)
+        a = a.reshape(w, w, 17, k)
+        first, same = None, []
+        for rows in (1, 16, 17):
+            x = a[:, :, :rows].reshape(w, w * rows, k).contiguous()
+            for method in ("ll", "fused"):
+                row = run("gemm_rs", w, method, x, b)[:, 0]
+                first = row if first is None else first
+                same.append(torch.equal(row, first))
+        print(f"  gemm_rs {label} world {w} k {k} n {n}: each chunk's first "
+              f"row alone, in 16 and in 17 rows a chunk, ll and fused: bit "
+              f"for bit {'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise AssertionError(f"gemm_rs {label}: a row's bits depend on "
                                  "the other rows or the method")
 
     # -- 2. card vs CPU, 2 layers in f32
@@ -2105,17 +2131,19 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     cache4 = model4.create_cache(BATCH, max_seq=CACHE_SEQ)
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
-    wg0 = ag_gemm.wgmma_launches
+    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches)
     torch.cuda.reset_peak_memory_stats()
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine4.serve(prompts, GEN_LEN, cache=cache4)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
-    wg12 = ag_gemm.wgmma_launches - wg0
+    wg12 = ag_gemm.wgmma_launches - wg0[0]
+    wg14 = gemm_rs.wgmma_launches - wg0[1]
     tokens4 = served[0]
     print(f"[tp path] Engine.serve at world {w}, {BATCH} requests x {PROMPT} "
           f"prompt tokens, gen_len {GEN_LEN}, greedy: {t_serve[0]:.1f} ms "
           f"(first call); launches {short(launches)}, of which ll: K12 "
-          f"{ll[0]}, K14 {ll[1]}; K12 on the wgmma body {wg12}; tokens "
+          f"{ll[0]}, K14 {ll[1]}; on the wgmma body: K12 {wg12}, K14 "
+          f"{wg14}; tokens "
           f"equal to the world-1 run's: "
           f"{int((tokens4 == tokens).sum())} of {tokens.numel()}; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2124,9 +2152,10 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
     if launches != want or ll != (2 * nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"TP launch counts {launches}, ll {ll} != "
                              f"{want}")
-    if wg12 != launches["ag_gemm"]:
-        raise AssertionError(f"TP: {launches['ag_gemm'] - wg12} K12 "
-                             "launches left the wgmma body")
+    if (wg12, wg14) != (launches["ag_gemm"], launches["gemm_rs"]):
+        raise AssertionError(f"TP: {launches['ag_gemm'] - wg12} K12 and "
+                             f"{launches['gemm_rs'] - wg14} K14 launches "
+                             "left the wgmma body")
     if tokens4.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens4 >= 0) & (tokens4 < cfg.vocab_size)).all()):
         raise AssertionError("world-4 tokens: bad shape or outside the "
@@ -2158,12 +2187,11 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
           "(every put a copy inside one HBM, no NVLink); CUDA events; "
           f"library: one bf16 cuBLAS product, GEMM only, no gather or "
           f"scatter; {card}")
-    k12 = {}
+    k12, k14 = {}, {}
     for (op, label), (a, b, rows, k, n) in timed.items():
         ms = {method: time_ms(lambda: run(op, w, method, a, b), 20)
               for method in ("fused", "ll")}
-        if op == "ag_gemm":
-            k12[label] = ms
+        (k12 if op == "ag_gemm" else k14)[label] = ms
         plain_ms = time_ms(lambda: plain(op, a, b), 3)
         if op == "ag_gemm":
             full = a.reshape(-1, k)
@@ -2178,7 +2206,8 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
               f"fused {ms['fused']:.4f} ms, ll {ms['ll']:.4f} ms (bound "
               f"{bms:.4f} ms by {by}, {bms / ms['fused']:.1%} / "
               f"{bms / ms['ll']:.1%} of bound), plain {plain_ms:.4f} ms, "
-              f"{lib_name} {lib:.4f} ms; {card}")
+              f"{lib_name} {lib:.4f} ms (fused {ms['fused'] / lib:.2f}x, ll "
+              f"{ms['ll'] / lib:.2f}x); {card}")
         if label in ("prefill gate_up", "prefill down"):
             records.append((op, ms["fused"], plain_ms, bms, by, lib,
                             {"method": "fused", "shape": label,
@@ -2210,11 +2239,11 @@ def tp_path(model, cfg, prompts, tokens, floor, dev, card: str, counted,
         undo()
         shutil.rmtree(tmp, ignore_errors=True)
     for rec in records:
-        if rec[0] == "ag_gemm":
+        if rec[0] in ("ag_gemm", "gemm_rs"):
             rec[6].update({"body": "wgmma", **{
                 f"{label} {method}_ms".replace(" ", "_"): v
-                for label, ms in k12.items() for method, v in ms.items()
-                if method != "protocol"}})
+                for label, ms in (k12 if rec[0] == "ag_gemm" else k14).items()
+                for method, v in ms.items() if method != "protocol"}})
     del timed
 
     window = {"world 1": [], f"world {w}": []}
@@ -3574,9 +3603,10 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
             got["sp2d"] = sp.sp_ag_attention_2d(q, k, v, hctx)
         torch.cuda.synchronize()
 
-    wg0 = ag_gemm.wgmma_launches
+    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches)
     launches = counted(main_path)
-    wg12 = ag_gemm.wgmma_launches - wg0
+    wg12 = ag_gemm.wgmma_launches - wg0[0]
+    wg14 = gemm_rs.wgmma_launches - wg0[1]
     want = expect(all_gather_torus=2 * len(GRID_TIMED),
                   reduce_scatter_torus=2 * len(GRID_TIMED) + 1,
                   ag_gemm_torus=1, matmul=4, all_gather=3 * dcn,
@@ -3589,14 +3619,15 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
           f"at (dcn, ici) = {GRID_HIER}: the four hierarchical collectives, "
           f"the two GEMMs, HierarchicalEPAll2AllLayer ({EP_TOKENS} tokens a "
           f"rank, top {topk} of {e}) and sp_ag_attention_2d over "
-          f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}; K12 "
-          f"(_ag_gemm_2d) on the wgmma body {wg12} of {launches['ag_gemm']}")
+          f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}; on the "
+          f"wgmma body: K12 (_ag_gemm_2d) {wg12} of {launches['ag_gemm']}, "
+          f"K14 (_gemm_rs_2d) {wg14} of {launches['gemm_rs']}")
     if launches != want:
         raise AssertionError(f"grid path launches {short(launches)} != "
                              f"{short(want)}")
-    if wg12 != launches["ag_gemm"]:
-        raise AssertionError("grid path: a K12 launch of _ag_gemm_2d left "
-                             "the wgmma body")
+    if (wg12, wg14) != (launches["ag_gemm"], launches["gemm_rs"]):
+        raise AssertionError("grid path: a K12 launch of _ag_gemm_2d or a "
+                             "K14 launch of _gemm_rs_2d left the wgmma body")
 
     # -- 3. checks
     with torch.inference_mode():
@@ -3851,8 +3882,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
-                "grouped_matmul", "ag_gemm", "all_to_all", "sp_ag_attention",
-                "torus"):
+                "grouped_matmul", "ag_gemm", "gemm_rs", "all_to_all",
+                "sp_ag_attention", "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"

@@ -23,7 +23,9 @@ rounding of an f32 sum whose products are exact), f32 out 1e-4 and 1e-5
 The collective GEMMs at world W (K12 `ag_gemm`, K14 `gemm_rs`, W ranks in
 one launch on the one card) are held the same way against their plain
 versions in f32 from the same inputs; K14's bf16 partials are rounded to
-bf16 before their sum, which the bf16 bound covers.
+bf16 before their sum, which the bf16 bound covers.  On the Hopper body
+(bf16 on 16-byte rows) a row of K12 or K14 is held bit for bit across the
+call's rows, the tile and the method.
 """
 
 
@@ -1126,16 +1128,25 @@ def test_ag_gemm_row_independent_of_batch_and_method(cuda, world, k, n):
             assert torch.equal(row, first), (rows, method)
 
 
+#: K14 alone, beside TP_SHAPES: Qwen3-8B's decode O and down slices at
+#: one row a chunk (ll on the 64 x 256 tile at world 4), 17 rows a chunk
+#: at world 4 with n off the tile (the 128-row tile in ll, the 64-row one
+#: in fused) and 600 rows a chunk (several waves of the 128-row tile).
+RS_SHAPES = TP_SHAPES + [(4, 1, 1024, 4096), (4, 1, 3072, 4096),
+                         (4, 17, 512, 1000), (4, 600, 256, 512)]
+
+
 @pytest.mark.parametrize("method", ["fused", "ll"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("world,m,k,n", TP_SHAPES)
+@pytest.mark.parametrize("world,m,k,n", RS_SHAPES)
 def test_gemm_rs_kernel(cuda, method, dtype, world, m, k, n):
     """K14 against its plain version (f32 partials, summed in f32), row by
-    row, over 5 back-to-back calls with fresh inputs; one launch a call.
+    row, over 5 back-to-back calls with fresh inputs; one launch a call, on
+    the Hopper body exactly when the operands are bf16 on 16-byte rows.
     ``m`` rows a chunk."""
     gen = torch.Generator(device=cuda).manual_seed(world * 1000 + m + k + n)
     ctx = GEMMReduceScatterContext("tp", world, method)
-    before = gemm_rs.launches
+    before = (gemm_rs.launches, gemm_rs.wgmma_launches)
     for _ in range(5):
         a = _randn(gen, dtype, cuda, world, world * m, k)
         b = _randn(gen, dtype, cuda, world, k, n) * (world * k) ** -0.5
@@ -1144,7 +1155,55 @@ def test_gemm_rs_kernel(cuda, method, dtype, world, m, k, n):
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == (world, m, n)
         _assert_rows_close("gemm_rs", out, ref, *GEMM_TOL[dtype])
-    assert gemm_rs.launches == before + 5
+    wgmma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+    assert (gemm_rs.launches - before[0],
+            gemm_rs.wgmma_launches - before[1]) == (5, 5 if wgmma else 0)
+
+
+@pytest.mark.parametrize("world,k,n", [(4, 1024, 4096), (4, 3072, 4096),
+                                       (2, 512, 1000), (8, 256, 1536)])
+def test_gemm_rs_row_independent_of_batch_and_method(cuda, world, k, n):
+    """On the Hopper body a chunk row's bits do not depend on how many rows
+    the call holds, the tile width or the method: the partials are the
+    same bits whatever tile computed them, and their sum is the plain
+    version's bf16 rounding and rank-order f32 sum.  Every chunk's first
+    row alone (ll on the 64-row tile), inside 16 rows a chunk (the 64-row
+    tile), 17 (the 128-row one in ll) and 200, in ``ll`` and ``fused``,
+    gives the same bits, and every call is within the bf16 bound of the
+    plain version row by row."""
+    gen = torch.Generator(device=cuda).manual_seed(world * 11 + k + n)
+    a = _randn(gen, torch.bfloat16, cuda, world, world, 200, k)
+    b = _randn(gen, torch.bfloat16, cuda, world, k, n) * (world * k) ** -0.5
+    first = None
+    for rows in (1, 16, 17, 200):
+        x = a[:, :, :rows].reshape(world, world * rows, k).contiguous()
+        for method in ("ll", "fused"):
+            wg0 = gemm_rs.wgmma_launches
+            out = gemm_rs(x, b, GEMMReduceScatterContext("tp", world, method))
+            assert gemm_rs.wgmma_launches == wg0 + 1
+            _assert_rows_close("gemm_rs", out,
+                               gemm_rs_plain(x.float(), b.float()),
+                               *GEMM_TOL[torch.bfloat16])
+            row = out[:, 0]
+            if first is None:
+                first = row
+            assert torch.equal(row, first), (rows, method)
+
+
+@pytest.mark.parametrize("n", [4096, 2048])
+def test_gemm_rs_decode_ll_equals_fused(cuda, n):
+    """The decode form gives the bits of ``fused`` and the rounding and
+    the rank order of the plain version: the decode O slice at one row a
+    chunk at world 4, Qwen3-8B's (n 4096) and Qwen3-30B-A3B's (n 2048)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    a = _randn(gen, torch.bfloat16, cuda, 4, 4, 1024)
+    b = _randn(gen, torch.bfloat16, cuda, 4, 1024, n) * 4096 ** -0.5
+    want = gemm_rs(a, b, GEMMReduceScatterContext("tp", 4, "fused"))
+    got = gemm_rs(a, b, GEMMReduceScatterContext("tp", 4, "ll"))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _assert_rows_close("gemm_rs", got, gemm_rs_plain(a.float(), b.float()),
+                       *GEMM_TOL[torch.bfloat16])
 
 
 def test_tp_kernels_reject_unsupported_inputs(cuda):

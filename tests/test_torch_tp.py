@@ -117,6 +117,11 @@ KERNEL_CASES = [(2, 16, "float32"), (4, 5, "bfloat16")]
 #: K12 also at the decode shape: one row a rank at world 4 in bf16 (JAX
 #: pads it to 16 rows; the port's Hopper body gathers the 4 rows alone).
 AG_CASES = KERNEL_CASES + [(4, 1, "bfloat16")]
+#: K14 also on chunks the Hopper body leaves unpadded: one row a chunk (a
+#: decode step) and 37, at worlds 2 and 4 in bf16 (JAX pads both to 16
+#: rows).
+RS_CASES = KERNEL_CASES + [(w, mc, "bfloat16") for w in (2, 4)
+                           for mc in (1, 37)]
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])
@@ -165,17 +170,19 @@ def test_ag_gemm_body_by_operand():
 
 @pytest.mark.parametrize("n,blocks,want", [
     (1536, 33, 64), (6144, 33, 256), (1536, 16, 256), (4096, 66, 64),
-    (2112, 33, 64), (2120, 33, 256)])
+    (2112, 33, 64), (2120, 33, 256), (4096, 33, 256), (4096, 16, 256),
+    (4096, 132, 64)])
 def test_ag_gemm_ll_tile_n(n, blocks, want):
     """The decode form's tile width: narrow (64) while its column tiles fit
     one wave of the rank's blocks.  Qwen3-8B's QKV (n 1536) and gate_up
-    (6144) slices at world 4 (33 blocks a rank), 8 (16) and 2 (66), and
-    the edge at 33 blocks: 33 narrow tiles, then 34."""
+    (6144) slices at world 4 (33 blocks a rank), 8 (16) and 2 (66); 4096
+    columns at world 4, 8, 2 and on one rank's 132; and the edge at 33
+    blocks: 33 narrow tiles, then 34."""
     assert ll_tile_n(n, blocks) == want
 
 
 @pytest.mark.parametrize("method", ["fused", "ll"])
-@pytest.mark.parametrize("world,mc,dtype", KERNEL_CASES)
+@pytest.mark.parametrize("world,mc,dtype", RS_CASES)
 def test_gemm_rs_matches_jax(meshes, world, mc, dtype, method):
     """Rank c gets row chunk c of sum_r a_r @ b_r; the partials rounded
     to the activations' dtype before their f32 sum on both sides."""

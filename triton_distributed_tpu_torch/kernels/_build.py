@@ -171,12 +171,14 @@ def build(names, csrc: Path | None = None,
     return paths
 
 
-def resource_usage(name: str) -> list[tuple[str, int, int, int, int]]:
+def resource_usage(name: str, path: Path | None = None
+                   ) -> list[tuple[str, int, int, int, int]]:
     """(kernel, registers, spill store bytes, spill load bytes, static
     shared memory bytes) of every kernel of ``csrc/<name>.cu``, from
-    ptxas's report of its build (the kernel's mangled name).  Dynamic
-    shared memory is set at launch and is not in the report."""
-    log = _library_path(name).with_suffix(".log").read_text()
+    ptxas's report of its build (the kernel's mangled name), or of the
+    library at ``path`` (a measurement's variant).  Dynamic shared memory
+    is set at launch and is not in the report."""
+    log = (path or _library_path(name)).with_suffix(".log").read_text()
     rows, kernel, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)

@@ -6,37 +6,84 @@
 //   `gemm_rs` -> pallas_call :292: `_gemm_rs_fused_kernel` (:99) and
 //   `_gemm_rs_ll_kernel` (:147, over reduce_scatter.py
 //   `emit_scatter_reduce` :144).  Layouts are the JAX wrapper's per rank:
-//   a_r (W * mcp, k) as W row chunks, b_r (k, n), the receive buffer rbuf_r
-//   (W, mcp, n) whose slot w holds rank w's partial of chunk r, and out_r
-//   (mcp, n).  The JAX kernels' staging and receive buffers hold a's dtype,
+//   a_r (W * mc, k) as W row chunks, b_r (k, n), the receive buffer rbuf_r
+//   (W, mc, n) whose slot w holds rank w's partial of chunk r, and out_r
+//   (mc, n).  The JAX kernels' staging and receive buffers hold a's dtype,
 //   so a partial is rounded to it before the f32 sum (`_emit_reduce_sum`
 //   :94); this kernel rounds in its GEMM epilogue.
 //
 // What bounds it on the H100: Qwen3-8B prefill at world 4 multiplies 2048
 // rows of 1024 (O projection) or 3072 (down) by b_r of (k_loc, 4096): 17.2
 // / 51.5 GFLOP a rank, the tensor cores; a decode step's 4 rows stream b_r:
-// bytes.  On one card the scatter's copies and the reduce's reads take HBM
+// bytes.  On one card the partials' stores and the sum's reads take HBM
 // bandwidth that NVLink would carry between cards.
 //
-// Design (a first kernel that is right).  One cooperative launch holds
-// every rank's blocks (`dl.cuh`; see ag_gemm.cu): blockIdx.y is the rank,
-// P persistent blocks a rank stride over its GEMM tiles (`gemm_tile.cuh`)
-// and share its copies and its reduce.
+// One cooperative launch holds every rank's blocks (`dl.cuh`; see
+// ag_gemm.cu): blockIdx.y is the rank, P persistent blocks a rank share its
+// GEMM tiles and its sum.
+//
+// bf16 operands on 16-byte rows (k and n multiples of 8, every pointer
+// 16-byte aligned: every main-path call) run the Hopper tile of
+// `wgmma_tile.cuh` (K6/K8/K12's): TMA loads into a ring of k = 64 stages,
+// consumer warpgroups on `wgmma`, one producer thread, one block an SM, so
+// P = 132 / W blocks a rank (33 at world 4).  Rows are not padded: a's
+// tensor map ends at a chunk's last row, so a box past it reads zeros, and
+// rows past it are not stored.  The producer warpgroup's spare warps run
+// the entry barrier (a `comm_body.cuh` crew on named barrier 1) and then
+// open the consumers' remote stores (an mbarrier); the producer's loads
+// never wait, since every operand is the rank's own.  The epilogue (the
+// schedule's `store` hook) sends each partial tile, rounded to bf16,
+// straight to its owner's receive slot, through a 2 KB slab of shared
+// memory a warp (the fragments turned into 16-byte row pieces, so a row's
+// 128 bytes go out in one piece a lane of 8 lanes).  The 128 accumulators
+// stay live through the epilogue (the next tile's products read them), so
+// the sums hold one 16-byte piece a lane at a time, and L2 prefetches
+// (which take no registers) keep more loads in flight.
+// - `fused` (prefill): the tiles of the W chunks are one flat list over
+//   the rank's P blocks, chunk c = (r + 1 + s) mod W at step s (the JAX
+//   order: remote chunks first, the own chunk last), m fastest; a chunk's
+//   map is (k, mc, R W).  Tile partials go to slot r of rank c's rbuf.
+//   After a block's last tile of a step its consumers meet on named barrier
+//   2 and one thread adds one to the step's arrival word at rank c (every
+//   block signals every step once a call; the steps before a block's first
+//   tile are signalled by its crew right after the barrier).  After its
+//   last tile a block waits for every rank's word of its own chunk, and the
+//   rank's blocks share the chunk's sum.
+// - `ll` (decode): one GEMM over the W mc rows (map (k, W mc, R)), so b_r
+//   is read once; row i goes to slot r of rank i / mc's rbuf (no stage
+//   buffer, no barrier among the rank's blocks, no scatter pass).  After
+//   its last tile a block signals every rank once; the rank waits for W
+//   arrivals, and its blocks share the sum.  At decode it keeps the 64 x
+//   256 tile: K12's narrow 64 x 64 one was slower in two waves at
+//   Qwen3-8B's 4096 columns and no faster, with the weights from HBM, at
+//   Qwen3-30B-A3B's 2048 where it fits one wave (`PERF.md` §6).
+// Every tile sums k in one order and both row tiles give an element the
+// same bits (`wgmma_tile.cuh`'s promise), so a partial, and therefore a
+// row's result, depends on its own row only: not on the other rows, the
+// tile or the method.  The sum is the plain version's: partials rounded
+// to bf16, added in f32 in rank order 0 .. W-1, cast once.
+//
+// f32 operands (CUDA cores, `F32Tile`) and bf16 off 16-byte rows (the
+// `mma.sync` tile, loads by element; `gemm_tile.cuh`) keep the first
+// kernels, on chunks the wrapper pads to the row tile with zeros (padded
+// rows stay in their chunk's padded rows in every partial, so they are
+// summed only into padded output rows, which the wrapper slices off):
 // - `fused`: the entry barrier; for s = 0 .. W-1 the chunk c = (r + 1 + s)
-//   mod W (the JAX order: remote chunks first, the own chunk last), its
-//   tiles stored by the GEMM epilogue straight into slot r of rank c's
-//   rbuf, then one arrival signal a block to rank c; then the wait for all
-//   W partials of the own chunk, and the reduce.
+//   mod W, its tiles stored by the GEMM epilogue straight into slot r of
+//   rank c's rbuf, then one arrival signal a block to rank c; then the wait
+//   for all W partials of the own chunk, and the reduce.
 // - `ll`: the entry barrier; one GEMM over all W * mcp rows into the
-//   rank's own staging buffer (b_r read once: the decode regime); the rank's
-//   blocks wait for each other; the scatter of chunk c to slot r of rank
-//   c's rbuf; the wait and the reduce (`emit_scatter_reduce`).
-// Padded rows (the wrapper pads each chunk to the row tile with zeros)
-// stay in their chunk's padded rows in every partial, so they are summed
-// only into padded output rows, which the wrapper slices off.
+//   rank's own staging buffer; the rank's blocks wait for each other; the
+//   scatter of chunk c to slot r of rank c's rbuf; the wait and the reduce
+//   (`emit_scatter_reduce`).
+// A failed tensor-map encode, attribute or launch returns its error code;
+// no call falls back to another body.
+
+#include <algorithm>
 
 #include "comm_body.cuh"
 #include "gemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -149,6 +196,424 @@ int dispatch<float>(RsArgs<float> p, int ranks, int ll, int* blocks,
   return launch<gemm::F32Tile>(p, ranks, ll, blocks, s);
 }
 
+// ---- the Hopper body: bf16 on 16-byte rows ---------------------------------
+
+namespace wg = tdt::wgmma;
+namespace comm = tdt::comm;
+using WgTile64 = wg::Tile<1, 5>;
+using WgTile128 = wg::Tile<2, 4>;
+
+//: The crew (the producer warpgroup's warps 1-3) syncs on named barrier 1,
+//: the consumer warpgroups on named barrier 2.
+constexpr int CREW_THREADS = 96, CREW_BARRIER = 1, STORE_BARRIER = 2;
+
+struct WgArgs {
+  CUtensorMap ta;       // a (R, W mc, k): fused (k, mc, R W), ll (k, W mc, R)
+  CUtensorMap tb;       // b (R, k, n) as (n, k, R)
+  bf16* out;            // (R, mc, n)
+  dl::Symm<char> rbuf;  // rank r's (W, mc, n): slot w rank w's partial
+  dl::Symm<u64> sig;    // rank r's dl::SIGNAL_WORDS counters
+  dl::Team team;
+  int mc, n, k;
+  u64 epoch;            // the instance's sum of P before this call
+};
+
+// The C consumer warpgroups of a block (threads [0, 128 C)) meet.
+template <int C>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(STORE_BARRIER), "n"(C * wg::WG)
+               : "memory");
+}
+
+// Consumer thread i < n waits until words[i] holds ``target``; then the
+// consumers meet, and the partials the words announce may be read through
+// L2 (`dl::wait` on the consumers).
+template <int C>
+__device__ __forceinline__ void consumers_wait(const u64* words, int n,
+                                               u64 target) {
+  const int i = threadIdx.x;
+  if (i < n)
+    dl::signal_wait_until(words + i, target, tdt::WAIT_GEMM_RS_PARTIAL);
+  consumers_sync<C>();
+}
+
+// The crew: the entry barrier, then the consumers may store into the
+// peers' buffers (a peer has left the last call's reads of them).
+__device__ __forceinline__ void enter(const WgArgs& p, uint64_t* entered,
+                                      u64 target, int i) {
+  const comm::Crew c{i, CREW_THREADS, CREW_BARRIER};
+  comm::crew_entry_barrier(p.team, p.sig, target, /*neighbors_only=*/false,
+                           c);
+  if (i == 0) tdt::mbar_arrive(entered);
+}
+
+// A consumer's first store waits for the crew's entry barrier.
+__device__ __forceinline__ void wait_entered(uint64_t* entered, bool& open) {
+  if (!open) {
+    tdt::mbar_wait(entered, 0);
+    open = true;
+  }
+}
+
+// ---- the epilogue: 16-byte row pieces through a slab a warp ---------------
+//
+// A consumer warp holds 16 rows of its warpgroup's 64 as `wgmma`
+// fragments (row lane / 4 and + 8, columns 8 j + 2 (lane % 4) and + 1).
+// Stored as they are, each instruction writes 8 pieces of 4 bytes.  So a
+// warp rounds its accumulators to bf16 into a slab of shared memory beside
+// the ring, 64 columns at a time (16 rows of 128 bytes, the 16-byte chunk j
+// of row i at j ^ (i % 8): no bank conflict either way), and reads them back
+// as 16-byte pieces of a row, 8 lanes a row: 128 contiguous bytes a row.
+
+//: A warp's slab, and the slabs of a block's C consumer warpgroups, at
+//: the start of the dynamic shared memory, the ring after them.
+constexpr int SLAB_BYTES = 16 * 128;
+template <class Tile>
+constexpr int EPI_BYTES = Tile::BM / 16 * SLAB_BYTES;
+
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// Columns [64 s, 64 s + 64) of a consumer warp's accumulators, rounded to
+// bf16, into its slab.
+template <int R>
+__device__ __forceinline__ void to_slab(uint8_t* slab, int s,
+                                        const float (&acc)[R]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = 8 * s + jj;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lane / 4 + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          slab + i * 128 + (jj ^ (i % 8)) * 16 + (lane % 4) * 4) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// A lane's piece k (0 .. 3) of its warp's slab: row lane / 8 + 4 k of the
+// warp's 16, columns 8 (lane % 8) .. + 8 of the slab's 64.
+__device__ __forceinline__ uint4 slab_piece(const uint8_t* slab, int k) {
+  const int lane = threadIdx.x % 32, i = lane / 8 + 4 * k, c = lane % 8;
+  return *reinterpret_cast<const uint4*>(slab + i * 128 + (c ^ (i % 8)) * 16);
+}
+
+// The row of the warpgroup's 64 that a lane's piece k (0 .. 3) of every
+// slab lies in.
+__device__ __forceinline__ int piece_row(int k) {
+  return threadIdx.x % wg::WG / 32 * 16 + threadIdx.x % 32 / 8 + 4 * k;
+}
+
+// The accumulators of a consumer warp, rounded to bf16, stored as 16-byte
+// pieces: a lane's piece k of every slab goes to ``rows[k]`` (its row's
+// destination, null past the chunk) at the slab's columns, from ``col0``,
+// that lie below ``N``.
+template <int R>
+__device__ __forceinline__ void store_pieces(uint8_t* slab,
+                                             const float (&acc)[R],
+                                             bf16* const (&rows)[4], int col0,
+                                             int N) {
+  const int col = col0 + 8 * (threadIdx.x % 8);
+#pragma unroll
+  for (int s = 0; s < R / 32; ++s) {
+    to_slab(slab, s, acc);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (rows[k] != nullptr && col + 64 * s < N)
+        *reinterpret_cast<uint4*>(rows[k] + col + 64 * s) =
+            slab_piece(slab, k);
+    __syncwarp();
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// One 16-byte piece of the f32 sum, in rank order 0 .. W-1, of ``world``
+// partials rounded to bf16, rank q's at ``src + q * slot`` (read through
+// L2); four ranks' loads at a time go out before their sums.  Stored to
+// ``dst``.  The sums run in the epilogue, where the live accumulators
+// leave about 70 registers, so a lane holds one piece at a time.
+__device__ __forceinline__ void sum_piece(bf16* dst, const bf16* src,
+                                          size_t slot, int world) {
+  float sum[8];
+  for (int q0 = 0; q0 < world; q0 += 4) {
+    uint4 raw[4];
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+      if (q0 + qq < world)
+        raw[qq] =
+            __ldcg(reinterpret_cast<const uint4*>(src + (q0 + qq) * slot));
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq)
+      if (q0 + qq < world) {
+        float f[8];
+        unpack8(raw[qq], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          sum[e] = q0 + qq == 0 ? f[e] : sum[e] + f[e];
+      }
+  }
+  comm::store8(dst, sum);
+}
+
+// out = the sum of the W partials of ``src`` (W slots of ``elems``
+// elements, a multiple of 8) over block ``part`` of ``parts``'s share,
+// with the consumers' 128 C threads, a piece of 8 a thread at a time, the
+// next piece's prefetched into L2 (32-bit counts: a 64-bit division is a
+// call, and a call serializes the `wgmma`s).
+template <int C>
+__device__ __forceinline__ void reduce_partials(const bf16* src, bf16* out,
+                                                int world, unsigned elems,
+                                                int part, int parts) {
+  constexpr unsigned NT = C * wg::WG;
+  const unsigned units = elems / 8;
+  const unsigned share = (units + parts - 1) / (unsigned)parts;
+  const unsigned start = (unsigned)part * share;
+  const unsigned lo = start < units ? start : units;
+  const unsigned hi = units - lo < share ? units : lo + share;
+  for (unsigned i = lo + threadIdx.x; i < hi; i += NT) {
+    if (i + NT < hi)
+      for (int q = 0; q < world; ++q)
+        prefetch_l2(src + (size_t)q * elems + (size_t)(i + NT) * 8);
+    sum_piece(out + (size_t)i * 8, src + (size_t)i * 8, elems, world);
+  }
+}
+
+// `fused`: tile t is tile t % tpc of step s = t / tpc, whose chunk is (r +
+// 1 + s) mod W, m fastest.
+template <class Tile>
+struct FusedSched {
+  static constexpr int C = Tile::BM / wg::WG_ROWS;
+  const WgArgs* p;
+  uint64_t* entered;
+  uint8_t* epi;  // the consumer warps' slabs
+  int me, y, mt, tpc, nk;
+  u64 target;
+  int done;   // the steps signalled (from the first tile's step)
+  bool open;  // a consumer has seen the entry barrier pass
+
+  __device__ __forceinline__ int chunk(int s) const {
+    return dl::peer_id(p->team, me + 1 + s);
+  }
+  __device__ __forceinline__ wg::At at(int t) const {
+    const int c = chunk(t / tpc), i = t % tpc;
+    return {&p->ta, i % mt * Tile::BM, y * p->team.world + c,
+            i / mt * Tile::TN, y, nk};
+  }
+  __device__ __forceinline__ bool pending(int) const { return false; }
+  __device__ __forceinline__ void ready(int) {}
+  // The steps before the block's first tile's (it has none of their
+  // tiles) are signalled by the crew once the barrier has passed, so that
+  // a block whose first tile is in its own chunk never waits for its peers
+  // before signalling them.
+  __device__ __forceinline__ void side(int i) {
+    enter(*p, entered, target, i);
+    if (i < done) dl::notify(p->sig[chunk(i)] + dl::ARRIVAL_WORD + me);
+  }
+  __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
+                                        const float (&acc)[Tile::ACC]) {
+    const int world = p->team.world, c = chunk(t / tpc);
+    const int mc = p->mc, n = p->n, row0 = w.a_row + wgi * wg::WG_ROWS;
+    const size_t slot = (size_t)mc * n;
+    uint8_t* slab = epi + threadIdx.x / 32 * SLAB_BYTES;
+    bf16* dst = reinterpret_cast<bf16*>(p->rbuf[c]) + me * slot;
+    bf16* rows[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = row0 + piece_row(k);
+      rows[k] = row < mc ? dst + (size_t)row * n : nullptr;
+    }
+    wait_entered(entered, open);
+    store_pieces(slab, acc, rows, w.col, n);
+    // The steps before the block's next tile's are done (those without a
+    // tile of the block too): signal each once.
+    const int after = (t + (int)gridDim.x) / tpc;
+    const int next = after < world ? after : world;
+    if (next > done) {
+      __threadfence();
+      consumers_sync<C>();
+      const int i = threadIdx.x;
+      if (i < next - done)
+        dl::notify(p->sig[chunk(done + i)] + dl::ARRIVAL_WORD + me);
+      done = next;
+    }
+    // After the block's last tile: once every block of every rank has
+    // delivered its partial of the own chunk, the rank's blocks sum it.
+    if (t + (int)gridDim.x >= world * tpc) {
+      consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target);
+      reduce_partials<C>(reinterpret_cast<const bf16*>(p->rbuf[me]),
+                         p->out + y * slot, world, (unsigned)slot,
+                         blockIdx.x, gridDim.x);
+    }
+  }
+};
+
+// `ll`: the W mc rows as one matrix; tile t is row tile t % mt, column tile
+// t / mt.
+template <class Tile>
+struct LlSched {
+  static constexpr int C = Tile::BM / wg::WG_ROWS;
+  const WgArgs* p;
+  uint64_t* entered;
+  uint8_t* epi;  // the consumer warps' slabs
+  int me, y, M, mt, ntiles, nk;
+  u64 target;
+  bool open;  // a consumer has seen the entry barrier pass
+
+  __device__ __forceinline__ wg::At at(int t) const {
+    return {&p->ta, t % mt * Tile::BM, y, t / mt * Tile::TN, y, nk};
+  }
+  __device__ __forceinline__ bool pending(int) const { return false; }
+  __device__ __forceinline__ void ready(int) {}
+  __device__ __forceinline__ void side(int i) {
+    enter(*p, entered, target, i);
+  }
+  __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
+                                        const float (&acc)[Tile::ACC]) {
+    // Row i of the W mc rows is row i % mc of rank i / mc's chunk: it goes
+    // to slot r of that rank's rbuf.
+    const int mc = p->mc, n = p->n, row0 = w.a_row + wgi * wg::WG_ROWS;
+    const size_t slot = (size_t)mc * n;
+    uint8_t* slab = epi + threadIdx.x / 32 * SLAB_BYTES;
+    bf16* rows[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = row0 + piece_row(k), owner = row / mc;
+      rows[k] = row < M ? reinterpret_cast<bf16*>(p->rbuf[owner]) +
+                              me * slot + (size_t)(row - owner * mc) * n
+                        : nullptr;
+    }
+    wait_entered(entered, open);
+    store_pieces(slab, acc, rows, w.col, n);
+    if (t + (int)gridDim.x < ntiles) return;
+    // The block's last tile: one arrival at every rank; once all W have
+    // arrived here, the rank's blocks sum the chunk.
+    const int world = p->team.world;
+    __threadfence();
+    consumers_sync<C>();
+    if ((int)threadIdx.x < world)
+      dl::notify(p->sig[threadIdx.x] + dl::ARRIVAL_WORD + me);
+    consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target);
+    reduce_partials<C>(reinterpret_cast<const bf16*>(p->rbuf[me]),
+                       p->out + y * slot, world, (unsigned)slot, blockIdx.x,
+                       gridDim.x);
+  }
+};
+
+// Compiled for 384 threads (168 registers a thread at entry, so the
+// consumers' `setmaxnreg` rises from there, as K6/K8/K12's) and launched
+// with Tile::NT.
+template <class Tile, bool LL>
+__global__ void __launch_bounds__(3 * wg::WG, 1)
+    gemm_rs_wgmma_kernel(const __grid_constant__ WgArgs p) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  __shared__ uint64_t entered;
+  uint8_t* epi = smem;  // the slabs, then the ring
+  uint8_t* ring = smem + EPI_BYTES<Tile>;
+  if (threadIdx.x == 0) tdt::mbar_init(&entered, 1);
+  const int me = dl::rank(p.team), y = blockIdx.y, world = p.team.world;
+  const u64 target = p.epoch + gridDim.x;
+  const int nt = (p.n + Tile::TN - 1) / Tile::TN;
+  const int nk = (p.k + wg::BK - 1) / wg::BK;
+  if constexpr (LL) {
+    const int M = world * p.mc, mt = (M + Tile::BM - 1) / Tile::BM;
+    LlSched<Tile> sched{&p, &entered, epi,    me,     y,
+                        M,  mt,       mt * nt, nk, target, false};
+    Tile::run(ring, &p.tb, mt * nt, sched);
+  } else {
+    const int mt = (p.mc + Tile::BM - 1) / Tile::BM;
+    const int tpc = mt * nt, ntiles = world * tpc;
+    const int first = (int)blockIdx.x / tpc;  // < W: P <= ntiles
+    FusedSched<Tile> sched{&p,     &entered, epi,   me,    y,    mt,
+                           tpc,    nk,       target, first, false};
+    Tile::run(ring, &p.tb, ntiles, sched);
+  }
+}
+
+// Encode the maps, then one cooperative launch: P blocks a rank, as many as
+// the call has tiles (so every block has one), at most as many as can be
+// resident together with every other rank's (one an SM).
+template <class Tile, bool LL>
+int launch_wgmma(WgArgs& p, const void* a, const void* b, int ranks,
+                 int* blocks, cudaStream_t s) {
+  const int w = p.team.world, mc = p.mc, n = p.n, k = p.k;
+  int rc = LL ? wg::encode_3d(&p.ta, a, k, (uint64_t)w * mc, ranks, wg::BK,
+                              Tile::BM)
+              : wg::encode_3d(&p.ta, a, k, mc, (uint64_t)ranks * w, wg::BK,
+                              Tile::BM);
+  if (rc == 0) rc = wg::encode_3d(&p.tb, b, n, k, ranks, wg::BOX_N, wg::BK);
+  if (rc != 0) return rc;
+  auto* fn = gemm_rs_wgmma_kernel<Tile, LL>;
+  constexpr int SMEM = Tile::SMEM_BYTES + EPI_BYTES<Tile>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, Tile::NT,
+                                                      SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int fit = occ * sms / ranks;
+  if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int rows = LL ? w * mc : mc;
+  const int tiles = (rows + Tile::BM - 1) / Tile::BM *
+                    ((n + Tile::TN - 1) / Tile::TN) * (LL ? 1 : w);
+  const int P = std::min(tiles, fit);
+  *blocks = P;
+  void* args[] = {&p};
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fn),
+                                          dim3(P, ranks), dim3(Tile::NT),
+                                          args, SMEM, s);
+}
+
+int run_wgmma(const void* a, const void* b, void* out, void* const* rbuf,
+              void* const* sig, int world, int base, int ranks, int ll,
+              int mc, int n, int k, u64 epoch, int* blocks,
+              cudaStream_t s) {
+  uintptr_t align = reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b) |
+                    reinterpret_cast<uintptr_t>(out);
+  for (int r = 0; r < world; ++r)
+    align |= reinterpret_cast<uintptr_t>(rbuf[r]);
+  const int rows = ll ? world * mc : mc;
+  if (k % 8 != 0 || n % 8 != 0 || align % 16 != 0 ||
+      (size_t)mc * n >= (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  WgArgs p{};
+  p.out = static_cast<bf16*>(out);
+  for (int r = 0; r < world; ++r) {
+    p.rbuf.ptr[r] = static_cast<char*>(rbuf[r]);
+    p.sig.ptr[r] = static_cast<u64*>(sig[r]);
+  }
+  p.team = dl::Team{world, base};
+  p.mc = mc;
+  p.n = n;
+  p.k = k;
+  p.epoch = epoch;
+  if (!ll)
+    return rows <= wg::WG_ROWS
+               ? launch_wgmma<WgTile64, false>(p, a, b, ranks, blocks, s)
+               : launch_wgmma<WgTile128, false>(p, a, b, ranks, blocks, s);
+  return rows <= wg::WG_ROWS
+             ? launch_wgmma<WgTile64, true>(p, a, b, ranks, blocks, s)
+             : launch_wgmma<WgTile128, true>(p, a, b, ranks, blocks, s);
+}
+
 template <typename T>
 int run(const void* a, const void* b, void* out, void* stage,
         void* const* rbuf, void* const* sig, int world, int base, int ranks,
@@ -179,24 +644,31 @@ int run(const void* a, const void* b, void* out, void* stage,
 // a (ranks, world * mcp, k) and b (ranks, k, n): the launched ranks' rows
 // and weight shards (ranks base .. base + ranks - 1 of a team of
 // ``world``); out (ranks, mcp, n); ``stage`` (ranks, world * mcp, n), read
-// and written by the ``ll`` method only; ``rbuf`` and ``sig``: host tables
-// of ``world`` device pointers, rank r's (world, mcp, n) receive buffer and
-// its dl::SIGNAL_WORDS u64 counters; all contiguous, in ``dtype``
-// (tdt::DTYPE_*) but the counters.  ``ll``: the one-shot method, else the
-// fused one.  ``epoch``: the instance's sum of blocks a rank over its
-// earlier calls; the blocks a rank of this launch go to ``*blocks``.
+// and written by the first body's ``ll`` only; ``rbuf`` and ``sig``: host
+// tables of ``world`` device pointers, rank r's (world, mcp, n) receive
+// buffer and its dl::SIGNAL_WORDS u64 counters; all contiguous, in
+// ``dtype`` (tdt::DTYPE_*) but the counters.  ``ll``: the one-shot method,
+// else the fused one.  ``epoch``: the instance's sum of blocks a rank over
+// its earlier calls; the blocks a rank of this launch go to ``*blocks``.
+// ``wgmma``: the Hopper body (bf16 on 16-byte rows, mcp the unpadded rows
+// of a chunk), else the first bodies (mcp padded to their row tile).
 // Returns a cudaError_t code.
 extern "C" int gemm_rs(const void* a, const void* b, void* out, void* stage,
                        void* const* rbuf, void* const* sig, int world,
                        int base, int ranks, int ll, int dtype, int mcp, int n,
-                       int k, unsigned long long epoch, int* blocks,
-                       void* stream) {
+                       int k, unsigned long long epoch, int wgmma,
+                       int* blocks, void* stream) {
   *blocks = 0;
   if (world < 2 || world > dl::MAX_RANKS || ranks < 1 || base < 0 ||
       base + ranks > world || mcp < 1 || n < 1 || k < 1 ||
-      (ll && stage == nullptr))
+      (ll && !wgmma && stage == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma)
+    return dtype == tdt::DTYPE_BF16
+               ? run_wgmma(a, b, out, rbuf, sig, world, base, ranks, ll, mcp,
+                           n, k, epoch, blocks, s)
+               : (int)cudaErrorInvalidValue;
   if (dtype == tdt::DTYPE_BF16)
     return run<bf16>(a, b, out, stage, rbuf, sig, world, base, ranks, ll,
                      mcp, n, k, epoch, blocks, s);

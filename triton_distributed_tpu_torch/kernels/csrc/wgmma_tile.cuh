@@ -1,8 +1,9 @@
 // The Hopper GEMM tile: out (M, N) = a (M, K) @ b (K, N) per group, bf16
 // operands, f32 accumulation, written in bf16 or f32, by TMA loads into a
 // shared ring and `wgmma` products from it.  The body of the grouped GEMM
-// (K8 and its one-group case K6, grouped_matmul.cu) and of the
-// AllGather-GEMM (K12, ag_gemm.cu) for operands on 16-byte rows.
+// (K8 and its one-group case K6, grouped_matmul.cu), of the AllGather-GEMM
+// (K12, ag_gemm.cu) and of the GEMM-ReduceScatter (K14, gemm_rs.cu) for
+// operands on 16-byte rows.
 //
 // Roles (one block of 128 (C + 1) threads, `Tile<C, STAGES, TN>`):
 // - Warpgroups 0 .. C - 1 consume: each owns 64 rows of the tile and issues
@@ -270,7 +271,9 @@ struct Tile {
   //   the tile's first stages are in flight and before any a load;
   // - ``sched.side(i)``: thread i of the producer's other 96 threads, once;
   // - ``sched.store(t, at, wg, acc)``: every consumer thread, the tile's
-  //   accumulators of its warpgroup ``wg``.
+  //   accumulators of its warpgroup ``wg`` (which stay live through it:
+  //   the next tile's products read them, so an epilogue has the registers
+  //   they leave of the consumers' 232).
   template <class Sched>
   static __device__ __forceinline__ void run(uint8_t* raw,
                                              const CUtensorMap* tb,

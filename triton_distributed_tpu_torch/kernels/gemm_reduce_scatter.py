@@ -8,15 +8,26 @@ rank's rows of the weight; rank c gets row chunk c of ``sum_r a_r @ b_r``,
 so the result is (W, M/W, n).  On the card that is one launch of
 ``csrc/gemm_rs.cu`` (K14) over every rank: ``"fused"`` computes each
 destination's chunk into its owner's receive buffer, remote chunks first
-(JAX `_gemm_rs_fused_kernel`), ``"ll"`` one GEMM of all chunks, then the
-scatter (`_gemm_rs_ll_kernel`).  Both keep the JAX rounding: a rank's
-partial of a chunk is rounded to the activations' dtype (the JAX kernels'
-staging and receive buffers hold ``a.dtype``), then the partials are summed
-in f32 in rank order and cast.  ``"xla"`` is `gemm_rs_nonoverlap`, which
-sums the f32 partials unrounded.  Chunk rows are padded to the row tile and
-sliced back.  ``"auto"`` takes the JAX shape-only rule: ``"ll"`` while W
-padded chunks make at most 256 rows, else ``"fused"``.  At world 1 every
-method is the nonoverlap product.
+(JAX `_gemm_rs_fused_kernel`), ``"ll"`` one GEMM of all chunks, each row
+sent to its owner (`_gemm_rs_ll_kernel`).  Both keep the JAX rounding: a
+rank's partial of a chunk is rounded to the activations' dtype (the JAX
+kernels' staging and receive buffers hold ``a.dtype``), then the partials
+are summed in f32 in rank order 0 .. W-1 and cast once, as
+`gemm_rs_plain` does.  ``"xla"`` is `gemm_rs_nonoverlap`, which sums the
+f32 partials unrounded.  ``"auto"`` takes the JAX shape-only rule: ``"ll"``
+while W padded chunks make at most 256 rows, else ``"fused"``.  At world 1
+every method is the nonoverlap product.
+
+Which body a launch runs depends on the operands only (`kernel_body`, K12's
+rule): bf16 on 16-byte rows (k and n multiples of 8, 16-byte aligned; every
+main-path call) the Hopper body, the `wgmma` + TMA tile storing each
+partial tile, rounded to bf16, straight into its owner's receive buffer, on
+the unpadded chunk rows, then every rank's blocks summing their chunk
+(``ll`` at decode on the 64 x 256 tile).  f32, and bf16 off 16-byte rows,
+run the first bodies (the `mma.sync` and f32 tiles) on chunk rows padded
+to their row tile and sliced back.  On the Hopper body a row's result
+depends on its own row only, not on the other rows, the row tile or the
+method.
 
 ``ctx`` may also be a `kernels.torus.TorusContext` (`gemm_rs_torus`: the
 partial products on K6, then K21b over every axis of the grid) or a
@@ -39,14 +50,15 @@ import torch
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-    METHODS, round_up_rows)
+    METHODS, kernel_body, round_up_rows)
 from triton_distributed_tpu_torch.language.core import symmetric_buffers
 from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"gemm_rs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, ctypes.c_uint64, ctypes.POINTER(_I), _P]}
+                           _I, _I, ctypes.c_uint64, _I,
+                           ctypes.POINTER(_I), _P]}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +119,8 @@ def gemm_rs(a, b, ctx: GEMMReduceScatterContext):
     a (W, M, k), b (W, k, n), M a multiple of W -> (W, M/W, n).  The kernel
     takes bf16 or f32, both operands alike and contiguous, at most 8 ranks;
     anything else raises.  Each launch of K14 adds one to
-    ``gemm_rs.launches`` (and an ``ll`` launch also to
-    ``gemm_rs.ll_launches``)."""
+    ``gemm_rs.launches`` (an ``ll`` launch also to ``gemm_rs.ll_launches``,
+    one of the Hopper body also to ``gemm_rs.wgmma_launches``)."""
     from triton_distributed_tpu_torch.kernels.hierarchical import (
         HierarchicalContext)
     from triton_distributed_tpu_torch.kernels.torus import (
@@ -135,37 +147,45 @@ def gemm_rs(a, b, ctx: GEMMReduceScatterContext):
 
 gemm_rs.launches = 0
 gemm_rs.ll_launches = 0
+gemm_rs.wgmma_launches = 0
 
 
 def _launch(a, b, ctx, method):
     world, mt, k = a.shape
     n = b.shape[2]
     mc = mt // world
+    dev = a.device
     _check(a, b, world)
-    mcp = round_up_rows(mc, a.dtype)
+    wgmma = kernel_body(a, b) == "wgmma"
+    mcp = mc if wgmma else round_up_rows(mc, a.dtype)
     a_p = a
     if mcp != mc:
         a_p = a.new_zeros((world, world, mcp, k))
         a_p[:, :, :mc] = a.reshape(world, world, mc, k)
-    inst = symmetric_buffers("gemm_rs", ctx.collective_id, method, a.dtype,
-                             world, a.device, group=ctx.group)
+    # The two bodies signal different words: an instance each.
+    inst = symmetric_buffers("gemm_rs", ctx.collective_id,
+                             method + ("/wgmma" if wgmma else ""), a.dtype,
+                             world, dev, group=ctx.group)
     rbuf = inst.buffer("rbuf", (world, mcp, n), a.dtype)
     stage = (inst.buffer("stage", (world * mcp, n), a.dtype)
-             if method == "ll" else None)
-    out = torch.empty((world, mcp, n), dtype=a.dtype, device=a.device)
+             if method == "ll" and not wgmma else None)
+    out = torch.empty((world, mcp, n), dtype=a.dtype, device=dev)
     blocks = ctypes.c_int(0)
     lib = _build.load_library("gemm_rs", _SIGNATURES)
     rc = lib.gemm_rs(
         a_p.data_ptr(), b.data_ptr(), out.data_ptr(),
         None if stage is None else stage.data_ptr(), inst.peers(rbuf),
         inst.signal_peers(), world, 0, world, int(method == "ll"),
-        _build.DTYPE_CODES[a.dtype], mcp, n, k, inst.epoch,
-        ctypes.byref(blocks), torch.cuda.current_stream(a.device).cuda_stream)
+        _build.DTYPE_CODES[a.dtype], mcp, n, k, inst.epoch, int(wgmma),
+        ctypes.byref(blocks),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, f"gemm_rs ({method}) kernel launch")
     inst.advance(blocks.value)
     gemm_rs.launches += 1
     if method == "ll":
         gemm_rs.ll_launches += 1
+    if wgmma:
+        gemm_rs.wgmma_launches += 1
     return out[:, :mc] if mcp != mc else out
 
 
