@@ -150,7 +150,9 @@ non-zero):
    the (2, 2), (2, 4), (4, 2) and (2, 2, 2) grids in bf16 and f32, under a
    straggler, for_correctness and 100 back-to-back calls, a (1, 4) grid on
    K15/K16, K21c (``ag_gemm_torus``) row by row; the main path with exact
-   launches: K21a/K21b/``all_reduce_torus`` at 2048 x 4096 bf16 a rank on
+   launches (every bf16 K21c launch on its ``wgmma`` body, its output bit
+   for bit K12 ``fused``'s): K21a/K21b/``all_reduce_torus`` at 2048 x 4096
+   bf16 a rank on
    (2, 2) and (2, 2, 2), ``ag_gemm`` / ``gemm_rs`` on a TorusContext at
    Qwen3-8B's prefill gate_up and down, and at (dcn 2, ici 2) the
    hierarchical collectives, the two-level GEMMs,
@@ -3385,7 +3387,7 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
        for_correctness, and TP_REPEATS back-to-back calls with fresh
        inputs queued before any check; a (1, 4) grid runs K15 and K16;
        K21c row by row against its plain version (as K12) with the
-       gathered A exact;
+       gathered A exact (bf16 on its `wgmma` body, f32 on the first one);
     2. the main path, with every launch count set to 0 before and read
        after: K21a, K21b and `all_reduce_torus` on GRID_ROWS x GRID_COLS
        bf16 a rank over GRID_TIMED; `ag_gemm` and `gemm_rs` on a (2, 2)
@@ -3394,17 +3396,20 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
        `fast_allgather_2d`, `ag_gemm` / `gemm_rs` on the
        `HierarchicalContext`, `HierarchicalEPAll2AllLayer` on the EP
        path's traffic (dispatch, layer 0's experts on K8, combine) and
-       `sp_ag_attention_2d` on the SP path's 32,768 tokens;
+       `sp_ag_attention_2d` on the SP path's 32,768 tokens; every bf16
+       K21c launch counted on its `wgmma` body;
     3. every output against its plain version or reference: the torus
        collectives and the hierarchical ones bit for bit (the latter
        against the same ops with the ICI stage's plain versions), the
-       GEMMs row by row, the EP layer bit for bit equal to the flat
-       `EPAll2AllLayer` on the same routing, the attention row by row
-       against world-1 K1 (as the SP path's compositions);
+       GEMMs row by row (K21c also bit for bit equal to K12 `fused` at
+       world 4 on the same inputs), the EP layer bit for bit equal to the
+       flat `EPAll2AllLayer` on the same routing, the attention row by
+       row against world-1 K1 (as the SP path's compositions);
     4. times: K21a/K21b/K21c against their bounds, plain versions and the
        library calls, beside K15, K16, K17 and K12 over the same flat
-       world; the hierarchical ops, the EP round trip beside the flat
-       layer's, and `sp_ag_attention_2d` beside K20 at world 4 and K1.
+       world (K21c on (2, 2) and (2, 2, 2), beside K12 at world 4 and 8);
+       the hierarchical ops, the EP round trip beside the flat layer's,
+       and `sp_ag_attention_2d` beside K20 at world 4 and K1.
 
     On one card every put is a copy inside one HBM and the ranks share
     the SMs: the schedule's use of several links at once buys nothing
@@ -3514,7 +3519,8 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
         raise AssertionError("a (1, 4) grid did not run K15 and K16")
     gemm_err = 0.0
     for sizes, m, k, n in (((2, 2), 64, 256, 384), ((2, 4), 6, 128, 96),
-                           ((2, 2, 2), 12, 64, 136)):
+                           ((2, 2, 2), 12, 64, 136),
+                           ((2, 2, 2), 100, 256, 264)):
         w = world_of(sizes)
         for dtype in (bf16, f32):
             a = randn(w, m, k, dtype=dtype)
@@ -3603,10 +3609,12 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
             got["sp2d"] = sp.sp_ag_attention_2d(q, k, v, hctx)
         torch.cuda.synchronize()
 
-    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches)
+    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches,
+           torus.ag_gemm_torus.wgmma_launches)
     launches = counted(main_path)
     wg12 = ag_gemm.wgmma_launches - wg0[0]
     wg14 = gemm_rs.wgmma_launches - wg0[1]
+    wg21 = torus.ag_gemm_torus.wgmma_launches - wg0[2]
     want = expect(all_gather_torus=2 * len(GRID_TIMED),
                   reduce_scatter_torus=2 * len(GRID_TIMED) + 1,
                   ag_gemm_torus=1, matmul=4, all_gather=3 * dcn,
@@ -3621,13 +3629,16 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
           f"rank, top {topk} of {e}) and sp_ag_attention_2d over "
           f"{SP_ATTN_CONTEXT} tokens; launches {short(launches)}; on the "
           f"wgmma body: K12 (_ag_gemm_2d) {wg12} of {launches['ag_gemm']}, "
-          f"K14 (_gemm_rs_2d) {wg14} of {launches['gemm_rs']}")
+          f"K14 (_gemm_rs_2d) {wg14} of {launches['gemm_rs']}, K21c {wg21} "
+          f"of {launches['ag_gemm_torus']}")
     if launches != want:
         raise AssertionError(f"grid path launches {short(launches)} != "
                              f"{short(want)}")
-    if (wg12, wg14) != (launches["ag_gemm"], launches["gemm_rs"]):
-        raise AssertionError("grid path: a K12 launch of _ag_gemm_2d or a "
-                             "K14 launch of _gemm_rs_2d left the wgmma body")
+    if (wg12, wg14, wg21) != (launches["ag_gemm"], launches["gemm_rs"],
+                              launches["ag_gemm_torus"]):
+        raise AssertionError("grid path: a K12 launch of _ag_gemm_2d, a K14 "
+                             "launch of _gemm_rs_2d or a bf16 K21c launch "
+                             "left the wgmma body")
 
     # -- 3. checks
     with torch.inference_mode():
@@ -3642,6 +3653,14 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
                           ag_gemm_plain(a_ag.float(), b_ag.float()),
                           *TP_TOL[bf16], 0.0)
         errs["ag_gemm_torus"] = max(errs["ag_gemm_torus"], e21c)
+        # K21c's Hopper body and K12's run one tile with one k order a row:
+        # the same bits.
+        same21 = bool(torch.equal(got["ag_gemm"], ag_gemm(
+            a_ag, b_ag, AllGatherGEMMContext("tp", 4, "fused"))))
+        print(f"[grid path] K21c main path (2, 2) gate_up bit for bit equal "
+              f"to K12 fused at world 4 on the same inputs: {same21}")
+        if not same21:
+            raise AssertionError("K21c's wgmma body differs from K12 fused")
         # The compositions' plain versions, in their roundings: each rank's
         # partial rounded to bf16 (K6's, K14's), then K21b's ring adds or
         # K14's rank-order sum and the slices' f32 ring.
@@ -3743,6 +3762,14 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
         k21c_lib = time_ms(lambda: torch.matmul(full_a, b_ag), 10)
         k12 = time_ms(lambda: ag_gemm(a_ag, b_ag, AllGatherGEMMContext(
             "tp", 4, "fused")), 10)
+        # The same shape a rank on (2, 2, 2), beside K12 at world 8.
+        a8, b8 = randn(8, ma, ka), randn(8, ka, na) * ka ** -0.5
+        k21c_8 = time_ms(lambda: ag_gemm(a8, b8, ctx_of((2, 2, 2))), 10)
+        k12_8 = time_ms(lambda: ag_gemm(a8, b8, AllGatherGEMMContext(
+            "tp", 8, "fused")), 10)
+        full_a8 = a8.reshape(1, -1, ka)
+        k21c_lib8 = time_ms(lambda: torch.matmul(full_a8, b8), 10)
+        del a8, b8, full_a8
         grs = time_ms(lambda: gemm_rs(a_rs, b_rs, tctx), 10)
         k14 = time_ms(lambda: gemm_rs(a_rs, b_rs, GEMMReduceScatterContext(
             "tp", 4, "fused")), 10)
@@ -3766,6 +3793,7 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
             "SDPA": time_ms(lambda: F.scaled_dot_product_attention(
                 qg, kg, vg, is_causal=True, enable_gqa=True), 2)}
     bms_c, by_c = tp_collective_bound("ag_gemm", 4, ma, ka, na, 2)
+    bms_c8, _ = tp_collective_bound("ag_gemm", 8, ma, ka, na, 2)
     print(f"[times] K21c ag_gemm on a (2, 2) TorusContext, a {tuple(a_ag.shape)}"
           f" b {tuple(b_ag.shape)} bf16: {k21c:.4f} ms (bound {bms_c:.4f} ms "
           f"by {by_c}, {bms_c / k21c:.1%}); plain {k21c_plain:.4f}; library "
@@ -3773,6 +3801,10 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
           f"fused at world 4 {k12:.4f}; gemm_rs on the (2, 2) TorusContext "
           f"(4 K6 + K21b) {grs:.4f} ms, K14 fused at world 4 {k14:.4f}; "
           f"{card}")
+    print(f"[times] K21c ag_gemm on a (2, 2, 2) TorusContext, the same shapes "
+          f"a rank (8 ranks): {k21c_8:.4f} ms (bound {bms_c8:.4f} ms, "
+          f"{bms_c8 / k21c_8:.1%}); library {k21c_lib8:.4f}; K12 fused at "
+          f"world 8 {k12_8:.4f}; {card}")
     print(f"[times] hierarchical at (dcn, ici) = {GRID_HIER} on {tuple(xh.shape)}"
           f" bf16 and the GEMM, EP and SP shapes above (CUDA events): "
           + ", ".join(f"{nm} {t:.4f} ms" for nm, t in hier_t.items())
@@ -3803,7 +3835,10 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
                  "bf16",
         "library_note": "torch.matmul of the gathered A with the stacked B "
                         "(GEMM only, no gather)",
-        "k12_fused_ms": k12, "gemm_rs_torus_ms": grs, "k14_fused_ms": k14,
+        "k12_fused_ms": k12, "grid_2x2x2_ms": k21c_8,
+        "bound_2x2x2_ms": bms_c8, "library_2x2x2_ms": k21c_lib8,
+        "k12_fused_world8_ms": k12_8, "wgmma_launches": wg21,
+        "gemm_rs_torus_ms": grs, "k14_fused_ms": k14,
         "hierarchical_ms": hier_t}))
     del xs, xh, got, a_ag, b_ag, a_rs, b_rs, q, k, v, qg, kg, vg, xe
     del gate_up, down, flat

@@ -2133,6 +2133,96 @@ def test_ag_gemm_torus_kernel(cuda, dtype, sizes, m, k, n):
     assert torus.ag_gemm_torus.launches == before + 5
 
 
+#: (sizes, rows a rank, k, n) of K21c's Hopper body: Qwen3-8B's world-4
+#: prefill gate_up at a quarter of its k and n on (2, 2); a decode-like m =
+#: 6 on (2, 4) (16-row pieces, the 64-row tile); on (2, 2, 2) m = 512
+#: (96-row pieces on the 128-row tile: every a box reads the next lane's
+#: rows), m = 100 (32-row pieces, the last short, two empty) and m = 12
+#: (one lane of 12 rows, the others empty: 8 tiles a rank, P = 8 of which
+#: 6 blocks have crews); n off the 256-column tile.
+TORUS_WGMMA_CASES = [((2, 2), 512, 1024, 1536), ((2, 4), 6, 128, 96),
+                     ((4, 2), 64, 256, 264), ((2, 2, 2), 512, 256, 520),
+                     ((2, 2, 2), 100, 256, 264), ((2, 2, 2), 12, 64, 136)]
+
+
+@pytest.mark.parametrize("sizes,m,k,n", TORUS_WGMMA_CASES)
+def test_ag_gemm_torus_wgmma_matches_k12(cuda, sizes, m, k, n):
+    """K21c's bf16 launches run the Hopper body (``wgmma_launches`` one a
+    call) and give K12 ``fused``'s bits at world W on the same inputs (the
+    same tile and k order a row), over 5 back-to-back calls with fresh
+    inputs queued before any check; the gathered A exact; within the
+    row-by-row bound of the plain version."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    ctx = _torus_ctx(sizes)
+    world = ctx.world_size
+    gen = torch.Generator(device=cuda).manual_seed(world * 3 + m + k + n)
+    before = (torus.ag_gemm_torus.launches,
+              torus.ag_gemm_torus.wgmma_launches)
+    runs = []
+    for _ in range(5):
+        a = _randn(gen, torch.bfloat16, cuda, world, m, k)
+        b = _randn(gen, torch.bfloat16, cuda, world, k, n) * k ** -0.5
+        runs.append((a, b, *torus.ag_gemm_torus(a, b, ctx,
+                                                return_gathered=True)))
+    torch.cuda.synchronize()
+    assert (torus.ag_gemm_torus.launches - before[0],
+            torus.ag_gemm_torus.wgmma_launches - before[1]) == (5, 5)
+    k12 = AllGatherGEMMContext("tp", world, "fused")
+    for a, b, out, gathered in runs:
+        assert out.shape == (world, world * m, n)
+        assert torch.equal(gathered, a.reshape(1, world * m, k).expand(
+            world, -1, -1))
+        assert torch.equal(out, ag_gemm(a, b, k12))
+        _assert_rows_close("ag_gemm_torus (wgmma)", out,
+                           torus.ag_gemm_torus_plain(a.float(), b.float()),
+                           *GEMM_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("sizes", [(2, 4), (2, 2, 2)])
+def test_ag_gemm_torus_wgmma_under_faults(cuda, sizes):
+    """K21c's Hopper body under a straggler rank (about 1 ms of cycles)
+    and for_correctness, then 50 back-to-back calls on one instance: bit
+    for bit equal to K12 ``fused`` every time; f32 calls and bf16 off
+    16-byte rows stay on the first body (no ``wgmma_launches``) and
+    within its bound."""
+    from triton_distributed_tpu_torch.kernels import torus
+
+    world = _torus_ctx(sizes).world_size
+    gen = torch.Generator(device=cuda).manual_seed(41 + world)
+    m, k, n = 100, 256, 264
+    k12 = AllGatherGEMMContext("tp", world, "fused")
+    for kw, reps in (({"straggler": (world - 3, 2_000_000)}, 2),
+                     ({"for_correctness": True}, 2), ({}, 50)):
+        ctx = _torus_ctx(sizes, **kw)
+        ins = [(_randn(gen, torch.bfloat16, cuda, world, m, k),
+                _randn(gen, torch.bfloat16, cuda, world, k, n) * k ** -0.5)
+               for _ in range(reps)]
+        wg0 = torus.ag_gemm_torus.wgmma_launches
+        outs = [torus.ag_gemm_torus(a, b, ctx, return_gathered=True)
+                for a, b in ins]
+        torch.cuda.synchronize()
+        assert torus.ag_gemm_torus.wgmma_launches == wg0 + reps, kw
+        for (a, b), (out, gathered) in zip(ins, outs):
+            assert torch.equal(out, ag_gemm(a, b, k12)), kw
+            assert torch.equal(gathered, a.reshape(1, world * m, k).expand(
+                world, -1, -1)), kw
+    ctx = _torus_ctx(sizes)
+    for dtype, kk, nn in ((torch.float32, k, n), (torch.bfloat16, 60, n),
+                          (torch.bfloat16, k, 90)):
+        a = _randn(gen, dtype, cuda, world, m, kk)
+        b = _randn(gen, dtype, cuda, world, kk, nn) * kk ** -0.5
+        before = (torus.ag_gemm_torus.launches,
+                  torus.ag_gemm_torus.wgmma_launches)
+        out = torus.ag_gemm_torus(a, b, ctx)
+        torch.cuda.synchronize()
+        assert (torus.ag_gemm_torus.launches - before[0],
+                torus.ag_gemm_torus.wgmma_launches - before[1]) == (1, 0)
+        _assert_rows_close("ag_gemm_torus (first body)", out,
+                           torus.ag_gemm_torus_plain(a.float(), b.float()),
+                           *GEMM_TOL[dtype])
+
+
 def test_gemm_rs_torus_kernels(cuda):
     """`gemm_rs` on a TorusContext: W K6 launches and one K21b, equal to
     the CPU's run of the same composition within K14's bound."""

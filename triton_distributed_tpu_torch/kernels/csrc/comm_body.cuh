@@ -16,9 +16,10 @@
 // - `add_into`: port of reduce_scatter.py `emit_add_into` (:120), one
 //   f32 add of two chunks rounded to their type, over a block's range;
 // - `Crew` and the crew forms `emit_ag_ring_forward` (the ring's copies
-//   and signals alone) and `emit_push_allgather_send` (the push alone),
-//   with `ring_wait_chunk`, the consumer's wait: K12's `wgmma` body, where
-//   spare warps communicate while the others compute;
+//   and signals alone), `emit_push_allgather_send` (the push alone) and
+//   `crew_grid_barrier`, with `ring_wait_chunk` / `wait_word_for_tma`, the
+//   consumer's wait: the `wgmma` bodies of K12 and K21c, where spare warps
+//   communicate while the others compute;
 // - `Faults` and `inject_faults`: the contexts' straggler and
 //   for_correctness knobs (language/core.py :304, :331);
 // - `launch_cooperative`: the launch of every collective kernel.
@@ -364,6 +365,34 @@ __device__ __forceinline__ void crew_entry_barrier(const dl::Team& t,
   }
 }
 
+// `dl::grid_barrier` for a crew: one add from the crew's block to word
+// ``word`` of each ring neighbour along every axis (``neighbors_only``) or
+// of every other rank of each axis, then the wait for ``target`` times the
+// adds it receives from one block of each of those peers.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void crew_grid_barrier(const dl::Team& t,
+                                                  const dl::Grid& g,
+                                                  const dl::Symm<u64>& sig,
+                                                  int word,
+                                                  u64 target,
+                                                  bool neighbors_only,
+                                                  const Crew& c) {
+  const int me = dl::rank(t);
+  int n = 0;
+  for (int a = 0; a < g.nd; ++a) {
+    const int w = g.size[a];
+    if (w < 2) continue;
+    const int k = neighbors_only ? 2 : w - 1;
+    for (int j = 0; j < k; ++j, ++n)
+      if (c.tid == n)
+        dl::notify<S>(sig[dl::grid_neighbor(
+                          g, me, a, neighbors_only ? (j ? -1 : 1) : j + 1)] +
+                      word);
+  }
+  crew_wait<S>(sig[me] + word, 1, 0, (u64)n * target, tdt::WAIT_GRID_BARRIER,
+               c);
+}
+
 // The copies and signals of `emit_ag_ring` on a crew, without the
 // computation: the neighbour entry barrier; this rank's shard into its own
 // slot and the right neighbour's (one arrival signal a block); then for s =
@@ -412,17 +441,24 @@ __device__ __forceinline__ void emit_push_allgather_send(
   crew_signal<S>(words, t.world, c);
 }
 
-// One thread (a TMA producer) waits until chunk ``c``'s arrival word holds
-// ``target`` (every block of the sender delivered it), then fences the
-// generic proxy, through which the peers wrote the chunk, against the async
+// One thread (a TMA producer) waits until an arrival word holds ``target``
+// (every block of the sender delivered what it announces), then fences the
+// generic proxy, through which the peers wrote the data, against the async
 // proxy, through which its TMA loads read it.  Without the fence a load may
 // read stale bytes.
+template <dl::Scope S = dl::Scope::gpu>
+__device__ __forceinline__ void wait_word_for_tma(const u64* word, u64 target,
+                                                  int what) {
+  dl::signal_wait_until<S>(word, target, what);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// `wait_word_for_tma` on chunk ``c``'s arrival word of the flat ring.
 template <dl::Scope S = dl::Scope::gpu>
 __device__ __forceinline__ void ring_wait_chunk(dl::Symm<u64> sig, int me,
                                                 int c, u64 target,
                                                 int what) {
-  dl::signal_wait_until<S>(sig[me] + dl::ARRIVAL_WORD + c, target, what);
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  wait_word_for_tma<S>(sig[me] + dl::ARRIVAL_WORD + c, target, what);
 }
 
 // One-shot scatter-reduce: chunk c of this rank's partials ``src`` (world

@@ -127,6 +127,7 @@ enum Wait : int {
   WAIT_TORUS_RS_ACK,              //: torus reduce-scatter ack
   WAIT_TORUS_RS_ARRIVAL,          //: torus reduce-scatter arrival
   WAIT_TORUS_RS_ACK_DRAIN,        //: torus reduce-scatter ack drain
+  WAIT_TORUS_AG_GEMM_LOAD,        //: torus ag_gemm arrival (TMA loads)
 };
 
 // The record (kernels/_build.py `_SpinRecord` mirrors it).

@@ -26,7 +26,8 @@
 //   write this one.
 //
 // A caller describes its tiles by a schedule (`at`, `pending`, `ready`,
-// `side`, `store`): tile t's a map and box, its b box, its k stages, a
+// `side`, `store`, and optionally `load_a`): tile t's a map and box (or the
+// schedule's own loads of a stage's a rows), its b box, its k stages, a
 // wait the producer makes before the tile's first a load (a
 // collective's arrival signal; the first stages' b loads go out before
 // it), and the epilogue.  Groups do not leak: a is a 3-D tensor
@@ -43,6 +44,8 @@
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "gemm_tile.cuh"
 #include "mbarrier.cuh"
@@ -204,6 +207,12 @@ __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
 
 // ---- the tile ------------------------------------------------------------
 
+// Whether a schedule loads a stage's a rows itself (`load_a`).
+template <class S, class = void>
+struct loads_a : std::false_type {};
+template <class S>
+struct loads_a<S, std::void_t<decltype(&S::load_a)>> : std::true_type {};
+
 // Where tile t lies: its a map and box (first row, group), its b box
 // (first column, group) and its nk stages of 64.
 struct At {
@@ -266,6 +275,10 @@ struct Tile {
   // - ``At sched.at(t)``: tile t's a map and boxes and k stages (a map:
   //   (k, m, group) with box (64, BM, 1); tb: b as (n, k, group) with box
   //   (64, 64, 1); both bf16 with 128-byte swizzle);
+  // - ``sched.load_a(dst, bar, kt)``, where the schedule has it: the
+  //   producer's loads of stage kt's a rows of the tile last passed to
+  //   ``at`` (A_BYTES in all, completing on ``bar``) in place of the one
+  //   box of ``at``;
   // - ``sched.pending(t)``: whether tile t's a must wait; then
   //   ``sched.ready(t)`` (the producer thread) waits, after the b tiles of
   //   the tile's first stages are in flight and before any a load;
@@ -296,6 +309,12 @@ struct Tile {
     if (wg == C) {
       // The producer: the loads of every stage of every tile, in order.
       regs_dec<PRODUCER_REGS>();
+      auto load_a = [&](uint8_t* st, uint64_t* bar, const At& w, int kt) {
+        if constexpr (loads_a<Sched>::value)
+          sched.load_a(st, bar, kt);
+        else
+          tma_load_3d(st, w.ta, bar, kt * BK, w.a_row, w.a_grp);
+      };
       if (threadIdx.x == C * WG) {
         tma_prefetch(sched.at(blockIdx.x).ta);
         tma_prefetch(tb);
@@ -321,8 +340,7 @@ struct Tile {
             sched.ready(t);
             for (int i = 0; i < pre; ++i) {
               const int si = (s0 + i) % STAGES;
-              tma_load_3d(ring + si * STAGE_BYTES, w.ta, &full[si],
-                          (kt + i) * BK, w.a_row, w.a_grp);
+              load_a(ring + si * STAGE_BYTES, &full[si], w, kt + i);
             }
             kt += pre;
           }
@@ -330,7 +348,7 @@ struct Tile {
             mbar_wait(&empty[s], phase ^ 1);
             mbar_expect_tx(&full[s], STAGE_BYTES);
             uint8_t* st = ring + s * STAGE_BYTES;
-            tma_load_3d(st, w.ta, &full[s], kt * BK, w.a_row, w.a_grp);
+            load_a(st, &full[s], w, kt);
             load_b(st, tb, &full[s], w, kt);
             if (++s == STAGES) {
               s = 0;

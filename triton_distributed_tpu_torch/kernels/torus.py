@@ -25,8 +25,14 @@ phase p > 0 the slab the lane has gathered over its first p axes.
   stage and step order, so the kernel equals `reduce_scatter_torus_plain`
   bit for bit.  x (W, W*m, ...) -> (W, m, ...).
 - `ag_gemm_torus`: K21c, K21a's schedule with each piece multiplied by the
-  rank's resident B shard as it lands (K12's tile, ``gemm_tile.cuh``):
-  a (W, m, k), b (W, k, n) -> (W, W*m, n) [, the gathered A (W, W*m, k)].
+  rank's resident B shard as it lands: a (W, m, k), b (W, k, n) -> (W,
+  W*m, n) [, the gathered A (W, W*m, k)].  Which body a launch runs
+  depends on the operands only (`allgather_gemm.kernel_body`): bf16 on
+  16-byte rows the Hopper body (the `wgmma` + TMA tile, the lanes' copies
+  on each block's spare producer warps, every piece a rank multiplies a
+  run of tiles in one flat list, `ag_gemm_pieces`); f32 and bf16 off
+  16-byte rows the first body (K12's `mma.sync` tile, ``gemm_tile.cuh``,
+  each lane's blocks computing between their copies).
 - `gemm_rs_torus`: every rank's partial product on K6 (`matmul`, one
   launch a rank, as each JAX device calls its Pallas `matmul`), rounded to
   a's dtype, then K21b.
@@ -59,9 +65,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import itertools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from triton_distributed_tpu_torch import collective_ids as cids
@@ -69,7 +78,7 @@ from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.allgather import (
     AllGatherContext, _check, all_gather, all_gather_reference)
 from triton_distributed_tpu_torch.kernels.allgather_gemm import (
-    AllGatherGEMMContext, ag_gemm, ag_gemm_plain, round_up_rows)
+    AllGatherGEMMContext, ag_gemm, ag_gemm_plain, kernel_body, round_up_rows)
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     GEMMReduceScatterContext, gemm_rs, gemm_rs_nonoverlap)
 from triton_distributed_tpu_torch.kernels.matmul import matmul
@@ -91,6 +100,9 @@ _SIGNATURES = {
                              _U64, _U64] + _FAULTS + [ctypes.POINTER(_I), _P],
     "torus_ag_gemm": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                       _U64] + _FAULTS + [ctypes.POINTER(_I), _P],
+    "torus_ag_gemm_wgmma": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P, _P, _I, _P, _U64] + _FAULTS
+    + [ctypes.POINTER(_I), _P],
 }
 
 
@@ -139,6 +151,70 @@ def lane_schedules(nd: int):
 def _pieces(m: int, nd: int, dtype) -> int:
     """Rows of one of a shard's 2 * nd pieces (JAX ``ms``)."""
     return round_up_rows(-(-m // (2 * nd)), dtype)
+
+
+def ag_word(phase: int, lane: int, c: int, sizes) -> int:
+    """The signal word on which a rank receives lane ``lane``'s phase-
+    ``phase`` slab at ring position ``c`` (``torus.cu`` `ag_word`)."""
+    return 1 + (phase * 2 * len(sizes) + lane) * max(sizes) + c
+
+
+def ag_gemm_pieces(sizes, m: int, ms: int):
+    """K21c's flat tile list on the Hopper body: for every rank g, its
+    pieces in the order the JAX kernel multiplies them
+    (`_ag_gemm_torus_kernel`'s ``consume_local``, then ``consume_piece``
+    at each round of `_emit_torus_ag`: phase p, step s, lane q, the cells
+    of the slab that landed, its gathered axes in phase order, the last
+    fastest), each a tuple (cell, lane, first row, rows, arrival word,
+    run); the own pieces wait on no word (0) and are run 0, a round's
+    pieces run 1 + its index among the rounds; pieces with no rows are
+    dropped.  The lanes and runs are the same on every rank."""
+    sizes = tuple(sizes)
+    nd, world = len(sizes), math.prod(sizes)
+    scheds = lane_schedules(nd)
+    lanes = len(scheds)
+    steps = [max(sizes[sch[p][0]] for sch in scheds) - 1 for p in range(nd)]
+    rounds = [(p, s) for p in range(nd) for s in range(steps[p])]
+    rows = [max(0, min(ms, m - q * ms)) for q in range(lanes)]
+    table = []
+    for g in range(world):
+        pos = [int(c) for c in np.unravel_index(g, sizes)]
+        order = [(g, q, 0, 0) for q in range(lanes)]
+        for run, (p, s) in enumerate(rounds, 1):
+            for q, sched in enumerate(scheds):
+                ax, d = sched[p]
+                if s >= sizes[ax] - 1:
+                    continue
+                c = (pos[ax] - (s + 1) * d) % sizes[ax]
+                gathered = [sched[j][0] for j in range(p)]
+                for combo in itertools.product(
+                        *[range(sizes[a]) for a in gathered]):
+                    cell = list(pos)
+                    cell[ax] = c
+                    for a, i in zip(gathered, combo):
+                        cell[a] = i
+                    order.append((int(np.ravel_multi_index(cell, sizes)), q,
+                                  ag_word(p, q, c, sizes), run))
+        table.append([(c, q, q * ms, rows[q], w, run)
+                      for c, q, w, run in order if rows[q] > 0])
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def _piece_args(sizes, m: int, ms: int):
+    """`ag_gemm_pieces` as the kernel's arguments, int32: the count a rank,
+    the lanes, each rank's cells and arrival words (W, count), the count
+    of runs and each run's first piece."""
+    table = ag_gemm_pieces(sizes, m, ms)
+    count = len(table[0])
+    ints = ctypes.c_int * (len(table) * count)
+    lanes = (ctypes.c_int * count)(*[q for _, q, *_ in table[0]])
+    cells = ints(*[c for rank in table for c, *_ in rank])
+    waits = ints(*[piece[4] for rank in table for piece in rank])
+    runs = [piece[5] for piece in table[0]]
+    starts = [i for i in range(count) if i == 0 or runs[i] != runs[i - 1]]
+    return (count, lanes, cells, waits, len(starts),
+            (ctypes.c_int * len(starts))(*starts))
 
 
 def all_gather_torus_plain(x):
@@ -281,7 +357,8 @@ def ag_gemm_torus(a_shard, b, ctx: TorusContext,
     """out = all_gather_torus(a) @ b with the gather and the product in
     one kernel: a (W, m, k), b (W, k, n), both bf16 or both f32 -> (W, W*m,
     n) [, the gathered A (W, W*m, k)].  Each launch of K21c adds one to
-    ``ag_gemm_torus.launches``."""
+    ``ag_gemm_torus.launches``, one of its Hopper body also to
+    ``ag_gemm_torus.wgmma_launches``."""
     world = ctx.world_size
     if (a_shard.dim() != 3 or b.dim() != 3 or a_shard.shape[0] != world
             or b.shape[0] != world or a_shard.shape[2] != b.shape[1]):
@@ -308,6 +385,7 @@ def ag_gemm_torus(a_shard, b, ctx: TorusContext,
 
 
 ag_gemm_torus.launches = 0
+ag_gemm_torus.wgmma_launches = 0
 
 
 def gemm_rs_torus(a, b, ctx: TorusContext):
@@ -428,15 +506,26 @@ def _launch_ag_gemm(a, b, ctx, sizes, return_gathered):
     gathered = torch.empty((world, world * m, k), dtype=a.dtype,
                            device=a.device)
     out = torch.empty((world, world * m, n), dtype=a.dtype, device=a.device)
+    ms = _pieces(m, nd, a.dtype)
+    wgmma = kernel_body(a, b) == "wgmma"
     blocks = ctypes.c_int(0)
     lib = _build.load_library("torus", _SIGNATURES)
-    rc = lib.torus_ag_gemm(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), inst.peers(gathered),
-        inst.signal_peers(), nd, dims, words, _build.DTYPE_CODES[a.dtype], m,
-        _pieces(m, nd, a.dtype), n, k, inst.epoch,
-        *fault_args(ctx.straggler, ctx.for_correctness),
-        ctypes.byref(blocks), _stream(a))
+    faults = fault_args(ctx.straggler, ctx.for_correctness)
+    if wgmma:
+        rc = lib.torus_ag_gemm_wgmma(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), inst.peers(gathered),
+            inst.signal_peers(), nd, dims, words, m, ms, n, k,
+            *_piece_args(tuple(sizes), m, ms), inst.epoch, *faults,
+            ctypes.byref(blocks), _stream(a))
+    else:
+        rc = lib.torus_ag_gemm(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), inst.peers(gathered),
+            inst.signal_peers(), nd, dims, words, _build.DTYPE_CODES[a.dtype],
+            m, ms, n, k, inst.epoch, *faults, ctypes.byref(blocks),
+            _stream(a))
     _build.check(lib, rc, "ag_gemm_torus kernel launch")
     inst.advance(blocks.value)
     ag_gemm_torus.launches += 1
+    if wgmma:
+        ag_gemm_torus.wgmma_launches += 1
     return (out, gathered) if return_gathered else out
