@@ -96,10 +96,13 @@ non-zero):
    and int8 weights) and K13 (``ag_gemm_w8a8``) against their plain
    versions at world 2, 4 and 8 (the int8 GEMMs bit for bit, the rest row
    by row) on Qwen3-30B-A3B's prefill and decode chunks and three edge
-   routings, and over 100 back-to-back calls each; a 2-layer f32 model of
+   routings, and over 100 back-to-back calls each; K11's Hopper body (bf16
+   on 16-byte rows) bit for bit K8's on every live row at worlds 2, 4 and
+   8; a 2-layer f32 model of
    its widths at world 4, card against CPU; Qwen3-30B-A3B built at world
    4 in mode ``fused`` through ``Engine.serve`` of 4 x 512 prompt tokens
-   to 32 with exact K11/K10/K12/K14/K1/K2/K8 launches, every layer's
+   to 32 with exact K11/K10/K12/K14/K1/K2/K8 launches (K11, K12 and K14
+   all on the `wgmma` body), every layer's
    fused output within 3x the xla layer's bf16 error of an f32 reference
    where the local and gathered routings agree; ``MoEMLP(mode="w8a8")``
    and ``TPMLP(4096, 12288, mode="w8a8")`` at world 4 within 5% of bf16;
@@ -1343,7 +1346,10 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
        int8 GEMMs bit for bit, K10 with int8 weights row by row): on the
        prefill and decode chunks and, at world 4, on the edge routings;
        then TP_REPEATS back-to-back calls of each at the decode chunk
-       with fresh inputs, queued before any is checked;
+       with fresh inputs, queued before any is checked; then K11 at each
+       world's prefill chunk on its Hopper body, every live row bit for
+       bit K8's on the same bucket and weights (the tile promise across
+       m64n128k16 and m64n256k16);
     2. a 2-layer f32 model of Qwen3-30B-A3B's widths at world 4, card
        against CPU: logits, every top-8 set and every drop;
     3. the model at full width and depth with seeded bf16 weights made on
@@ -1367,11 +1373,11 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         AllGatherGEMMContext, ag_gemm, ag_gemm_w8a8, ag_gemm_w8a8_plain)
     from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
         AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_plain,
-        ag_group_gemm_w8a8, ag_group_gemm_w8a8_plain)
+        ag_group_gemm_w8a8, ag_group_gemm_w8a8_plain, kernel_body)
     from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
         gemm_rs)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
-        row_tile, zero_past_counts)
+        grouped_matmul, row_tile, zero_past_counts)
     from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
         MoEReduceRSContext, moe_reduce_rs_fused, moe_reduce_rs_fused_plain)
     from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
@@ -1428,7 +1434,7 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         out = ag_group_gemm(a, b, ctx, counts=plan.counts)
         return out, lambda: zero_past_counts(
             ag_group_gemm_plain(a.float(), b.float()), plan.counts,
-            row_tile(cap, bf16)), b
+            row_tile(cap, bf16, kernel_body(a, b))), b
 
     def k10(world, mc, case, int8, wts=None):
         cap = caps(world, mc)[int8]
@@ -1534,6 +1540,33 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
                                      "with its plain version")
             del runs
             torch.cuda.empty_cache()
+    # K11's Hopper body on m64n128k16 against K8's m64n256k16 tile: by the
+    # tile promise every row of a live row tile has K8's bits.
+    for world in MOE_TP_WORLDS:
+        mc = MOE_TP_ROWS["prefill"]
+        cap = caps(world, mc)[0]
+        plan = plan_for("random", world, mc, cap)
+        a = randn(world, e, cap, h)
+        b = randn(world, e, h, 2 * ffn // world) * h ** -0.5
+        wg0 = ag_group_gemm.wgmma_launches
+        out = ag_group_gemm(a, b, AGGroupGEMMContext("tp", world, e),
+                            counts=plan.counts)
+        on_wgmma = ag_group_gemm.wgmma_launches - wg0 == 1
+        tile = row_tile(cap, bf16, kernel_body(a, b))
+        live = (torch.arange(cap, device=dev)
+                < (plan.counts[..., None] + tile - 1) // tile * tile)
+        same = all(torch.equal(out[r][live], torch.stack(
+            [grouped_matmul(a[c], b[r]) for c in range(world)])[live])
+            for r in range(world))
+        print(f"  ag_group_gemm world {world} prefill ({mc} rows a rank, cap "
+              f"{cap}): {'on' if on_wgmma else 'NOT on'} the wgmma body; "
+              f"{int(live.sum())} live rows of {live.numel()} "
+              f"{'bit-identical' if same else 'DIFFER'} to K8 "
+              f"(grouped_matmul) on the same buckets and weights")
+        if not (on_wgmma and same):
+            raise AssertionError("K11's Hopper body: off the wgmma body or "
+                                 "not K8's bits")
+        del a, b, out
     release_symmetric_buffers()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1605,12 +1638,14 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
     torch.cuda.reset_peak_memory_stats()
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
-    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches)
+    wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches,
+           ag_group_gemm.wgmma_launches)
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine.serve(prompts, GEN_LEN, cache=cache)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
     wg12 = ag_gemm.wgmma_launches - wg0[0]
     wg14 = gemm_rs.wgmma_launches - wg0[1]
+    wg11 = ag_group_gemm.wgmma_launches - wg0[2]
     tokens = served[0]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
@@ -1623,15 +1658,18 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
           f"(want {short(want)}: per layer one K11 and one K10 in prefill, "
           f"K12/K14 once a forward, ll in decode {ll}, decode's MoE on the "
           f"xla path, two K8 a rank); on the wgmma body: K12 {wg12} of "
-          f"{launches['ag_gemm']}, K14 {wg14} of {launches['gemm_rs']}; "
+          f"{launches['ag_gemm']}, K14 {wg14} of {launches['gemm_rs']}, K11 "
+          f"{wg11} of {launches['ag_group_gemm']}; "
           f"peak memory {peak:.2f} GiB; {card}")
     if launches != want or ll != (nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"MoE TP launch counts {launches}, ll {ll} != "
                              f"{want}")
-    if (wg12, wg14) != (launches["ag_gemm"], launches["gemm_rs"]):
-        raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12 and "
-                             f"{launches['gemm_rs'] - wg14} K14 launches "
-                             "left the wgmma body")
+    if (wg12, wg14, wg11) != (launches["ag_gemm"], launches["gemm_rs"],
+                              launches["ag_group_gemm"]):
+        raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12, "
+                             f"{launches['gemm_rs'] - wg14} K14 and "
+                             f"{launches['ag_group_gemm'] - wg11} K11 "
+                             "launches left the wgmma body")
     if tokens.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError("MoE TP tokens: bad shape or outside the "
@@ -1748,16 +1786,19 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         note = ("{}; GEMM only, no gather (one card: the collective's copies "
                 "stay in one HBM)")
         # K11
+        wg0 = ag_group_gemm.wgmma_launches
         ms = time_ms(lambda: ag_group_gemm(buckets, mlp0.gate_up, ctx,
                                            counts=counts), 20)
+        timed_body = ("the wgmma body" if ag_group_gemm.wgmma_launches > wg0
+                      else "the first body")
         plain = time_ms(lambda: ag_group_gemm_plain(buckets, mlp0.gate_up,
                                                     counts), 2, warmup=1)
         gathered_b = buckets.transpose(0, 1).reshape(1, e, w * cap, h)
         lib = time_ms(lambda: torch.matmul(gathered_b, mlp0.gate_up), 20)
         bms, by = moe_tp_bound("ag_group_gemm", w, counts, e_occ, cap, h,
                                n_gu)
-        print(f"[times] ag_group_gemm (K11) prefill layer 0 buckets "
-              f"{tuple(buckets.shape)} @ {tuple(mlp0.gate_up.shape)}, "
+        print(f"[times] ag_group_gemm (K11, {timed_body}) prefill layer 0 "
+              f"buckets {tuple(buckets.shape)} @ {tuple(mlp0.gate_up.shape)}, "
               f"{int(counts.sum())} occupied rows of {w * e * cap}, {e_occ} "
               f"experts hit: {ms:.4f} ms (bound {bms:.4f} ms by {by}, "
               f"{bms / ms:.1%} of bound), plain {plain:.4f} ms, torch.matmul "
@@ -3917,8 +3958,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in paths.values()))
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
-                "grouped_matmul", "ag_gemm", "gemm_rs", "all_to_all",
-                "sp_ag_attention", "torus"):
+                "grouped_matmul", "ag_gemm", "gemm_rs", "ag_group_gemm",
+                "all_to_all", "sp_ag_attention", "torus"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"

@@ -213,10 +213,10 @@ def build_variant(name: str):
     return path, tmp
 
 
-def sass_usage(path: Path) -> dict:
+def sass_usage(path: Path, prefix: str = "torus_") -> dict:
     """Per `wgmma` kernel of the library at ``path``: the highest register
     its SASS names and its local-memory loads and stores, from
-    ``cuobjdump``."""
+    ``cuobjdump``; kernels named from ``prefix`` on."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -227,7 +227,7 @@ def sass_usage(path: Path) -> dict:
         name = body.split("\n", 1)[0]
         if "wgmma" in name:
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
-            out[name[name.find("torus_"):][:60]] = {
+            out[name[name.find(prefix):][:60]] = {
                 "max_register": max(regs, default=0),
                 "local_ops": len(re.findall(r"\b(?:STL|LDL)\b", body))}
     return out

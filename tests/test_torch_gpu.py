@@ -1487,12 +1487,39 @@ def _plan_case(case, world, mc, e, topk, cap, device):
 
 
 #: (world, experts, capacity, k, n, dtype): a decode-sized bucket at world
-#: 2, Qwen3-30B-A3B's prefill capacity at world 4, f32 at world 8, and k
-#: and n off 16-byte rows (loads by element) with two 64-row tiles.
+#: 2, 64-row buckets at world 4, f32 at world 8, ragged k and n on 16-byte
+#: rows with 96-row buckets (two row boxes, the second cut at the
+#: capacity), k and n off 16-byte rows (the first body, loads by element);
+#: then the main path's shape (layer 0's world-4 Qwen3-30B-A3B prefill
+#: buckets: 128 experts of cap 64, k 2048, n 384 a rank), world 8 (eight
+#: chunks: two units an expert) and cap 128 (two row boxes a chunk).
 AG_GROUP_CASES = [(2, 8, 16, 256, 384, torch.bfloat16),
                   (4, 8, 64, 128, 192, torch.bfloat16),
                   (8, 4, 32, 64, 64, torch.float32),
-                  (4, 5, 96, 136, 200, torch.bfloat16)]
+                  (4, 5, 96, 136, 200, torch.bfloat16),
+                  (4, 5, 96, 60, 90, torch.bfloat16),
+                  (4, 128, 64, 2048, 384, torch.bfloat16),
+                  (8, 16, 64, 256, 384, torch.bfloat16),
+                  (4, 8, 128, 512, 384, torch.bfloat16)]
+
+
+def _ag_group_counts(gen, cuda, world, e, cap):
+    """Routing counts (W, E) of the K11 cases: random, with one bucket
+    empty and one full; from 4 experts on also an expert empty in every
+    chunk, one live in one chunk only and one full everywhere; from 64 on
+    skewed (most buckets a few tokens, as random weights route)."""
+    counts = torch.randint(0, cap + 1, (world, e), generator=gen,
+                           device=cuda)
+    if e >= 64:
+        counts = (torch.rand((world, e), generator=gen, device=cuda) ** 4
+                  * (cap + 1)).long()
+    counts[0, 0], counts[-1, -1] = 0, cap
+    if e >= 4:
+        counts[:, 1] = 0
+        counts[:, 2] = 0
+        counts[world // 2, 2] = 1
+        counts[:, 3] = cap
+    return counts
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
@@ -1502,32 +1529,111 @@ def test_ag_group_gemm_kernel(cuda, with_counts, world, e, cap, k, n,
     """K11 against its plain version (f32 from the same inputs, zero in the
     row tiles past the counts), row by row, over 3 back-to-back calls with
     fresh inputs; rows past the counts hold garbage in the input and must
-    come out zero; a rerun is bit-identical; one launch a call."""
+    come out zero; a rerun is bit-identical; one launch a call; bf16 on
+    16-byte rows takes the Hopper body (``wgmma_launches``), whose live
+    rows equal K8's on the same bucket and weights bit for bit (m64n128k16
+    against m64n256k16: the tile promise)."""
     from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
-        AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_plain)
+        AGGroupGEMMContext, ag_group_gemm, ag_group_gemm_plain, kernel_body)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
         row_tile, zero_past_counts)
 
     gen = torch.Generator(device=cuda).manual_seed(world * 100 + cap + n)
     ctx = AGGroupGEMMContext("tp", world, e)
-    before = ag_group_gemm.launches
+    before = (ag_group_gemm.launches, ag_group_gemm.wgmma_launches)
     for _ in range(3):
         a = _randn(gen, dtype, cuda, world, e, cap, k)
         b = _randn(gen, dtype, cuda, world, e, k, n) * k ** -0.5
-        counts = None
-        if with_counts:
-            counts = torch.randint(0, cap + 1, (world, e), generator=gen,
-                                   device=cuda)
-            counts[0, 0], counts[-1, -1] = 0, cap
+        counts = (_ag_group_counts(gen, cuda, world, e, cap)
+                  if with_counts else None)
+        body = kernel_body(a, b)
         out = ag_group_gemm(a, b, ctx, counts=counts)
         ref = ag_group_gemm_plain(a.float(), b.float())
         if counts is not None:
-            ref = zero_past_counts(ref, counts, row_tile(cap, dtype))
+            ref = zero_past_counts(ref, counts, row_tile(cap, dtype, body))
         torch.cuda.synchronize()
         assert out.dtype == dtype and out.shape == (world, world, e, cap, n)
         _assert_rows_close("ag_group_gemm", out, ref, *GEMM_TOL[dtype])
+    assert body == ("wgmma" if dtype == torch.bfloat16 and k % 8 == 0
+                    and n % 8 == 0 else "mma" if dtype == torch.bfloat16
+                    else "f32")
+    if body == "wgmma":
+        live = torch.ones((world, e, cap), dtype=torch.bool, device=cuda)
+        if counts is not None:
+            tile = row_tile(cap, dtype, body)
+            live = (torch.arange(cap, device=cuda)
+                    < (counts[..., None] + tile - 1) // tile * tile)
+        for r in range(world):
+            k8 = torch.stack([grouped_matmul(a[c], b[r])
+                              for c in range(world)])
+            assert torch.equal(out[r][live], k8[live]), r
     assert torch.equal(out, ag_group_gemm(a, b, ctx, counts=counts))
-    assert ag_group_gemm.launches == before + 4
+    assert (ag_group_gemm.launches - before[0],
+            ag_group_gemm.wgmma_launches - before[1]) == (
+        4, 4 if body == "wgmma" else 0)
+
+
+def _k11_variant(tmp_path, name, line):
+    """K11's library built from a copy of the sources with ``line``
+    inserted at the start of the Hopper body's crew (`k11_crew`)."""
+    import shutil
+
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.kernels import allgather_group_gemm
+
+    src = tmp_path / name / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    cu = src / "ag_group_gemm.cu"
+    anchor = "  comm::crew_entry_barrier(t, p.sig, target, /*neighbors_only=*/true, c);\n"
+    text = cu.read_text()
+    assert text.count(anchor) == 1
+    cu.write_text(text.replace(anchor, line + "\n" + anchor))
+    path = _build.build(["ag_group_gemm"], csrc=src,
+                        build_dir=tmp_path / name / "build")["ag_group_gemm"]
+    return _build.load_path(path, allgather_group_gemm._SIGNATURES)
+
+
+def test_ag_group_gemm_wgmma_under_faults(cuda, tmp_path, monkeypatch):
+    """K11's Hopper body with its ring slowed: rank 1's crew spinning about
+    1 ms of cycles before the ring, then every rank's crew staggered
+    (`correctness_delay`), each a build of the sources with that line in
+    the crew; bit for bit the plain build's outputs, over 2 calls each with
+    skewed counts at world 4 and 8; then 50 back-to-back calls of the
+    plain build on one instance, each equal to its own first run."""
+    from triton_distributed_tpu_torch.kernels import _build
+    from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+        AGGroupGEMMContext, ag_group_gemm)
+
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    cases = []
+    for world, e, cap in ((4, 32, 64), (8, 16, 96)):
+        ctx = AGGroupGEMMContext("tp", world, e)
+        for _ in range(2):
+            a = _randn(gen, torch.bfloat16, cuda, world, e, cap, 256)
+            b = _randn(gen, torch.bfloat16, cuda, world, e, 256, 384) / 16
+            counts = _ag_group_counts(gen, cuda, world, e, cap)
+            cases.append((a, b, counts, ctx,
+                          ag_group_gemm(a, b, ctx, counts=counts)))
+    torch.cuda.synchronize()
+    faults = {"straggler": "  comm::inject_faults(t, comm::Faults{1, "
+                           "2000000, 0});",
+              "for_correctness": "  comm::inject_faults(t, comm::Faults{-1, "
+                                 "0, 1});"}
+    for name, line in faults.items():
+        lib = _k11_variant(tmp_path, name, line)
+        with monkeypatch.context() as m:
+            m.setitem(_build._loaded, "ag_group_gemm", lib)
+            wg0 = ag_group_gemm.wgmma_launches
+            outs = [ag_group_gemm(a, b, ctx, counts=counts)
+                    for a, b, counts, ctx, _ in cases]
+            torch.cuda.synchronize()
+            assert ag_group_gemm.wgmma_launches == wg0 + len(cases)
+        for out, (*_, want) in zip(outs, cases):
+            assert torch.equal(out, want), name
+    a, b, counts, ctx, want = cases[0]
+    outs = [ag_group_gemm(a, b, ctx, counts=counts) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, want) for out in outs)
 
 
 #: (world, experts, capacity (a multiple of 32), k, n).

@@ -13,11 +13,18 @@ tokens through rank r's columns.
 
 On the card each call is one cooperative launch over every rank of
 ``csrc/ag_group_gemm.cu``: K11 (``ag_group_gemm``, bf16 or f32) and K11-int8
-(``ag_group_gemm_w8a8``), the ring of K12 carrying one bucket tensor a
-step and the grouped GEMM of each chunk as it arrives, on the row tiles
-that hold tokens only: with ``counts``, a row tile (`grouped_gemm.row_tile`)
-that starts at or past an expert's count computes nothing and writes zeros,
-as the JAX ``count_of`` does.  The int8 path quantizes the buckets per
+(``ag_group_gemm_w8a8``), on the row tiles that hold tokens only: with
+``counts``, a row tile (`grouped_gemm.row_tile`) that starts at or past an
+expert's count computes nothing and writes zeros, as the JAX ``count_of``
+does.  bf16 on 16-byte rows (`kernel_body`; every main-path call) runs the
+Hopper body: the crew of each block forwards the ring in pieces of
+`RING_PIECE_EXPERTS` experts, and the blocks walk a list of units, each one
+expert's column tile of 128 times up to four 64-row boxes of its live
+buckets (`unit_list`, built from the counts on the device), so a rank
+loads each tile of its weights once for every chunk's rows.  f32, bf16 off
+16-byte rows and the int8 form run the first body: the ring of K12
+carrying one bucket tensor a step and the grouped GEMM of each chunk as it
+arrives.  The int8 path quantizes the buckets per
 token (`quantized.quantize_sym`), carries int8 through the ring, and
 gathers the per-token scales outside the kernel (here: the rank-stacked
 tensor is the gathered one), as JAX gathers them in XLA.  On a CPU tensor
@@ -37,9 +44,9 @@ import torch
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.grouped_gemm import (
-    grouped_matmul_counts_reference, grouped_matmul_reference,
+    WGMMA_BOX_ROWS, grouped_matmul_reference,
     grouped_matmul_w8a8_counts_reference, grouped_matmul_w8a8_reference,
-    row_tile)
+    row_tile, zero_past_counts)
 from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 from triton_distributed_tpu_torch.language.core import symmetric_buffers
 from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
@@ -48,11 +55,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"ag_group_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _I, _I, ctypes.c_uint64,
-                                 ctypes.POINTER(_I), _P]}
+                                 ctypes.POINTER(_I), _P],
+               "ag_group_gemm_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _I, ctypes.c_uint64,
+                                       ctypes.POINTER(_I), _P]}
 
 #: The most experts the kernels take (their per-chunk tile table lives in
 #: shared memory).
 MAX_EXPERTS = 512
+#: The Hopper body's unit: up to UNIT_BOXES boxes of UNIT_ROWS rows (a
+#: chunk's bucket rows of one expert each) times UNIT_N columns of that
+#: expert's weights (``csrc/ag_group_gemm.cu`` `UnitTile`).
+UNIT_BOXES, UNIT_ROWS, UNIT_N = 4, WGMMA_BOX_ROWS, 128
+#: Experts a piece of the Hopper body's ring: each chunk is forwarded in
+#: pieces of this many experts' buckets, one arrival word a (chunk, piece).
+RING_PIECE_EXPERTS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,17 +83,79 @@ class AGGroupGEMMContext:
     collective_id: int = cids.AG_GROUP_GEMM
 
 
+def kernel_body(buckets, expert_weights) -> str:
+    """The K11 body a launch on these operands runs: "wgmma" for bf16 on
+    16-byte rows (k and n multiples of 8, both operands 16-byte aligned),
+    "mma" for other bf16 (the `mma.sync` tile, loads by element), "f32"
+    (CUDA cores).  By operand only; nothing falls back on a failure."""
+    if buckets.dtype != torch.bfloat16:
+        return "f32"
+    k, n = buckets.shape[-1], expert_weights.shape[-1]
+    aligned = (buckets.data_ptr() % 16 == 0
+               and expert_weights.data_ptr() % 16 == 0)
+    return "wgmma" if k % 8 == 0 and n % 8 == 0 and aligned else "mma"
+
+
 def ag_group_gemm_plain(buckets, expert_weights, counts=None):
     """The plain version of `ag_group_gemm`: out[r, c] is chunk c's
     buckets through rank r's weights, an f32 grouped product cast to the
     buckets' dtype (`grouped_gemm.grouped_matmul_reference`), zero in the
-    row tiles past ``counts[c]`` (`grouped_matmul_counts_reference`)."""
-    world = buckets.shape[0]
-    return torch.stack([torch.stack([
+    row tiles past ``counts[c]`` (`grouped_gemm.row_tile` of the body these
+    operands run on)."""
+    world, _, cap, _ = buckets.shape
+    out = torch.stack([torch.stack([
         grouped_matmul_reference(buckets[c], expert_weights[r])
-        if counts is None else grouped_matmul_counts_reference(
-            buckets[c], expert_weights[r], counts[c])
         for c in range(world)]) for r in range(world)])
+    if counts is None:
+        return out
+    return zero_past_counts(out, counts, row_tile(
+        cap, buckets.dtype, kernel_body(buckets, expert_weights)))
+
+
+def unit_list(counts, world: int, num_experts: int, cap: int, n: int):
+    """The Hopper body's units from the routing's counts (W, E), by torch
+    ops on their device (no host sync): (units (T, 4) int32, ntiles (1,)
+    int32).  Expert e's live boxes are the (row box i, chunk c) with
+    counts[c, e] > 64 i, in the order (i, c); they fill ceil(live / 4)
+    units of up to four boxes, for each column tile of 128 in turn: the
+    list is expert-major, then column tile, so the units that share a
+    weight tile are one run.  Unit t (t < ntiles) is {e, column tile,
+    box 0 | box 1 << 16, box 2 | box 3 << 16}, a box i << 3 | c and 0xFFFF
+    an empty slot; T, the most units any counts give, sizes the launch."""
+    dev = counts.device
+    e, rt = num_experts, -(-cap // UNIT_ROWS)
+    nt, per = -(-n // UNIT_N), rt * world
+    tmax = e * nt * -(-per // UNIT_BOXES)
+    i = torch.arange(rt, device=dev)
+    live = (counts.long().t()[:, None, :] > UNIT_ROWS * i[None, :, None]
+            ).reshape(e, per)
+    code = (i[:, None] * 8 + torch.arange(world, device=dev)).reshape(per)
+    units_e = (live.sum(1) + UNIT_BOXES - 1) // UNIT_BOXES
+    first = (torch.cumsum(units_e, 0) - units_e) * nt
+    col = torch.arange(nt, device=dev)[None, :, None]
+    base = first[:, None, None] + col * units_e[:, None, None]
+    rank = torch.cumsum(live.long(), 1) - 1
+    # Box slots: slot rank % 4 of unit rank // 4 of each column tile; the
+    # dead boxes go to a row past the list.
+    t = torch.where(live[:, None, :], base + rank[:, None, :] // UNIT_BOXES,
+                    tmax)
+    slots = torch.full((tmax + 1, UNIT_BOXES), 0xFFFF, dtype=torch.int64,
+                       device=dev)
+    slots.view(-1).scatter_(
+        0, (t * UNIT_BOXES + rank[:, None, :] % UNIT_BOXES).reshape(-1),
+        code.expand(e, nt, per).reshape(-1))
+    j = torch.arange(-(-per // UNIT_BOXES), device=dev)
+    tu = torch.where(j < units_e[:, None, None], base + j, tmax).reshape(-1)
+    head = torch.zeros((tmax + 1, 2), dtype=torch.int64, device=dev)
+    ex = torch.arange(e, device=dev)[:, None, None].expand(e, nt, j.numel())
+    head[:, 0].scatter_(0, tu, ex.reshape(-1))
+    head[:, 1].scatter_(0, tu, col.expand(e, nt, j.numel()).reshape(-1))
+    lo = slots[:, 0] | slots[:, 1] << 16
+    hi = slots[:, 2] | slots[:, 3] << 16
+    packed = torch.stack([head[:, 0], head[:, 1], lo, hi], 1)[:tmax]
+    units = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(
+        torch.int32)
+    return units, (units_e.sum() * nt).to(torch.int32).reshape(1)
 
 
 def ag_group_gemm_w8a8_plain(buckets_q, scales, expert_weights_q, w_scales,
@@ -103,7 +182,9 @@ def ag_group_gemm(buckets, expert_weights, ctx: AGGroupGEMMContext,
 
     buckets (W, E, cap, k), expert_weights (W, E, k, n), both bf16 or both
     f32, contiguous; counts (W, E) int, optional.  Returns (W, W, E, cap,
-    n).  Each launch of K11 adds one to ``ag_group_gemm.launches``."""
+    n).  Each launch of K11 adds one to ``ag_group_gemm.launches``, one of
+    the Hopper body (`kernel_body`) also to
+    ``ag_group_gemm.wgmma_launches``."""
     _check_shapes(buckets, expert_weights, counts, ctx)
     if buckets.device.type == "cpu":
         return ag_group_gemm_plain(buckets, expert_weights, counts)
@@ -112,13 +193,18 @@ def ag_group_gemm(buckets, expert_weights, ctx: AGGroupGEMMContext,
         raise ValueError(f"ag_group_gemm: buckets {buckets.dtype}, weights "
                          f"{expert_weights.dtype}; want both bfloat16 or "
                          "both float32")
-    out = _launch(buckets, expert_weights, None, None, counts, ctx,
-                  buckets.dtype)
+    if kernel_body(buckets, expert_weights) == "wgmma":
+        out = _launch_wgmma(buckets, expert_weights, counts, ctx)
+        ag_group_gemm.wgmma_launches += 1
+    else:
+        out = _launch(buckets, expert_weights, None, None, counts, ctx,
+                      buckets.dtype)
     ag_group_gemm.launches += 1
     return out
 
 
 ag_group_gemm.launches = 0
+ag_group_gemm.wgmma_launches = 0
 
 
 def ag_group_gemm_w8a8(buckets, expert_weights_q, w_scales,
@@ -174,19 +260,55 @@ def _check_shapes(buckets, w, counts, ctx):
                          f"({world}, {e})")
 
 
-def _launch(a, b, scales, w_scales, counts, ctx, out_dtype):
-    """One launch of csrc/ag_group_gemm.cu over every rank (int8 when
-    ``scales`` is given)."""
-    world, e, cap, k = a.shape
-    n = b.shape[3]
-    dev = a.device
+def _check_launch(a, b, scales, w_scales, counts):
+    world, e = a.shape[:2]
     if not 2 <= world <= MAX_WORLD or e > MAX_EXPERTS:
         raise ValueError(f"ag_group_gemm: world {world} (2 to {MAX_WORLD}) "
                          f"and {e} experts (at most {MAX_EXPERTS})")
     for nm, t in (("buckets", a), ("weights", b), ("scales", scales),
                   ("w_scales", w_scales), ("counts", counts)):
-        if t is not None and (t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"ag_group_gemm: {nm} not contiguous on {dev}")
+        if t is not None and (t.device != a.device or not t.is_contiguous()):
+            raise ValueError(f"ag_group_gemm: {nm} not contiguous on "
+                             f"{a.device}")
+
+
+def _launch_wgmma(a, b, counts, ctx):
+    """One launch of the Hopper body of csrc/ag_group_gemm.cu over every
+    rank."""
+    world, e, cap, k = a.shape
+    n = b.shape[3]
+    dev = a.device
+    _check_launch(a, b, None, None, counts)
+    live = None if counts is None else counts.clamp(0, cap).to(
+        torch.int32).contiguous()
+    units, ntiles = unit_list(
+        torch.full((world, e), cap, device=dev) if live is None else live,
+        world, e, cap, n)
+    pieces = -(-e // RING_PIECE_EXPERTS)
+    inst = symmetric_buffers("ag_group_gemm", ctx.collective_id, "wgmma",
+                             a.dtype, world, dev, words=2 + world * pieces)
+    gathered = inst.buffer("gathered", (world, e, cap, k), a.dtype)
+    out = torch.empty((world, world, e, cap, n), dtype=a.dtype, device=dev)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("ag_group_gemm", _SIGNATURES)
+    rc = lib.ag_group_gemm_wgmma(
+        a.data_ptr(), b.data_ptr(), units.data_ptr(), ntiles.data_ptr(),
+        None if live is None else live.data_ptr(), out.data_ptr(),
+        inst.peers(gathered), inst.signal_peers(), world, e, cap, n, k,
+        units.shape[0], RING_PIECE_EXPERTS, inst.epoch, ctypes.byref(blocks),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "ag_group_gemm (wgmma) kernel launch")
+    inst.advance(blocks.value)
+    return out
+
+
+def _launch(a, b, scales, w_scales, counts, ctx, out_dtype):
+    """One launch of the first body of csrc/ag_group_gemm.cu over every
+    rank (int8 when ``scales`` is given)."""
+    world, e, cap, k = a.shape
+    n = b.shape[3]
+    dev = a.device
+    _check_launch(a, b, scales, w_scales, counts)
     int8 = scales is not None
     # Routing metadata for the kernel: per chunk, the row tiles (of the
     # kernel's tile) that hold a token before each expert, and their total.

@@ -128,6 +128,8 @@ enum Wait : int {
   WAIT_TORUS_RS_ARRIVAL,          //: torus reduce-scatter arrival
   WAIT_TORUS_RS_ACK_DRAIN,        //: torus reduce-scatter ack drain
   WAIT_TORUS_AG_GEMM_LOAD,        //: torus ag_gemm arrival (TMA loads)
+  WAIT_AG_GROUP_GEMM_FORWARD,     //: ag_group_gemm ring forward
+  WAIT_AG_GROUP_GEMM_LOAD,        //: ag_group_gemm arrival (TMA loads)
 };
 
 // The record (kernels/_build.py `_SpinRecord` mirrors it).

@@ -1,7 +1,8 @@
-// Shared-memory transaction barriers (`mbarrier`) and the 1-D bulk copy
-// (`cp.async.bulk`, global -> shared) that completes on one: the Hopper
-// pieces shared by the wgmma tile (wgmma_tile.cuh, K6/K8) and the decode
-// body (decode_body.cuh, K2/K3).
+// Shared-memory transaction barriers (`mbarrier`) and the 1-D bulk copies
+// (`cp.async.bulk`): global -> shared, completing on a barrier, and shared
+// -> global in bulk groups.  The Hopper pieces shared by the wgmma tile
+// (wgmma_tile.cuh, K6/K8), the decode body (decode_body.cuh, K2/K3) and
+// K11's ring (ag_group_gemm.cu).
 #pragma once
 
 #include <stdint.h>
@@ -71,6 +72,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from shared ``src`` to global ``dst`` (both
+// 16-byte aligned), in the thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// Closes the thread's current bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of the thread's bulk groups are still reading shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until all the thread's bulk groups are done: their writes performed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace tdt

@@ -2,21 +2,27 @@
 // operands, f32 accumulation, written in bf16 or f32, by TMA loads into a
 // shared ring and `wgmma` products from it.  The body of the grouped GEMM
 // (K8 and its one-group case K6, grouped_matmul.cu), of the AllGather-GEMM
-// (K12, ag_gemm.cu) and of the GEMM-ReduceScatter (K14, gemm_rs.cu) for
-// operands on 16-byte rows.
+// (K12, ag_gemm.cu), of the GEMM-ReduceScatter (K14, gemm_rs.cu) and of the
+// AllGather-GroupGEMM (K11, ag_group_gemm.cu) for operands on 16-byte
+// rows.
 //
-// Roles (one block of 128 (C + 1) threads, `Tile<C, STAGES, TN>`):
-// - Warpgroups 0 .. C - 1 consume: each owns 64 rows of the tile and issues
-//   `wgmma.mma_async m64nTNk16` (TN = 256, or 64 for a narrow tile) from
-//   the ring (a K-major, b MN-major), f32 accumulators in registers (TN / 2
-//   a thread), then hands them to the caller's epilogue.
+// Roles (one block of 128 (C + 1) threads, `Tile<C, STAGES, TN, BOXES>`):
+// - Warpgroups 0 .. C - 1 consume: each owns BOXES boxes of 64 rows of the
+//   tile (box j of warpgroup w is the stage's box j C + w) and issues
+//   `wgmma.mma_async m64nTNk16` (TN = 256; 64 for a narrow tile; 128 with
+//   two boxes a warpgroup) on each from the ring (a K-major, b MN-major),
+//   f32 accumulators in registers (BOXES TN / 2 a thread), then hands them
+//   to the caller's epilogue.  With BOXES > 1 a tile may hold fewer live
+//   boxes than the stage has room for (`At::boxes`): the producer loads the
+//   live ones only, and the epilogue stores those only.
 // - Warpgroup C produces: one thread keeps the TMA loads of the next
 //   stages in flight; its other three warps run the caller's side work (a
 //   collective's copies and signals), which never waits on the ring.
 //   `setmaxnreg` gives the producer's registers to the consumers (40 and
 //   232 a thread).
 // - The ring: STAGES stages of k = 64 (one 128-byte row of bf16, the swizzle
-//   span), each the a tile (BM x 64, one box) and the b tile (64 x TN,
+//   span), each the a tile (BM x 64, one box or the schedule's boxes) and
+//   the b tile (64 x TN,
 //   TN / 64 boxes of 64 columns), loaded with 128-byte swizzle; a "full"
 //   mbarrier (the producer's expected bytes) and an "empty" one (every
 //   consumer thread) per stage.  A consumer keeps one stage of products in
@@ -38,9 +44,9 @@
 // The tile promise: every tile shape runs its instruction over k in the
 // same order (stages of 64, four k16 steps each), and an element's
 // products depend neither on the other rows nor on the other columns of
-// the instruction (m64n64k16 and m64n256k16 give the same bits on the
-// H100), so an output element does not depend on the tile that computed
-// it.
+// the instruction (m64n64k16, m64n128k16 and m64n256k16 give the same bits
+// on the H100), so an output element does not depend on the tile that
+// computed it.
 #pragma once
 
 #include <cuda.h>
@@ -196,6 +202,31 @@ __device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[O .. O + 63] (64 x 128 f32) = a (64 x 16, K-major) @ b (16 x 128,
+// MN-major) + (those accumulators if accumulate): one box of a tile whose
+// warpgroups own two boxes each (K11's units).
+#define TDT_ACC8(o)                                                   \
+  "+f"(d[(o)]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]), \
+      "+f"(d[(o) + 4]), "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+template <int O, int R>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[R], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  static_assert(O + 64 <= R, "accumulators");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : TDT_ACC8(O), TDT_ACC8(O + 8), TDT_ACC8(O + 16), TDT_ACC8(O + 24),
+        TDT_ACC8(O + 32), TDT_ACC8(O + 40), TDT_ACC8(O + 48),
+        TDT_ACC8(O + 56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+#undef TDT_ACC8
+
 __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db,
                                     int accumulate) {
   mma_m64n256k16(d, da, db, accumulate);
@@ -214,12 +245,14 @@ template <class S>
 struct loads_a<S, std::void_t<decltype(&S::load_a)>> : std::true_type {};
 
 // Where tile t lies: its a map and box (first row, group), its b box
-// (first column, group) and its nk stages of 64.
+// (first column, group), its nk stages of 64 and, for a tile of two boxes
+// a warpgroup, its live boxes (the first ``boxes`` of the stage's).
 struct At {
   const CUtensorMap* ta;
   int a_row, a_grp;
   int col, b_grp;
   int nk;
+  int boxes = 0;
 };
 
 // The R accumulators of consumer warpgroup ``wg`` for a tile at (row0,
@@ -246,19 +279,53 @@ __device__ __forceinline__ void store_tile(TO* o, int M, int N, int row0,
   }
 }
 
-template <int C, int STAGES, int TN_ = BN>
+template <int C, int STAGES, int TN_ = BN, int BOXES_ = 1>
 struct Tile {
   static constexpr int TN = TN_;  // columns of a tile
-  static constexpr int BM = C * WG_ROWS;
+  static constexpr int BOXES = BOXES_;  // 64-row boxes a consumer warpgroup
+  static constexpr int BM = C * BOXES * WG_ROWS;
   static constexpr int NT = (C + 1) * WG;  // consumers, then the producer
+  static constexpr int BOX_BYTES = WG_ROWS * ROW_BYTES;  // a box's stage
   static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * TN * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int ACC = TN / 2;  // accumulators a consumer thread
+  static constexpr int ACC = BOXES * TN / 2;  // accumulators a thread
   // The ring, its barriers, and slack to align the ring to the swizzle atom.
   static constexpr int SMEM_BYTES =
       STAGES * STAGE_BYTES + 2 * STAGES * 8 + ATOM_BYTES;
   static_assert(A_BYTES % ATOM_BYTES == 0, "stage alignment");
-  static_assert(TN == 256 || TN == 64, "a m64n256k16 or m64n64k16 tile");
+  static_assert((BOXES == 1 && (TN == 256 || TN == 64)) ||
+                    (BOXES == 2 && TN == 128),
+                "m64n256k16 or m64n64k16 a warpgroup, or two m64n128k16");
+
+  // The bytes of a stage of tile ``w``: every box, or its live ones.
+  static __device__ __forceinline__ int stage_bytes(const At& w) {
+    if constexpr (BOXES == 1) return STAGE_BYTES;
+    return B_BYTES + w.boxes * BOX_BYTES;
+  }
+
+  // Consumer warpgroup ``wg``'s products of k16 step ``kk`` of the stage at
+  // ``st``: each of its boxes.  A box past the tile's live ones multiplies
+  // the stage's stale bytes there (nothing writes them while the stage is
+  // full) into accumulators that the epilogue does not store: a product
+  // skipped on a runtime condition makes ptxas serialize every `wgmma` of
+  // the kernel (C7520, a warpgroup arrive in a divergent path).
+  static __device__ __forceinline__ void mma_step(float (&acc)[ACC],
+                                                  const uint8_t* st, int wg,
+                                                  int kk, int accumulate) {
+    const uint64_t db = desc(st + A_BYTES + kk * 16 * ROW_BYTES,
+                             BK * ROW_BYTES, ATOM_BYTES);
+    if constexpr (BOXES == 1) {
+      mma(acc, desc(st + wg * BOX_BYTES + kk * 32, 16, ATOM_BYTES), db,
+          accumulate);
+    } else {
+      mma_m64n128k16<0>(
+          acc, desc(st + wg * BOX_BYTES + kk * 32, 16, ATOM_BYTES), db,
+          accumulate);
+      mma_m64n128k16<TN / 2>(
+          acc, desc(st + (C + wg) * BOX_BYTES + kk * 32, 16, ATOM_BYTES), db,
+          accumulate);
+    }
+  }
 
   // Stage ``kt``'s b tile of tile ``w`` (TN / 64 boxes) into stage ``st``.
   static __device__ __forceinline__ void load_b(uint8_t* st,
@@ -277,8 +344,8 @@ struct Tile {
   //   (64, 64, 1); both bf16 with 128-byte swizzle);
   // - ``sched.load_a(dst, bar, kt)``, where the schedule has it: the
   //   producer's loads of stage kt's a rows of the tile last passed to
-  //   ``at`` (A_BYTES in all, completing on ``bar``) in place of the one
-  //   box of ``at``;
+  //   ``at`` (A_BYTES in all, or BOX_BYTES a live box, box j at dst + j
+  //   BOX_BYTES; completing on ``bar``) in place of the one box of ``at``;
   // - ``sched.pending(t)``: whether tile t's a must wait; then
   //   ``sched.ready(t)`` (the producer thread) waits, after the b tiles of
   //   the tile's first stages are in flight and before any a load;
@@ -330,7 +397,7 @@ struct Tile {
             const int s0 = s;
             for (int i = 0; i < pre; ++i) {
               mbar_wait(&empty[s], phase ^ 1);
-              mbar_expect_tx(&full[s], STAGE_BYTES);
+              mbar_expect_tx(&full[s], stage_bytes(w));
               load_b(ring + s * STAGE_BYTES, tb, &full[s], w, kt + i);
               if (++s == STAGES) {
                 s = 0;
@@ -346,7 +413,7 @@ struct Tile {
           }
           for (; kt < w.nk; ++kt) {
             mbar_wait(&empty[s], phase ^ 1);
-            mbar_expect_tx(&full[s], STAGE_BYTES);
+            mbar_expect_tx(&full[s], stage_bytes(w));
             uint8_t* st = ring + s * STAGE_BYTES;
             load_a(st, &full[s], w, kt);
             load_b(st, tb, &full[s], w, kt);
@@ -360,7 +427,7 @@ struct Tile {
         sched.side(threadIdx.x - (C * WG + 32));
       }
     } else {
-      // A consumer: rows [64 wg, 64 wg + 64) of each tile.
+      // A consumer: boxes wg, C + wg, ... of each tile.
       regs_inc<CONSUMER_REGS>();
       float acc[ACC] = {};
       int s = 0, prev = 0;
@@ -374,11 +441,7 @@ struct Tile {
           mma_fence();
 #pragma unroll
           for (int kk = 0; kk < BK / 16; ++kk)
-            mma(acc,
-                desc(st + wg * WG_ROWS * ROW_BYTES + kk * 32, 16, ATOM_BYTES),
-                desc(st + A_BYTES + kk * 16 * ROW_BYTES, BK * ROW_BYTES,
-                     ATOM_BYTES),
-                kt | kk);
+            mma_step(acc, st, wg, kk, kt | kk);
           mma_commit();
           fence_acc(acc);
           // This stage's products stay in flight; the last stage's are

@@ -12,7 +12,8 @@ carry over.
 The in-kernel forms that the fused MoE kernels call are CUDA device code
 here: `emit_grouped_matmul` / `emit_grouped_matmul_w8a8` with ``count_of``
 (row tiles past an expert's count compute nothing and write zeros) in
-``csrc/ag_group_gemm.cu`` over ``gemm_tile.cuh`` / ``w8a8_body.cuh``, and
+``csrc/ag_group_gemm.cu`` over ``wgmma_tile.cuh`` (bf16 on 16-byte rows),
+``gemm_tile.cuh`` or ``w8a8_body.cuh``, and
 `emit_packed_matmul` / `emit_packed_combine` /
 `emit_packed_combine_matmul` (the packed block schedule, the tile rounded
 to the activations' dtype, then the top-k weighted combine) in
@@ -159,12 +160,22 @@ def grouped_matmul_w8a8(a_q, b_q, scale_a, scale_b,
 grouped_matmul_w8a8.launches = 0
 
 
-def row_tile(rows: int, dtype) -> int:
+#: Rows of an a box of K11's Hopper body (``csrc/ag_group_gemm.cu``), its
+#: row tile at every capacity.
+WGMMA_BOX_ROWS = 64
+
+
+def row_tile(rows: int, dtype, body: str = "mma") -> int:
     """Rows of the tile that the count-skipping device forms run on
     buckets of ``rows`` rows of ``dtype``: the bf16 tile that fits them (16,
     64 or 128, `gemm_tile.cuh`), 64 for f32, 128 for int8
-    (`w8a8_body.cuh`).  A tile starting at or past an expert's count is
-    skipped; a tile that holds it computes in full."""
+    (`w8a8_body.cuh`); on K11's Hopper body (``body="wgmma"``, bf16 on
+    16-byte rows: `allgather_group_gemm.kernel_body`) one 64-row box at
+    every capacity (16, 64, 96, 128: a 16-row bucket is one box, a 96-row
+    one two).  A tile starting at or past an expert's count is skipped; a
+    tile that holds it computes in full."""
+    if body == "wgmma":
+        return WGMMA_BOX_ROWS
     if dtype == torch.int8:
         return 128
     if dtype == torch.float32:
