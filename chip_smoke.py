@@ -123,8 +123,9 @@ non-zero):
    paged SP decode against world-1 decode, ``ops.reduce_scatter``,
    ``ops.broadcast`` and the barrier; times of every method at the
    fused_ar and SP payloads with bounds, plain versions and library
-   yardsticks, the ``auto`` sweep, fused_ar against fused, SP decode
-   against world-1 decode;
+   yardsticks (K16 ``scatter_reduce``, on its scatter-then-sum body,
+   beside the parent body's time from PERF.md), the ``auto`` sweep,
+   fused_ar against fused, SP decode against world-1 decode;
 14. EP path: expert parallelism at world 4 on Qwen3-30B-A3B's MoE widths
    (hidden 2048, 128 experts of 768, top 8; 32 experts a rank): K19
    (``fast_all_to_all``) bit for bit against its plain version at world 2,
@@ -162,7 +163,9 @@ non-zero):
    ``HierarchicalEPAll2AllLayer`` on the EP path's traffic (bit for bit
    the flat layer's) and ``sp_ag_attention_2d`` over 32,768 tokens
    (against world-1 K1); times against bounds, plain versions and library
-   calls, beside K15/K16/K17/K12/K14/K20 over the flat world.
+   calls, beside K15/K16/K17/K12/K14/K20 over the flat world (K21b, K16
+   and ``all_reduce_torus`` also beside the parent body's times from
+   PERF.md: K21b runs K16's scatter-then-sum body with the torus order).
 
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout
@@ -262,8 +265,8 @@ KERNELS = {
                               "launches", _TPU + "sp_ag_attention.py:520"),
     "all_gather_torus": ("torus", "all_gather_torus", "launches",
                          _TPU + "torus.py:359"),
-    "reduce_scatter_torus": ("torus", "reduce_scatter_torus", "launches",
-                             _TPU + "torus.py:613"),
+    "reduce_scatter_torus": ("reduce_scatter", "reduce_scatter_torus",
+                             "launches", _TPU + "torus.py:613"),
     "ag_gemm_torus": ("torus", "ag_gemm_torus", "launches",
                       _TPU + "torus.py:727"),
 }
@@ -2359,6 +2362,14 @@ SP_WORLD, SP_CONTEXT, SP_PAGE = 4, 32768, 16
 SP_RAGGED = (1, 8193, 16384, 32768)
 #: Rows (x 4096 bf16 columns) a rank of the `auto` sweep: 8 KiB to 32 MiB.
 SWEEP_ROWS = (1, 4, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+#: K16 ``scatter_reduce``, K21b and `all_reduce_torus` before their
+#: scatter-then-sum body, ms at 2048 x 4096 bf16 a rank (PERF.md section 6:
+#: `chip_smoke.py` on an H100 80GB HBM3 at 700 W), printed beside this
+#: run's times.
+PARENT_RS_MS = {("K16", 4): 0.1062, ("K16", 8): 0.1865,
+                ("K21b", (2, 2)): 0.1085, ("K21b", (2, 2, 2)): 0.2684,
+                ("all_reduce_torus", (2, 2)): 0.1675,
+                ("all_reduce_torus", (2, 2, 2)): 0.3729}
 
 
 def collective_bound(op: str, world: int, shard_bytes: int):
@@ -2764,6 +2775,12 @@ def collective_path(dev, card: str, counted, expect, short, records,
                   f"{times}; bound {bms:.4f} ms by {by}; plain {plain:.4f} "
                   f"ms; library ({lib_name}) {lib:.4f} ms; {card}")
             rows_by_op[(op, label)] = (ms, plain, bms, by, lib, lib_name)
+    t_rs = rows_by_op[("reduce_scatter", f"{FUSED_AR_ROWS[0]}x{h} bf16")]
+    print(f"[collective path] K16 scatter_reduce on its scatter-then-sum "
+          f"body at world {w}, {FUSED_AR_ROWS[0]} x {h} bf16 a rank: "
+          f"{t_rs[0]['scatter_reduce']:.4f} ms against the parent body's "
+          f"{PARENT_RS_MS[('K16', w)]:.4f} (PERF.md); ring "
+          f"{t_rs[0]['ring']:.4f}; local sum {t_rs[4]:.4f}; {card}")
     # K15-K17 records: the method `auto` takes at the prefill payload;
     # K18's: the broadcast, the barrier's time beside it.
     m0 = f"{FUSED_AR_ROWS[0]}x{h} bf16"
@@ -3796,6 +3813,16 @@ def grid_path(dev, card: str, counted, expect, short, records, errs) -> None:
                   f"{t['rs_lib']:.4f}, K16 flat (auto) {t['K16']:.4f}; "
                   f"all_reduce_torus {t['ar']:.4f} ms (bound {b_ar_ms:.4f}), "
                   f"K17 flat (auto) {t['K17']:.4f}; {card}")
+        for s, (t, _, _) in rows.items():
+            w = world_of(s)
+            print(f"[grid path] scatter-then-sum body on grid {s}, "
+                  f"{GRID_ROWS} x {GRID_COLS} bf16 a rank: K21b {t['rs']:.4f} ms against the "
+                  f"parent body's {PARENT_RS_MS[('K21b', s)]:.4f}, K16 flat "
+                  f"(W = {w}) {t['K16']:.4f} against "
+                  f"{PARENT_RS_MS[('K16', w)]:.4f}, all_reduce_torus "
+                  f"{t['ar']:.4f} against "
+                  f"{PARENT_RS_MS[('all_reduce_torus', s)]:.4f} (PERF.md); "
+                  f"{card}")
         k21c = time_ms(lambda: ag_gemm(a_ag, b_ag, tctx), 10)
         k21c_plain = time_ms(lambda: torus.ag_gemm_torus_plain(a_ag, b_ag), 2,
                              warmup=1)
@@ -3959,7 +3986,7 @@ def main() -> int:
           + ", ".join(p.name for p in paths.values()))
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
                 "grouped_matmul", "ag_gemm", "gemm_rs", "ag_group_gemm",
-                "all_to_all", "sp_ag_attention", "torus"):
+                "all_to_all", "sp_ag_attention", "torus", "reduce_scatter"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"

@@ -29,6 +29,8 @@ call's rows, the tile and the method.
 """
 
 
+import math
+
 import pytest
 import torch
 
@@ -2327,6 +2329,94 @@ def test_ag_gemm_torus_wgmma_under_faults(cuda, sizes):
         _assert_rows_close("ag_gemm_torus (first body)", out,
                            torus.ag_gemm_torus_plain(a.float(), b.float()),
                            *GEMM_TOL[dtype])
+
+
+#: The scatter-then-sum body (``csrc/reduce_scatter.cu``): K21b on every
+#: TORUS_CASES grid and K16 ``scatter_reduce`` on the COLL_SHAPES of worlds
+#: 2, 4 and 8, with no fault, a straggler rank (about 1 ms of cycles) and
+#: for_correctness.  K16's ring, K17, K14's first body and K10 keep their
+#: own tests above (`test_collective_kernel_bit_exact`, `test_gemm_rs_kernel`
+#: in f32, `test_moe_reduce_rs_fused_kernel`).
+SUM_CASES = ([("torus", s, m, n) for s, m, n in TORUS_CASES]
+             + [("flat", (w,), m, n) for w, m, n in COLL_SHAPES
+                if w in (2, 4, 8)])
+SUM_FAULTS = {"none": {}, "straggler": {"straggler": (1, 2_000_000)},
+              "for_correctness": {"for_correctness": True}}
+
+
+def _scatter_sum(kind, sizes, x, collective_id=None, **faults):
+    """K21b or K16 ``scatter_reduce`` on x, and a function of a CPU copy of
+    x giving its plain version."""
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.kernels import torus
+
+    ids = {} if collective_id is None else {"collective_id": collective_id}
+    if kind == "torus":
+        return (torus.reduce_scatter_torus(x, _torus_ctx(sizes, **ids,
+                                                         **faults)),
+                lambda xc: torus.reduce_scatter_torus_plain(xc, sizes))
+    ctx = rs.ReduceScatterContext("tp", sizes[0], "scatter_reduce", **ids,
+                                  **faults)
+    return (rs.reduce_scatter(x, ctx),
+            lambda xc: rs.reduce_scatter_reference(xc, "scatter_reduce"))
+
+
+def _sum_launches():
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.kernels import torus
+
+    return (torus.reduce_scatter_torus.launches, rs.reduce_scatter.launches,
+            rs.reduce_scatter.method_launches["scatter_reduce"])
+
+
+@pytest.mark.parametrize("fault", list(SUM_FAULTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,sizes,m,n", SUM_CASES)
+def test_scatter_sum_bit_exact_back_to_back(cuda, kind, sizes, m, n, dtype,
+                                            fault):
+    """K21b and K16 ``scatter_reduce`` against their plain versions (the
+    CPU's), bit for bit, over 100 back-to-back calls with fresh inputs
+    queued before any check; one launch of the body a call, counted by
+    the caller's wrapper alone."""
+    world = math.prod(sizes)
+    gen = torch.Generator(device=cuda).manual_seed(world * 1000 + m + n)
+    ins = [_randn(gen, dtype, cuda, world, world * m, n) for _ in range(100)]
+    before = _sum_launches()
+    runs = [_scatter_sum(kind, sizes, x, **SUM_FAULTS[fault]) for x in ins]
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(_sum_launches(), before))
+    assert got == ((100, 0, 0) if kind == "torus" else (0, 100, 100)), got
+    for x, (out, plain) in zip(ins, runs):
+        assert out.dtype == dtype and out.shape == (world, m, n)
+        assert torch.equal(out.cpu(), plain(x.cpu())), (kind, sizes, fault)
+
+
+@pytest.mark.parametrize("kind,sizes", [("torus", (2, 2)),
+                                        ("torus", (2, 2, 2)),
+                                        ("flat", (4,)), ("flat", (8,))])
+def test_scatter_sum_alternating_shapes_one_id(cuda, kind, sizes):
+    """Calls alternating a small shape (one block a rank) and a large one
+    (many blocks a rank, a larger receive buffer) on one collective id
+    share one instance, its epoch and its signal words: bit for bit every
+    time."""
+    from triton_distributed_tpu_torch import collective_ids as cids
+    from triton_distributed_tpu_torch.kernels import reduce_scatter as rs
+    from triton_distributed_tpu_torch.language import core
+
+    world = math.prod(sizes)
+    cid = cids.allocate()
+    gen = torch.Generator(device=cuda).manual_seed(world + len(sizes))
+    shapes = [(world * 3, 40), (world * 512, 1024)]
+    ins = [_randn(gen, torch.bfloat16, cuda, world, *shapes[i % 2])
+           for i in range(20)]
+    runs = [_scatter_sum(kind, sizes, x, collective_id=cid) for x in ins]
+    torch.cuda.synchronize()
+    for x, (out, plain) in zip(ins, runs):
+        assert torch.equal(out.cpu(), plain(x.cpu())), (kind, x.shape)
+    insts = [inst for key, inst in core._instances.items()
+             if key[1] == cid]
+    assert len(insts) == 1 and insts[0].words == rs.SUM_WORDS
+    assert insts[0].epoch >= 20
 
 
 def test_gemm_rs_torus_kernels(cuda):

@@ -9,7 +9,8 @@
 //   body of K12's `fused` method, K11 and its int8 form, and K13);
 // - `emit_scatter_reduce`: port of kernels/reduce_scatter.py
 //   `emit_scatter_reduce` (:144), one-shot scatter then local reduce
-//   (K14's `ll` body; K16's scatter kernel later);
+//   (K14's first body, K10 and K17; K16 and K21b have their own body in
+//   reduce_scatter.cu);
 // - `reduce_sum`: port of reduce_scatter.py `_emit_reduce_sum` (:94), the
 //   f32 sum over the ranks' partials in rank order 0 .. W-1, cast to the
 //   output type (`reduce_sum_to` stores it to several ranks at once);
@@ -191,23 +192,24 @@ constexpr int COMM_THREADS = 256;
 // ranks (gridDim = (P, ranks)): P is ``want`` (at least 1), at most as
 // many as can be resident together with every other rank's, so a block
 // that spins on a peer never starves it; a grid that cannot be resident
-// is refused.  P goes to ``*blocks``.  Returns a cudaError_t code.
+// is refused.  P goes to ``*blocks``.  ``smem``: dynamic shared memory a
+// block (at most 48 KB).  Returns a cudaError_t code.
 inline int launch_cooperative(void* fn, void** args, int ranks, int want,
-                              int* blocks, cudaStream_t s) {
+                              int* blocks, cudaStream_t s, size_t smem = 0) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, COMM_THREADS,
-                                                      0);
+                                                      smem);
   if (e != cudaSuccess) return (int)e;
   const int fit = occ * sms / ranks;
   if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int P = want < 1 ? 1 : (want < fit ? want : fit);
   *blocks = P;
   return (int)cudaLaunchCooperativeKernel(fn, dim3(P, ranks),
-                                          dim3(COMM_THREADS), args, 0, s);
+                                          dim3(COMM_THREADS), args, smem, s);
 }
 
 // Blocks a rank for a step that moves ``bytes``: one per 32 KiB.

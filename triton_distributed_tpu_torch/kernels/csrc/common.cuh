@@ -124,12 +124,10 @@ enum Wait : int {
   WAIT_SP_AG_RING_LOAD,           //: sp_ag_attention ring arrival (TMA loads)
   WAIT_SP_AG_RING,                //: sp_ag_attention ring arrival (f32 blocks)
   WAIT_TORUS_ALL_GATHER,          //: torus all-gather arrival
-  WAIT_TORUS_RS_ACK,              //: torus reduce-scatter ack
-  WAIT_TORUS_RS_ARRIVAL,          //: torus reduce-scatter arrival
-  WAIT_TORUS_RS_ACK_DRAIN,        //: torus reduce-scatter ack drain
   WAIT_TORUS_AG_GEMM_LOAD,        //: torus ag_gemm arrival (TMA loads)
   WAIT_AG_GROUP_GEMM_FORWARD,     //: ag_group_gemm ring forward
   WAIT_AG_GROUP_GEMM_LOAD,        //: ag_group_gemm arrival (TMA loads)
+  WAIT_SCATTER_SUM,               //: reduce-scatter scatter-then-sum arrival
 };
 
 // The record (kernels/_build.py `_SpinRecord` mirrors it).

@@ -18,12 +18,13 @@
 //
 // Signals are monotonic 64-bit counters, never reset.  In a call every
 // signal word receives the same number of adds from each block of the
-// ranks that signal it, so after the call it holds k * T, where T is the
-// sum, over this instance's calls so far, of P: the host keeps T (its
-// epoch, `language/core.py` SymmetricBuffers) and passes the value before
-// the call; the kernel adds gridDim.x.  A wait is "counter >= k * T" and
-// can never be satisfied by a later call's signals arriving early, nor
-// stall on an earlier call's.
+// ranks that signal it, or (the scatter-then-sum body of K16 and K21b,
+// reduce_scatter.cu) one add of P from one block of its signaller, so
+// after the call it holds k * T, where T is the sum, over this instance's
+// calls so far, of P: the host keeps T (its epoch, `language/core.py`
+// SymmetricBuffers) and passes the value before the call; the kernel adds
+// gridDim.x.  A wait is "counter >= k * T" and can never be satisfied by
+// a later call's signals arriving early, nor stall on an earlier call's.
 //
 // Memory model.  The producer's threads store, each runs __threadfence(),
 // the block syncs, and one thread does a release add (`red.release`) on
@@ -51,8 +52,10 @@ constexpr int MAX_RANKS = 8;
 //: method names its arrival words: one per source rank, per chunk, per
 //: ring step or per step's ack, the second bank (ARRIVAL_WORD + MAX_RANKS
 //: ..) for a second phase or direction.  Each word a method waits on
-//: receives one add from each block of its signaller in every call, so a
-//: wait's target is always the instance's epoch plus this call's blocks.
+//: receives one add from each block of its signaller in every call (the
+//: scatter-then-sum body's words, one a (source, block) past these: one add
+//: of P from the block that owns it), so a wait's target is always the
+//: instance's epoch plus this call's blocks.
 constexpr int BARRIER_WORD = 0;
 constexpr int LOCAL_WORD = 1;
 constexpr int ARRIVAL_WORD = 2;

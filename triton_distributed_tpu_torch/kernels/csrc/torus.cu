@@ -1,33 +1,25 @@
 // Collectives over a process grid of nd = 2 or 3 axes, every axis at once
-// (K21): the all-gather (K21a), the reduce-scatter (K21b) and the
-// all-gather GEMM (K21c) of a team of W ranks laid out as a grid (rank g
-// row-major over the axes, `dl::Grid`).
+// (K21): the all-gather (K21a) and the all-gather GEMM (K21c) of a team of
+// W ranks laid out as a grid (rank g row-major over the axes, `dl::Grid`).
+// The reduce-scatter (K21b) is K16's scatter-then-sum body with the torus
+// order of the sum (`reduce_scatter.cu`, `kernels/torus.py` `rs_order`).
 //
 // Replaces: triton_distributed_tpu/kernels/torus.py
 //   K21a `all_gather_torus` -> pallas_call :359 (`_torus_ag_kernel` :298
 //     over `_emit_torus_ag` :217);
-//   K21b `reduce_scatter_torus` -> pallas_call :613 (`_torus_rs_kernel`
-//     :472, `_ReduceLane` :383, adding with reduce_scatter.py
-//     `emit_add_into` :120);
 //   K21c `ag_gemm_torus` -> pallas_call :727 (`_ag_gemm_torus_kernel` :636).
 // Layouts: a rank's m rows split into L = 2 * nd pieces, piece q the rows
 // [q * ms, min((q + 1) * ms, m)) (the JAX wrappers' split; they pad the
 // rows to L * ms, the kernels take the last pieces short or empty and need
 // no copy): K21a's x_g (m, row) and gathered A (W, m, row), cell c holding
-// rank c's rows; K21b's partials x_g (W, m, n), cell c the partial of rank
-// c's chunk, and out_g (m, n); K21c's a_g (m, k), its gathered A (W, m, k)
-// and out_g (W * m, n).
+// rank c's rows; K21c's a_g (m, k), its gathered A (W, m, k) and out_g
+// (W * m, n).
 //
 // The schedule (JAX `lane_schedules`): lane q = (sign s, rotation r), q < nd
 // the + lanes, rides axis (r + p) mod nd in direction s at phase p.  Phase
 // p of K21a is a ring all-gather along that axis of the lane's slab: the
 // cells over the lane's first p axes at a ring position (own coordinate on
-// the axes still to come), piece q of each.  K21b runs it backwards: stage
-// t ring-reduces, along the axis of phase nd-1-t, the slabs that phase
-// gathered, with running sums passed to the next rank of the ring (the
-// JAX two-slot staging, each slot written again only after the receiver's
-// ack) and one f32 add rounded to the element type a hop; the last stage
-// leaves piece q of the rank's own chunk.  Every lane of every rank has
+// the axes still to come), piece q of each.  Every lane of every rank has
 // its own P blocks (blockIdx.x = q * P + part), so a slow lane holds up no
 // other: that replaces the TPU kernel's step interleaving of the lanes
 // (`_run_lanes` :449).
@@ -35,19 +27,15 @@
 // Signals (`dl.cuh`; every word its own counter, never shared by lanes):
 // word 0 the entry barrier; K21a/K21c: arrival word (phase, lane, ring
 // position), 1 + (p * L + q) * maxw + c, one add from each of the sender's
-// P lane blocks a call; K21b: arrival and ack words (stage, lane, step),
-// 1 + (t * L + q) * (maxw - 1) + s and the same past nd * L * (maxw - 1).
-// A word receives P adds a call, so its wait is epoch + P, the epoch being
+// P lane blocks a call.  A word receives P adds a call, so its wait is epoch + P, the epoch being
 // the instance's sum of P over its earlier calls.
 //
-// Memory: a block copies its share of a piece (`put_nbi`) or adds its range
-// of one (`add_into`, `block_range`).  It forwards only bytes a peer
-// announced (its own piece it sends from its input), and K21b's blocks
-// read back only their own range of the sums they wrote.  Waits are
-// acquire loads; arrived data is read through L2.
+// Memory: a block copies its share of a piece (`put_nbi`).  It forwards
+// only bytes a peer announced (its own piece it sends from its input).
+// Waits are acquire loads; arrived data is read through L2.
 //
-// What bounds it on the H100: bytes (K21a, K21b: each rank reads its
-// shard, receives W - 1 pieces a lane and writes its output), operations
+// What bounds it on the H100: bytes (K21a: each rank reads its shard,
+// receives W - 1 pieces a lane and writes its output), operations
 // (K21c at prefill shapes: the product of the W * m gathered rows with the
 // rank's B).  On one card every put is a copy inside one HBM: the lanes'
 // use of 2 * nd links at once, the reason for the schedule on a torus,
@@ -55,9 +43,8 @@
 //
 // Design (a first kernel that is right): one cooperative launch of every
 // rank's L * P blocks (P at most what lets them all be resident), the
-// grid's entry barrier (K21a, K21c: the ring neighbours along every axis;
-// K21b: every rank of each axis, as the JAX kernel), then each lane's
-// phases.  K21c's first body (f32, and bf16 off 16-byte rows) forwards a
+// grid's entry barrier (the ring neighbours along every axis), then each
+// lane's phases.  K21c's first body (f32, and bf16 off 16-byte rows) forwards a
 // slab before it multiplies the pieces that arrived at the step before (JAX
 // `consume_piece` :658), its own pieces first, each piece's tiles on K12's
 // tile (`gemm_tile.cuh`) striding over the lane's P blocks.
@@ -531,153 +518,6 @@ __global__ void __launch_bounds__(3 * wg::WG, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K21b: the reduce-scatter
-// ---------------------------------------------------------------------------
-
-template <typename T>
-struct RsArgs {
-  GridArgs grid;
-  const T* x;              // (R, W, m, n): the launched ranks' partials
-  T* out;                  // (R, m, n)
-  dl::Symm<char> staging;  // rank r's staging slots (`slots_before`)
-  T* local;                // (R, local_pieces, ms, n): sums, stage results
-  int m, ms;               // rows a chunk, rows a piece
-  size_t n;                // elements a row
-  size_t local_pieces;
-};
-
-// Pieces of a slab slot at stage t: maxw^(nd-1-t) (the JAX kernel's slab
-// shape, `reduce_scatter_torus` :606).
-__device__ __forceinline__ int slab_pieces(int maxw, int nd, int t) {
-  int n = 1;
-  for (int i = 0; i < nd - 1 - t; ++i) n *= maxw;
-  return n;
-}
-
-// Pieces before stage t's slots: each earlier stage has two slots a lane
-// (``per_lane`` 2) of staging or running sums, or one (1) of stage results.
-__device__ __forceinline__ int slots_before(int maxw, int nd, int lanes,
-                                            int t, int per_lane) {
-  int n = 0;
-  for (int u = 0; u < t; ++u) n += lanes * per_lane * slab_pieces(maxw, nd, u);
-  return n;
-}
-
-// The index, in a slab over the axes of ``outer`` (highest axis fastest),
-// of the cell at ``c`` along ``axis`` and the e-th combination of the axes
-// of ``inner`` (``outer`` = ``inner`` + ``axis``).
-__device__ __forceinline__ int slab_index(const dl::Grid& g, int outer,
-                                          int axis, int c, int inner, int e) {
-  int coord[3] = {0, 0, 0};
-  for (int a = g.nd - 1; a >= 0; --a) {
-    if (!(inner >> a & 1)) continue;
-    coord[a] = e % g.size[a];
-    e /= g.size[a];
-  }
-  coord[axis] = c;
-  int idx = 0;
-  for (int a = 0; a < g.nd; ++a)
-    if (outer >> a & 1) idx = idx * g.size[a] + coord[a];
-  return idx;
-}
-
-__device__ __forceinline__ int rs_word(const GridArgs& p, int ack, int t,
-                                       int q, int s) {
-  return 1 + ((ack * p.grid.nd + t) * p.lanes + q) * (p.maxw - 1) + s;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(comm::COMM_THREADS)
-    torus_rs_kernel(RsArgs<T> p) {
-  const GridArgs& gp = p.grid;
-  const dl::Team& tm = gp.team;
-  const dl::Grid& g = gp.grid;
-  const int me = dl::rank(tm), nd = g.nd, L = gp.lanes, maxw = gp.maxw;
-  const int world = g.size[0] * g.stride[0];
-  const int P = gridDim.x / L, q = blockIdx.x / P, part = blockIdx.x % P;
-  const u64 target = gp.epoch + P;
-  // A slot holds a whole piece of ms rows (S elements); the lane's pieces
-  // have E elements (fewer, or none, for the last pieces).
-  const size_t S = (size_t)p.ms * p.n;
-  const size_t E = (size_t)piece_rows(p.m, p.ms, q) * p.n;
-  const size_t first = (size_t)q * p.ms * p.n;
-  const T* x = p.x + (size_t)blockIdx.y * world * p.m * p.n;
-  T* out = p.out + (size_t)blockIdx.y * p.m * p.n;
-  T* local = p.local + (size_t)blockIdx.y * p.local_pieces * S;
-  const int staged = slots_before(maxw, nd, L, nd, 2);
-  const comm::Range rg = comm::block_range(E, part, P);
-  const Lane l = lane_of(q, nd);
-
-  comm::inject_faults(tm, gp.faults);
-  dl::grid_barrier(tm, g, gp.sig, 0, (u64)L * target,
-                   /*neighbors_only=*/false);
-  for (int t = 0; t < nd; ++t) {
-    const int a = lane_axis(l, nd - 1 - t, nd), d = l.dir, w = g.size[a];
-    const int pos = dl::grid_coord(g, me, a);
-    const int after = lane_mask(l, nd - 1 - t, nd), before = after | 1 << a;
-    const int cells = mask_cells(g, after);
-    const int cap = slab_pieces(maxw, nd, t);
-    const size_t slots = (size_t)(slots_before(maxw, nd, L, t, 2) +
-                                  q * 2 * cap) * S;
-    T* stage_me = reinterpret_cast<T*>(p.staging[me]) + slots;
-    T* stage_fwd = reinterpret_cast<T*>(
-                       p.staging[dl::grid_neighbor(g, me, a, d)]) + slots;
-    T* sums = local + slots;
-    const T* prev = local + (size_t)(staged +
-                                     (t ? slots_before(maxw, nd, L, t - 1, 1)
-                                          + q * slab_pieces(maxw, nd, t - 1)
-                                        : 0)) * S;
-    T* result = t == nd - 1
-                    ? out + first
-                    : local + (size_t)(staged +
-                                       slots_before(maxw, nd, L, t, 1) +
-                                       q * cap) * S;
-    // The lane's partial of cell e of the slab at ring position c: the
-    // input at stage 0, the last stage's result after.
-    auto take = [&](int c, int e) -> const T* {
-      if (t == 0)
-        return x + (size_t)cell_rank(g, me, a, c, after, e) * p.m * p.n +
-               first;
-      return prev + (size_t)slab_index(g, before, a, c, after, e) * S;
-    };
-    u64* const mine = gp.sig[me];
-    for (int s = 0; s < w - 1; ++s) {
-      const int slot = s & 1;
-      // The slot is written again only after the receiver has added what
-      // it held two steps ago.
-      if (s >= 2)
-        dl::wait(mine + rs_word(gp, 1, t, q, s - 2), 1, 0, target,
-                 tdt::WAIT_TORUS_RS_ACK);
-      const int send = wrap(pos - (1 + s) * d, w);
-      for (int e = 0; e < cells; ++e)
-        comm::put_range(stage_fwd + (size_t)(slot * cap + e) * S,
-                        s == 0 ? take(send, e)
-                               : sums + (size_t)(slot * cap + e) * S,
-                        rg);
-      u64* word = gp.sig[dl::grid_neighbor(g, me, a, d)] +
-                  rs_word(gp, 0, t, q, s);
-      dl::signal_after_puts(&word, 1);
-      dl::wait(mine + rs_word(gp, 0, t, q, s), 1, 0, target,
-               tdt::WAIT_TORUS_RS_ARRIVAL);
-      const int recv = wrap(pos - (2 + s) * d, w);
-      for (int e = 0; e < cells; ++e)
-        comm::add_into(s < w - 2 ? sums + (size_t)((1 - slot) * cap + e) * S
-                                 : result + (size_t)e * S,
-                       stage_me + (size_t)(slot * cap + e) * S,
-                       take(recv, e), rg);
-      // The slot is free again, and this block's sums are stored before
-      // the next step forwards them.
-      u64* ack = gp.sig[dl::grid_neighbor(g, me, a, -d)] +
-                 rs_word(gp, 1, t, q, s);
-      dl::signal_after_puts(&ack, 1);
-    }
-    for (int s = w - 3 < 0 ? 0 : w - 3; s < w - 1; ++s)
-      dl::wait(mine + rs_word(gp, 1, t, q, s), 1, 0, target,
-               tdt::WAIT_TORUS_RS_ACK_DRAIN);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launches
 // ---------------------------------------------------------------------------
 
@@ -830,43 +670,13 @@ int launch_ag_gemm_wgmma(WgArgs& p, const void* a, const void* b,
                                           Tile::SMEM_BYTES, s);
 }
 
-template <typename T>
-int reduce_scatter(const void* x, void* out, void* const* staging,
-                   void* local, GridArgs gp, int m, int ms, size_t n,
-                   int* blocks, cudaStream_t s) {
-  RsArgs<T> p{};
-  p.grid = gp;
-  p.x = static_cast<const T*>(x);
-  p.out = static_cast<T*>(out);
-  p.local = static_cast<T*>(local);
-  p.m = m;
-  p.ms = ms;
-  p.n = n;
-  int staged = 0, mids = 0;
-  for (int t = 0; t < gp.grid.nd; ++t) {
-    int cap = 1;
-    for (int i = 0; i < gp.grid.nd - 1 - t; ++i) cap *= gp.maxw;
-    staged += gp.lanes * 2 * cap;
-    if (t < gp.grid.nd - 1) mids += gp.lanes * cap;
-  }
-  p.local_pieces = staged + mids;
-  for (int r = 0; r < gp.team.world; ++r)
-    p.staging.ptr[r] = static_cast<char*>(staging[r]);
-  void* args[] = {&p};
-  return launch_lanes(
-      reinterpret_cast<void*>(torus_rs_kernel<T>), args, comm::COMM_THREADS,
-      gp, comm::blocks_for(largest_slab(gp) * ms * n * sizeof(T)), blocks,
-      s);
-}
-
 }  // namespace
 
-// The three entry points share their trailing arguments: ``sig``, a host
-// table of W device pointers, rank r's ``words`` u64 signal words (at least
-// what the kernel's layout needs); ``nd`` and ``sizes`` the grid (2 or 3
-// axes, each of at least 2 ranks, W = their product <= 8 ranks, all of
-// them in this launch); ``m`` rows a rank's shard (K21a, K21c) or chunk
-// (K21b), split into 2 * nd pieces of ``ms`` rows (the last ones short or
+// The entry points share their trailing arguments: ``sig``, a host table
+// of W device pointers, rank r's ``words`` u64 signal words (at least what
+// the kernel's layout needs); ``nd`` and ``sizes`` the grid (2 or 3 axes,
+// each of at least 2 ranks, W = their product <= 8 ranks, all of them in
+// this launch); ``m`` rows a rank's shard, split into 2 * nd pieces of ``ms`` rows (the last ones short or
 // empty); ``epoch`` the instance's sum of blocks a lane over its earlier
 // calls, this launch's going to ``*blocks``; ``straggler`` (-1: none)
 // spins ``cycles`` first, ``for_correctness`` staggers every rank.  Each
@@ -902,37 +712,6 @@ extern "C" int torus_all_gather(const void* x, void* const* out,
                       comm::COMM_THREADS, p.grid,
                       comm::blocks_for(largest_slab(p.grid) * ms * row),
                       blocks, static_cast<cudaStream_t>(stream));
-}
-
-// K21b: x (W, W, m, n) every rank's partials, cell c for rank c; out (W, m,
-// n); ``staging`` a table of rank r's staging slots and ``local`` (W, local
-// pieces, ms, n) the ranks' running sums and stage results (the wrapper's
-// `_rs_cells`); ``dtype`` tdt::DTYPE_*.
-extern "C" int torus_reduce_scatter(const void* x, void* out,
-                                    void* const* staging, void* local,
-                                    void* const* sig, int nd,
-                                    const int* sizes, int words, int dtype,
-                                    int m, int ms, unsigned long long n,
-                                    unsigned long long epoch, int straggler,
-                                    long long cycles, int for_correctness,
-                                    int* blocks, void* stream) {
-  *blocks = 0;
-  GridArgs gp{};
-  int world = 0;
-  if (!make_grid(nd, sizes, &gp, &world) || m < 1 || ms < 1 || n < 1 ||
-      words < 1 + 2 * nd * gp.lanes * (gp.maxw - 1))
-    return (int)cudaErrorInvalidValue;
-  for (int r = 0; r < world; ++r) gp.sig.ptr[r] = static_cast<u64*>(sig[r]);
-  gp.epoch = epoch;
-  gp.faults = comm::Faults{straggler, cycles, for_correctness};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tdt::DTYPE_BF16)
-    return reduce_scatter<bf16>(x, out, staging, local, gp, m, ms, n, blocks,
-                                s);
-  if (dtype == tdt::DTYPE_F32)
-    return reduce_scatter<float>(x, out, staging, local, gp, m, ms, n,
-                                 blocks, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 // K21c: a (W, m, k) every rank's shard of A, b (W, k, n) every rank's B,

@@ -6,24 +6,28 @@ The operand is rank-stacked (`parallel.mesh`): ``x`` (W, W*m, n) holds
 every rank's partial of the full array, and rank c gets row chunk c of
 their sum, so the result is (W, m, n).  On the card that is one launch of
 ``csrc/reduce_scatter.cu`` (K16) over every rank: ``"scatter_reduce"``
-puts chunk c straight to rank c, which sums the W partials
-(`_scatter_reduce_kernel`), ``"ring"`` passes running sums around the ring
-with the JAX kernel's two-slot ack flow control (`_ring_rs_kernel`).
-``"xla"`` (JAX ``psum_scatter``) is the plain f32 sum in rank order.
+puts each foreign chunk straight into its destination's receive slot,
+and each destination block sums its own range as soon as the blocks that
+wrote it have signalled (`_scatter_reduce_kernel`; the body K21b
+`reduce_scatter_torus` shares with its own order, `scatter_sum`);
+``"ring"`` passes running sums around the ring with the JAX kernel's
+two-slot ack flow control (`_ring_rs_kernel`).  ``"xla"`` (JAX
+``psum_scatter``) is the plain f32 sum in rank order.
 
 Numerics, in the kernel and its plain version alike: ``"scatter_reduce"``
 and ``"xla"`` sum the partials in f32 in rank order 0 .. W-1 and round once
-(JAX `_emit_reduce_sum`); ``"ring"`` adds one hop at a time in f32 and
-rounds to x's dtype at every hop (its staging and accumulator buffers hold
-x's dtype, as the JAX kernel's do), chunk c's sum running x_{c+1},
-+ x_{c+2}, .., + x_c.  So in bf16 the two methods differ by design; in f32
-they agree to the order of the sums.
+(JAX `_emit_reduce_sum`; the trivial table of `scatter_reduce_order`);
+``"ring"`` adds one hop at a time in f32 and rounds to x's dtype at every
+hop (its staging and accumulator buffers hold x's dtype, as the JAX
+kernel's do), chunk c's sum running x_{c+1}, + x_{c+2}, .., + x_c.  So in
+bf16 the two methods differ by design; in f32 they agree to the order of
+the sums.
 
 ``"auto"`` is ``"scatter_reduce"`` at every size, not the JAX package's
 TPU ICI model: in ``chip_smoke.py``'s sweep at world 4 on an H100 80GB
-HBM3 at 700 W it led at 9 of 11 chunk sizes, and the ring's lead at the
-other two (chunks of 2 and 4 MiB) was 0.017 ms on one card, where no put
-crosses NVLink (PERF.md).  The ring stays a method to name.
+HBM3 at 700 W it led the ring at all 11 sizes, 8 KiB to 32 MiB a rank,
+on one card, where no put crosses NVLink (PERF.md).  The ring stays a
+method to name.
 
 On a CUDA tensor `reduce_scatter` launches the kernel or raises; on a CPU
 tensor it computes the plain version, `reduce_scatter_reference`.
@@ -35,6 +39,7 @@ import collections
 import ctypes
 import dataclasses
 import enum
+import functools
 from typing import Optional
 
 import torch
@@ -43,14 +48,25 @@ from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.allgather import _check
 from triton_distributed_tpu_torch.language.core import (
-    fault_args, symmetric_buffers)
+    SIGNAL_WORDS, fault_args, symmetric_buffers)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
-_SIGNATURES = {"reduce_scatter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _U64, _U64, _I, ctypes.c_longlong, _I,
-                                  ctypes.POINTER(_I), _P]}
+_FAULTS = [_I, ctypes.c_longlong, _I, ctypes.POINTER(_I), _P]
+_SIGNATURES = {
+    "reduce_scatter_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U64, _U64,
+                           _I, _P, _P, _I, _U64] + _FAULTS,
+    "reduce_scatter_ring": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U64, _U64]
+    + _FAULTS,
+}
+
+#: Signal words a rank of the scatter-then-sum body (``csrc/reduce_scatter.cu``
+#: SUM_WORDS): the entry barrier, the local word, then 256 arrival words
+#: (one a block, at most 256 blocks a rank) for each of up to 8 source ranks.
+SUM_WORDS = 2 + 8 * 256
+#: Nested levels of a sum order (``csrc/reduce_scatter.cu`` MAX_LEVELS).
+ORDER_LEVELS = 3
 
 
 class ReduceScatterMethod(enum.Enum):
@@ -98,6 +114,26 @@ def sum_in_rank_order(parts):
     return acc.to(parts.dtype)
 
 
+def scatter_reduce_order(world: int):
+    """K16 ``scatter_reduce``'s sum order as the scatter-then-sum body takes
+    it (`kernels/torus.py` `rs_order` has K21b's): one lane, whose chain
+    lengths are (W,) (one level) and whose sources at every destination
+    are the ranks in order 0 .. W-1; the body rounds once, at the end."""
+    return ((world,),), (tuple(tuple(range(world)) for _ in range(world)),)
+
+
+@functools.lru_cache(maxsize=64)
+def order_args(lens, srcs):
+    """A sum order (``lens`` (L, levels), ``srcs`` (L, W, W)) as the
+    kernel's int32 arguments: the lane count, the chain lengths (L, 3)
+    padded with chains of one, and the sources (L, W, W)."""
+    flat_lens = [n for lane in lens
+                 for n in (*lane, *[1] * (ORDER_LEVELS - len(lane)))]
+    flat_srcs = [s for lane in srcs for row in lane for s in row]
+    return (len(lens), (ctypes.c_int * len(flat_lens))(*flat_lens),
+            (ctypes.c_int * len(flat_srcs))(*flat_srcs))
+
+
 def reduce_scatter_reference(x, method="scatter_reduce"):
     """The plain version of ``method``: x (W, W*m, ...) -> (W, m, ...),
     rank c getting chunk c of the ranks' sum in the method's order and
@@ -140,29 +176,58 @@ reduce_scatter.launches = 0
 reduce_scatter.method_launches = collections.Counter()
 
 
+def scatter_sum(x, out, inst, order, piece: int, round_each: bool,
+                straggler=None, for_correctness=False) -> None:
+    """One launch of the scatter-then-sum body (K16 ``scatter_reduce``, K21b)
+    over every rank: x (W, W*m, ...) contiguous bf16 or f32 on a CUDA
+    device into out (W, m, ...), through the instance ``inst``'s receive
+    buffer "rbuf" (W, m * ...) a rank and its SUM_WORDS signal words, each
+    lane of ``piece`` elements of a chunk summed in ``order`` (`order_args`'s
+    pair ``(lens, srcs)``), every add rounded to x's dtype if
+    ``round_each`` (else once)."""
+    world = x.shape[0]
+    elems = x[0].numel() // world
+    rbuf = inst.buffer("rbuf", (world, elems), x.dtype)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("reduce_scatter", _SIGNATURES)
+    rc = lib.reduce_scatter_sum(
+        x.data_ptr(), out.data_ptr(), inst.peers(rbuf), inst.signal_peers(),
+        inst.words, world, 0, world, _build.DTYPE_CODES[x.dtype], elems,
+        piece, *order_args(*order), int(round_each), inst.epoch,
+        *fault_args(straggler, for_correctness), ctypes.byref(blocks),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "reduce_scatter scatter-then-sum kernel launch")
+    inst.advance(blocks.value)
+
+
 def _launch(x, ctx, method):
     world = x.shape[0]
     _check("reduce_scatter", x, world, _build.DTYPE_CODES)
     elems = x[0].numel() // world
-    inst = symmetric_buffers("reduce_scatter", ctx.collective_id,
-                             method.value, x.dtype, world, x.device,
-                             group=ctx.group)
-    ring = method == ReduceScatterMethod.RING
-    buf = inst.buffer("staging" if ring else "rbuf",
-                      (2 if ring else world, elems), x.dtype)
-    accum = inst.buffer("accum", (2, elems), x.dtype) if ring else None
     out = torch.empty((world, x.shape[1] // world, *x.shape[2:]),
                       dtype=x.dtype, device=x.device)
-    blocks = ctypes.c_int(0)
-    lib = _build.load_library("reduce_scatter", _SIGNATURES)
-    rc = lib.reduce_scatter(
-        x.data_ptr(), out.data_ptr(), inst.peers(buf),
-        None if accum is None else accum.data_ptr(), inst.signal_peers(),
-        world, 0, world, int(ring), _build.DTYPE_CODES[x.dtype], elems,
-        inst.epoch, *fault_args(ctx.straggler, ctx.for_correctness),
-        ctypes.byref(blocks), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, f"reduce_scatter ({method.value}) kernel launch")
-    inst.advance(blocks.value)
+    ring = method == ReduceScatterMethod.RING
+    inst = symmetric_buffers("reduce_scatter", ctx.collective_id,
+                             method.value, x.dtype, world, x.device,
+                             group=ctx.group,
+                             words=SIGNAL_WORDS if ring else SUM_WORDS)
+    if ring:
+        staging = inst.buffer("staging", (2, elems), x.dtype)
+        accum = inst.buffer("accum", (2, elems), x.dtype)
+        blocks = ctypes.c_int(0)
+        lib = _build.load_library("reduce_scatter", _SIGNATURES)
+        rc = lib.reduce_scatter_ring(
+            x.data_ptr(), out.data_ptr(), inst.peers(staging),
+            accum.data_ptr(), inst.signal_peers(), world, 0, world,
+            _build.DTYPE_CODES[x.dtype], elems, inst.epoch,
+            *fault_args(ctx.straggler, ctx.for_correctness),
+            ctypes.byref(blocks),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, rc, "reduce_scatter (ring) kernel launch")
+        inst.advance(blocks.value)
+    else:
+        scatter_sum(x, out, inst, scatter_reduce_order(world), elems, False,
+                    ctx.straggler, ctx.for_correctness)
     reduce_scatter.launches += 1
     reduce_scatter.method_launches[method.value] += 1
     return out

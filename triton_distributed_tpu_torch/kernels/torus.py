@@ -19,11 +19,14 @@ phase p > 0 the slab the lane has gathered over its first p axes.
   rank order.  Its plain version is the gathered copy (the schedule moves
   bytes, so the result is the same whatever the order).
 - `reduce_scatter_torus`: K21b, the schedule reversed: lane q's stage t
-  ring-reduces, along the axis of its AG phase nd-1-t, the slab that phase
-  gathered, with the JAX two-slot staging and ack credit; each ring add is
-  an f32 add rounded to x's dtype (JAX `emit_add_into`), in the JAX lane,
-  stage and step order, so the kernel equals `reduce_scatter_torus_plain`
-  bit for bit.  x (W, W*m, ...) -> (W, m, ...).
+  reduces, along the axis of its AG phase nd-1-t, the slab that phase
+  gathered, each add an f32 add rounded to x's dtype (JAX `emit_add_into`),
+  in the JAX lane, stage and step order (`reduce_scatter_torus_plain`).  On
+  the card it is K16's scatter-then-sum body (``csrc/reduce_scatter.cu``,
+  `reduce_scatter.scatter_sum`): every piece is put once into its
+  destination's receive slot, and the destination evaluates that order
+  from a host-built table (`rs_order`), so the kernel equals the plain
+  version bit for bit.  x (W, W*m, ...) -> (W, m, ...).
 - `ag_gemm_torus`: K21c, K21a's schedule with each piece multiplied by the
   rank's resident B shard as it lands: a (W, m, k), b (W, k, n) -> (W,
   W*m, n) [, the gathered A (W, W*m, k)].  Which body a launch runs
@@ -83,7 +86,8 @@ from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     GEMMReduceScatterContext, gemm_rs, gemm_rs_nonoverlap)
 from triton_distributed_tpu_torch.kernels.matmul import matmul
 from triton_distributed_tpu_torch.kernels.reduce_scatter import (
-    ReduceScatterContext, reduce_scatter, reduce_scatter_reference)
+    SUM_WORDS, ReduceScatterContext, reduce_scatter, reduce_scatter_reference,
+    scatter_sum)
 from triton_distributed_tpu_torch.language.core import (
     fault_args, symmetric_buffers)
 
@@ -96,8 +100,6 @@ _FAULTS = [_I, ctypes.c_longlong, _I]
 _SIGNATURES = {
     "torus_all_gather": [_P, _P, _P, _I, _P, _I, _I, _I, _U64, _U64]
     + _FAULTS + [ctypes.POINTER(_I), _P],
-    "torus_reduce_scatter": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                             _U64, _U64] + _FAULTS + [ctypes.POINTER(_I), _P],
     "torus_ag_gemm": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                       _U64] + _FAULTS + [ctypes.POINTER(_I), _P],
     "torus_ag_gemm_wgmma": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -215,6 +217,41 @@ def _piece_args(sizes, m: int, ms: int):
     starts = [i for i in range(count) if i == 0 or runs[i] != runs[i - 1]]
     return (count, lanes, cells, waits, len(starts),
             (ctypes.c_int * len(starts))(*starts))
+
+
+@functools.lru_cache(maxsize=64)
+def rs_order(sizes):
+    """K21b's sum order, the one `reduce_scatter_torus_plain` evaluates, as
+    the scatter-then-sum body takes it: ``(lens, srcs)`` with, for each
+    lane q, its chain lengths at its nd nested levels, innermost first
+    (level t is stage t's chain, along the axis of the lane's phase
+    nd-1-t: that axis's size), and for each destination rank g the W
+    source ranks in evaluation order.  The outermost level's position runs
+    slowest; at every level the chain runs from position c + d to c along
+    its axis (c the destination's coordinate, d the lane's direction), so
+    the first operand of a chain is source position c + d and the last c.
+    The first operand of a chain is taken as it is and every later add is
+    rounded to the dtype."""
+    sizes = tuple(sizes)
+    nd, world = len(sizes), math.prod(sizes)
+    lens, srcs = [], []
+    for sched in lane_schedules(nd):
+        stages = [sched[nd - 1 - t] for t in range(nd)]   # level t
+        lens.append(tuple(sizes[a] for a, _ in stages))
+        outer_first = stages[::-1]
+        rows = []
+        for g in range(world):
+            pos = [int(c) for c in np.unravel_index(g, sizes)]
+            row = []
+            for steps in itertools.product(
+                    *[range(1, sizes[a] + 1) for a, _ in outer_first]):
+                cell = list(pos)
+                for (a, d), j in zip(outer_first, steps):
+                    cell[a] = (pos[a] + j * d) % sizes[a]
+                row.append(int(np.ravel_multi_index(cell, sizes)))
+            rows.append(tuple(row))
+        srcs.append(tuple(rows))
+    return tuple(lens), tuple(srcs)
 
 
 def all_gather_torus_plain(x):
@@ -448,42 +485,19 @@ def _launch_ag(x, ctx, sizes):
     return out
 
 
-def _rs_cells(nd, lanes, maxw):
-    """Pieces a rank's staging (and its running sums) hold: per stage t
-    two slots a lane of maxw^(nd-1-t) pieces; and its stage results, one
-    slot a lane for t < nd-1 (the JAX kernel's s_t, a_t and mid_t,
-    `reduce_scatter_torus` :601-611)."""
-    staging = sum(lanes * 2 * maxw ** (nd - 1 - t) for t in range(nd))
-    mid = sum(lanes * maxw ** (nd - 1 - t) for t in range(nd - 1))
-    return staging, mid
-
-
 def _launch_rs(x, ctx, sizes):
     world = x.shape[0]
     _check("reduce_scatter_torus", x, world, _build.DTYPE_CODES)
     m = x.shape[1] // world
     n = x[0, 0].numel()
-    nd, lanes, maxw, dims = _grid(sizes)
-    ms = _pieces(m, nd, x.dtype)
-    words = 1 + 2 * nd * lanes * (maxw - 1)
     inst = symmetric_buffers("reduce_scatter_torus", ctx.collective_id,
                              f"torus{tuple(sizes)}", x.dtype, world,
-                             x.device, words=words)
-    staging_cells, mid_cells = _rs_cells(nd, lanes, maxw)
-    staging = inst.buffer("staging", (staging_cells, ms * n), x.dtype)
-    local = inst.buffer("local", (staging_cells + mid_cells, ms * n),
-                        x.dtype)
+                             x.device, words=SUM_WORDS)
     out = torch.empty((world, m, *x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    blocks = ctypes.c_int(0)
-    lib = _build.load_library("torus", _SIGNATURES)
-    rc = lib.torus_reduce_scatter(
-        x.data_ptr(), out.data_ptr(), inst.peers(staging), local.data_ptr(),
-        inst.signal_peers(), nd, dims, words, _build.DTYPE_CODES[x.dtype], m,
-        ms, n, inst.epoch, *fault_args(ctx.straggler, ctx.for_correctness),
-        ctypes.byref(blocks), _stream(x))
-    _build.check(lib, rc, "reduce_scatter_torus kernel launch")
-    inst.advance(blocks.value)
+    scatter_sum(x, out, inst, rs_order(tuple(sizes)),
+                _pieces(m, len(sizes), x.dtype) * n, True, ctx.straggler,
+                ctx.for_correctness)
     reduce_scatter_torus.launches += 1
     return out
 

@@ -11,9 +11,12 @@ memory scope a template parameter.  What the host keeps for them lives here: eac
 instance's symmetric buffers and signal words, and its epoch.
 
 Signal words are monotonic counters that no call resets.  In every call of
-an instance each of its signal words receives the same multiple of P adds,
-P being the blocks a rank of that launch; the instance's ``epoch`` is the
-sum of P over its calls so far.  A kernel is handed the epoch before its
+an instance each of its signal words receives adds summing to the same
+multiple of P, P being the blocks a rank of that launch (one add from each
+block of its signallers, or, for the scatter-then-sum body of K16
+``scatter_reduce`` and K21b, one add of P from the one block that owns
+the word); the instance's ``epoch`` is the sum of P over its calls so
+far.  A kernel is handed the epoch before its
 call, adds its own P and waits for that multiple of the sum, so a signal of
 a later call cannot satisfy a wait early and no stale signal of an earlier
 call is left to clear.  With one process per GPU the same holds: each
@@ -25,8 +28,10 @@ pair keys its own instance.
 
 An instance has `SIGNAL_WORDS` words a rank unless its kernels need more:
 the torus kernels (``csrc/torus.cu``) give every (phase, lane, ring
-position) or (stage, lane, step) its own word, so no wait can be met by
-another lane's adds, and size their instances by their grid.  A kernel
+position) its own word, so no wait can be met by another lane's adds, and
+size their instances by their grid; the scatter-then-sum body gives every
+(source rank, block) its own word (`reduce_scatter.SUM_WORDS`), so a block
+waits only for the blocks that wrote its range.  A kernel
 that runs once per group of ranks (the hierarchical collectives launch the
 intra-slice kernel once a slice) keys one instance a group.
 """
