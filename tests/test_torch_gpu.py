@@ -316,26 +316,38 @@ def _bwd_inputs(cuda, dtype, b, h, hkv, sq, sk, d, causal, kv_offset, seed):
         (1, 4, 1, 77, 150, False, 0),       # non-causal, ragged both
         (1, 4, 2, 65, 65, True, 0),         # one row past a tile
         (1, 8, 2, 130, 130, True, -70),     # fully masked rows 0..69
+        (1, 8, 2, 129, 129, True, 0),       # one row / key past a stage
+        (1, 8, 2, 255, 255, True, 0),       # one short of two stages
+        (1, 8, 4, 128, 255, False, 0),      # stage edges, non-causal
+        (1, 8, 2, 255, 129, True, 128),     # ragged both, shifted
+        (4, 32, 8, 512, 512, True, 0),      # the training shape, group 4
+        (1, 8, 2, 2048, 2048, True, 2048),  # a ring step over shards of 2048
+        (1, 8, 2, 256, 512, True, 256),     # a shifted ring step
     ])
 def test_flash_backward_kernels(cuda, dtype, d, b, h, hkv, sq, sk, causal,
                                 kv_offset):
     """K4/K5 against the plain version on the same inputs (the forward's
     out and lse from K1), a nonzero lse cotangent included; fully masked
     rows get exactly zero dq; two runs are bit-identical; the pair counts
-    one launch, K4 and K5 one each."""
+    one launch, K4 and K5 one each, and one on the bf16 bodies
+    (``wgmma_launches``) in bf16 only."""
     q, k, v, out, lse, do = _bwd_inputs(cuda, dtype, b, h, hkv, sq, sk, d,
                                         causal, kv_offset, sq * 7 + sk + d)
     dlse = torch.randn(lse.shape, device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(5))
     counts = (flash_attention_backward.launches,
               flash_attention_backward.dq_launches,
-              flash_attention_backward.dkv_launches)
+              flash_attention_backward.dkv_launches,
+              flash_attention_backward.wgmma_launches)
     got = flash_attention_backward(q, k, v, out, lse, do, dlse,
                                    causal=causal, kv_offset=kv_offset)
+    bf16 = dtype == torch.bfloat16
     assert (flash_attention_backward.launches,
             flash_attention_backward.dq_launches,
-            flash_attention_backward.dkv_launches) == tuple(
-                n + 1 for n in counts)
+            flash_attention_backward.dkv_launches,
+            flash_attention_backward.wgmma_launches) == (
+                counts[0] + 1, counts[1] + 1, counts[2] + 1,
+                counts[3] + bf16)
     again = flash_attention_backward(q, k, v, out, lse, do, dlse,
                                      causal=causal, kv_offset=kv_offset)
     ref = flash_attention_backward_reference(

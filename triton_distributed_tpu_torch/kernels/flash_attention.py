@@ -9,7 +9,10 @@ is one hand-written CUDA kernel, K1 (``csrc/flash_attention.cu``).  The
 backward `flash_attention_backward` (`_flash_backward`: `_flash_bwd_dq_kernel`
 and `_flash_bwd_dkv_kernel`) is two, K4 (dq) and K5 (dk, dv), in
 ``csrc/flash_attention_bwd.cu``; `flash_attention_diff` joins them in a
-`torch.autograd.Function`.
+`torch.autograd.Function`.  In bf16 both run warp-specialised `wgmma` + TMA
+bodies over persistent blocks that take their items heaviest first
+(`bwd_items` writes that order in plain Python); f32 runs the CUDA-core
+kernels.
 
 On a CUDA tensor each wrapper launches its kernels or raises; on a CPU
 tensor it computes the plain version (`flash_attention_reference`,
@@ -41,6 +44,7 @@ _SIGNATURES = {
 _BWD_SIGNATURES = {
     "flash_attention_bwd_dq": [_P] * 9 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "flash_attention_bwd_hopper_launches": [],
 }
 
 
@@ -129,6 +133,87 @@ def _check(q, k, v):
     return b, h, sq, d
 
 
+#: K4's item: (query rows, keys of a K/V stage); K5's: (keys, query rows
+#: of a Q/dO stage).  The bf16 bodies' tiles (csrc/flash_attention_bwd.cu
+#: `Dq`, `Dkv`).  K4's two consumer warpgroups split an item's rows and
+#: share its stages; K5's share its keys and take its stages in turn.
+BWD_DQ_TILE = (128, 64)
+BWD_DKV_TILE = (64, 64)
+
+
+def bwd_items(which: str, b: int, h: int, hkv: int, sq: int, sk: int,
+              causal: bool = True, kv_offset: int = 0) -> list[tuple]:
+    """The items of K4 (``which="dq"``) or K5 (``"dkv"``) in the order the
+    bf16 bodies number them, which persistent blocks take in a snake
+    (`snake`), heaviest first.  Each is (batch, head, first row, stages):
+    - dq: (b, query head, first query row of 128, the K/V stages of 64 keys
+      up to the causal limit of the tile's last row); item it is query tile
+      nqt - 1 - it // (B H) of (batch, head) it % (B H);
+    - dkv: (b, KV head, first key of 64, the Q/dO stages: each query head
+      of the group times the visible query tiles of 64 rows); item it is
+      key tile it // (B Hkv) of (batch, KV head) it % (B Hkv).
+    The kernels compute the same counts (`Dq::item`, `Dkv::item`)."""
+    if which == "dq":
+        rows, keys = BWD_DQ_TILE
+        nqt = -(-sq // rows)
+        out = []
+        for it in range(nqt * b * h):
+            bh, qt = it % (b * h), nqt - 1 - it // (b * h)
+            q0 = qt * rows
+            last = min(q0 + rows, sq) - 1
+            if not causal:
+                n = -(-sk // keys)
+            else:
+                last_k = min(last + kv_offset, sk - 1)
+                n = 0 if last_k < 0 else last_k // keys + 1
+            out.append((bh // h, bh % h, q0, n))
+        return out
+    if which != "dkv":
+        raise ValueError(f"bwd_items: which {which!r} not in ('dq', 'dkv')")
+    keys, rows = BWD_DKV_TILE
+    group, nkt, nq = h // hkv, -(-sk // keys), -(-sq // rows)
+    out = []
+    for it in range(nkt * b * hkv):
+        bhk, k0 = it % (b * hkv), it // (b * hkv) * keys
+        qt0, n_q = 0, nq
+        if causal:
+            first = k0 - kv_offset  # the first query row that sees k0
+            qt0 = max(first, 0) // rows
+            n_q = 0 if first > sq - 1 else nq - qt0
+        out.append((bhk // hkv, bhk % hkv, k0, group * n_q))
+    return out
+
+
+def snake(n_items: int, blocks: int) -> list[list[int]]:
+    """The items each of ``blocks`` persistent blocks takes, in order: in
+    round r block j takes item r * P + j, or r * P + P - 1 - j in odd
+    rounds (csrc `item_of`), so with the items heaviest first every
+    block's sum of work is about even."""
+    taken = [[] for _ in range(blocks)]
+    for r in range(-(-n_items // blocks)):
+        for j in range(blocks):
+            it = r * blocks + (blocks - 1 - j if r % 2 else j)
+            if it < n_items:
+                taken[j].append(it)
+    return taken
+
+
+def bwd_balance(which: str, b: int, h: int, hkv: int, sq: int, sk: int,
+                causal: bool = True, kv_offset: int = 0,
+                sms: int = 132) -> tuple[int, float]:
+    """(the stage times of the busiest block, the mean over the blocks) for
+    one launch of K4 or K5 on ``sms`` SMs (one block each at most): the
+    critical path of the schedule against its mean.  A K4 stage keeps both
+    consumer warpgroups busy; K5's warpgroups take an item's stages in
+    turn, so an item of n stages takes ceil(n / 2) stage times."""
+    items = bwd_items(which, b, h, hkv, sq, sk, causal, kv_offset)
+    blocks = min(len(items), sms)
+    cost = ((lambda n: n) if which == "dq" else (lambda n: -(-n // 2)))
+    per = [sum(cost(items[it][3]) for it in taken)
+           for taken in snake(len(items), blocks)]
+    return max(per), sum(per) / blocks
+
+
 def flash_attention_backward_reference(q, k, v, out, lse, do, dlse=None, *,
                                        causal: bool = True,
                                        scale: Optional[float] = None,
@@ -182,9 +267,11 @@ def flash_attention_backward(q, k, v, out, lse, do, dlse=None, *,
     dlse (XLA code in the JAX package) in its prologue and computes dq; K5
     reads that delta and computes dk, dv.  K4 adds one to
     ``flash_attention_backward.dq_launches``, K5 one to ``.dkv_launches``,
-    and the pair one to ``.launches``.  The kernels take what K1 takes
-    (contiguous bf16 or f32, D in {64, 128}; lse, dlse f32); anything else
-    raises."""
+    and the pair one to ``.launches``; a pair whose kernels both reported
+    their bf16 bodies (the Hopper ``wgmma`` + TMA ones, which bf16 inputs
+    take; f32 takes the CUDA-core kernels, and nothing falls back) one to
+    ``.wgmma_launches``.  The kernels take what K1 takes (contiguous bf16
+    or f32, D in {64, 128}; lse, dlse f32); anything else raises."""
     kv_offset = operator.index(kv_offset)
     if q.device.type == "cpu":
         return flash_attention_backward_reference(
@@ -207,35 +294,41 @@ def flash_attention_backward(q, k, v, out, lse, do, dlse=None, *,
     scale = scale if scale is not None else d ** -0.5
     delta = torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _launch_bwd("dq", (q, k, v, do, out, lse, dlse, delta, dq), causal,
-                kv_offset, scale)
+    hopper = _launch_bwd("dq", (q, k, v, do, out, lse, dlse, delta, dq),
+                         causal, kv_offset, scale)
     flash_attention_backward.dq_launches += 1
-    _launch_bwd("dkv", (q, k, v, do, lse, delta, dk, dv), causal, kv_offset,
-                scale)
+    hopper &= _launch_bwd("dkv", (q, k, v, do, lse, delta, dk, dv), causal,
+                          kv_offset, scale)
     flash_attention_backward.dkv_launches += 1
     flash_attention_backward.launches += 1
+    if hopper:
+        flash_attention_backward.wgmma_launches += 1
     return dq, dk, dv
 
 
 flash_attention_backward.launches = 0
 flash_attention_backward.dq_launches = 0
 flash_attention_backward.dkv_launches = 0
+flash_attention_backward.wgmma_launches = 0
 
 
 def _launch_bwd(which, tensors, causal, kv_offset, scale):
     """Launch K4 (``which="dq"``; tensors q, k, v, do, out, lse, dlse or
     None, delta (written), dq) or K5 (``"dkv"``; q, k, v, do, lse, delta,
-    dk, dv) on checked CUDA tensors; counts nothing."""
+    dk, dv) on checked CUDA tensors; counts nothing.  Returns whether the
+    C entry launched its bf16 (Hopper) body."""
     q, k = tensors[:2]
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     lib = _build.load_library("flash_attention_bwd", _BWD_SIGNATURES)
+    before = lib.flash_attention_bwd_hopper_launches()
     rc = getattr(lib, f"flash_attention_bwd_{which}")(
         *(None if t is None else t.data_ptr() for t in tensors),
         _build.DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, int(causal),
         kv_offset, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, f"flash_attention_bwd_{which} kernel launch")
+    return lib.flash_attention_bwd_hopper_launches() > before
 
 
 class _FlashAttentionFn(torch.autograd.Function):
