@@ -114,7 +114,11 @@ non-zero):
    (``barrier_all_on_axis``, ``broadcast``): every method at world 2, 4
    and 8 in bf16 and f32 bit for bit against its plain version, on ragged
    and aligned shapes (the fallbacks taken), under a straggler rank and
-   for_correctness, and over 100 back-to-back calls each; the main path
+   for_correctness, and over 100 back-to-back calls each; K18 and K17
+   ``two_shot``, redesigned, over 100 more that alternate a small and a
+   large payload (P changes from call to call) at world 2, 4 and 8 on
+   ragged and aligned shapes, the broadcast's root cycling, a straggler
+   and for_correctness in some calls; the main path
    with exact launches: ``TPMLP(4096, 12288, mode="fused_ar")`` at world 4
    on 2048 and 4 rows (bit for bit against its plain version after the same
    bf16 partials, within 3x the xla layer's bf16 error of the fused and xla
@@ -123,8 +127,8 @@ non-zero):
    paged SP decode against world-1 decode, ``ops.reduce_scatter``,
    ``ops.broadcast`` and the barrier; times of every method at the
    fused_ar and SP payloads with bounds, plain versions and library
-   yardsticks (K16 ``scatter_reduce``, on its scatter-then-sum body,
-   beside the parent body's time from PERF.md), the ``auto`` sweep,
+   yardsticks (K16 ``scatter_reduce``, K17 ``two_shot`` and K18 beside
+   their parent bodies' times from PERF.md), the ``auto`` sweep,
    fused_ar against fused, SP decode against world-1 decode;
 14. EP path: expert parallelism at world 4 on Qwen3-30B-A3B's MoE widths
    (hidden 2048, 128 experts of 768, top 8; 32 experts a rank): K19
@@ -2389,6 +2393,19 @@ PARENT_RS_MS = {("K16", 4): 0.1062, ("K16", 8): 0.1865,
                 ("all_reduce_torus", (2, 2, 2)): 0.3729}
 
 
+#: K17 ``two_shot`` and K18 before their redesign, ms at 2048 x 4096 bf16 a
+#: rank at world 4 (PERF.md section 6: the parent's bodies in
+#: `scripts/torch_collectives_ab.py --ab`, run E, on an H100 80GB HBM3 at
+#: 700 W), printed beside this run's times.
+PARENT_K17_K18_MS = {"two_shot": 0.1254, "broadcast": 0.0633,
+                     "barrier": 0.0614}
+#: K18 and K17 ``two_shot`` over alternating payloads: (small, large) rows
+#: x columns a rank at world w, aligned and ragged (rows a multiple of w, as
+#: two-shot takes them).
+ALT_SHAPES = {"aligned": lambda w: ((w * 4, 64), (w * 64, 1024)),
+              "ragged": lambda w: ((w * 3, 77), (w * 37, 1001))}
+
+
 def collective_bound(op: str, world: int, shard_bytes: int):
     """The least time of one K15-K18 call on rank-stacked x of
     ``shard_bytes`` a rank and what sets it: each rank's input read once,
@@ -2563,6 +2580,40 @@ def collective_path(dev, card: str, counted, expect, short, records,
     print(f"[collective path] every method at world {w}: {TP_REPEATS} "
           f"back-to-back calls with fresh inputs, queued before any check: "
           f"bit for bit ok")
+    # K18 and K17 two_shot, redesigned: TP_REPEATS calls a case, payloads
+    # alternating so P changes from call to call, on one instance each.
+    t0, n_alt = time.perf_counter(), 0
+    for world in COLL_WORLDS:
+        for dtype in (bf16, f32):
+            for kind, shapes in ALT_SHAPES.items():
+                sizes = shapes(world)
+                for op, method in (("broadcast", None), ("barrier", None),
+                                   ("all_reduce", "two_shot")):
+                    outs = []
+                    for i in range(TP_REPEATS):
+                        x = randn(world, *sizes[i % 2], dtype=dtype)
+                        faults = ({"straggler": ((i // 10) % world, 200_000)}
+                                  if i % 10 == 0 else
+                                  {"for_correctness": True} if i % 7 == 0
+                                  else {})
+                        outs.append(call(op, method, world, x,
+                                         root_for(op, world, i), **faults))
+                    torch.cuda.synchronize()
+                    for got, plain in outs:
+                        check_exact(f"{op} {method or ''} {kind} world "
+                                    f"{world} {dtype} alternating", got,
+                                    plain())
+                    n_alt += len(outs)
+                    del outs
+    print(f"[collective path] K18 broadcast and barrier and K17 two_shot "
+          f"(redesigned): {n_alt} calls, {TP_REPEATS} back-to-back a case "
+          f"alternating a small and a large payload (at world 4: "
+          f"{ {k: v(4) for k, v in ALT_SHAPES.items()} }) at world "
+          f"{'/'.join(map(str, COLL_WORLDS))} in bf16 "
+          f"and f32, the broadcast's root cycling (an int and a device "
+          f"tensor), a straggler in every 10th call and for_correctness in "
+          f"every 7th: bit for bit equal to their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)")
     for nm in ("all_gather", "reduce_scatter", "all_reduce",
                "barrier_broadcast"):
         errs[nm] = 0.0
@@ -2792,15 +2843,26 @@ def collective_path(dev, card: str, counted, expect, short, records,
                   f"{times}; bound {bms:.4f} ms by {by}; plain {plain:.4f} "
                   f"ms; library ({lib_name}) {lib:.4f} ms; {card}")
             rows_by_op[(op, label)] = (ms, plain, bms, by, lib, lib_name)
-    t_rs = rows_by_op[("reduce_scatter", f"{FUSED_AR_ROWS[0]}x{h} bf16")]
+    m0 = f"{FUSED_AR_ROWS[0]}x{h} bf16"
+    t_rs = rows_by_op[("reduce_scatter", m0)]
     print(f"[collective path] K16 scatter_reduce on its scatter-then-sum "
           f"body at world {w}, {FUSED_AR_ROWS[0]} x {h} bf16 a rank: "
           f"{t_rs[0]['scatter_reduce']:.4f} ms against the parent body's "
           f"{PARENT_RS_MS[('K16', w)]:.4f} (PERF.md); ring "
           f"{t_rs[0]['ring']:.4f}; local sum {t_rs[4]:.4f}; {card}")
+    new_ms = {"two_shot": rows_by_op[("all_reduce", m0)][0]["two_shot"],
+              "broadcast": rows_by_op[("broadcast", m0)][0][None],
+              "barrier": rows_by_op[("barrier", m0)][0][None]}
+    libs = {"two_shot": rows_by_op[("all_reduce", m0)][4],
+            "broadcast": rows_by_op[("broadcast", m0)][4],
+            "barrier": rows_by_op[("barrier", m0)][4]}
+    print(f"[collective path] K17 two_shot and K18 redesigned, at world {w}, "
+          f"{FUSED_AR_ROWS[0]} x {h} bf16 a rank: " + "; ".join(
+              f"{op} {ms:.4f} ms against the parent body's "
+              f"{PARENT_K17_K18_MS[op]:.4f} (PERF.md), library "
+              f"{libs[op]:.4f}" for op, ms in new_ms.items()) + f"; {card}")
     # K15-K17 records: the method `auto` takes at the prefill payload;
     # K18's: the broadcast, the barrier's time beside it.
-    m0 = f"{FUSED_AR_ROWS[0]}x{h} bf16"
     auto = {"all_gather": AllGatherContext("tp", w).resolve_method(
                 FUSED_AR_ROWS[0] * h * 2).value,
             "reduce_scatter": ReduceScatterContext(

@@ -1395,6 +1395,62 @@ def test_barrier_and_broadcast_kernels(cuda, dtype, world):
         assert common_ops.method_launches[fn] == by_kernel.get(fn, 0) + world
 
 
+#: K18 and K17 ``two_shot`` over alternating payloads: (small, large) rows
+#: x columns a rank, aligned (16-byte rows: bulk copies) and ragged (rows
+#: and columns off every unit: thread copies); the rows a multiple of W for
+#: two-shot, which otherwise falls back to one-shot.
+REDESIGNED_SHAPES = {"aligned": lambda w: ((w * 4, 64), (w * 256, 1024)),
+                     "ragged": lambda w: ((w * 3, 77), (w * 37, 1001))}
+
+
+@pytest.mark.parametrize("shape", list(REDESIGNED_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("op", ["broadcast", "barrier", "two_shot"])
+def test_redesigned_collectives_back_to_back(cuda, op, world, dtype, shape):
+    """100 back-to-back calls of K18's broadcast or barrier or K17
+    ``two_shot`` on one instance, alternating a small payload (few blocks a
+    rank) and a large one (many), so P changes from call to call; the
+    broadcast's root cycling through every rank, as an int and as a 0-d
+    device tensor; a straggler rank in every 10th call and for_correctness
+    in every 7th; all queued before any check.  Each result equals its
+    plain version bit for bit; one launch a call, counted by kernel."""
+    from triton_distributed_tpu_torch.kernels import allreduce as ar
+    from triton_distributed_tpu_torch.kernels import common_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(world * 10 + len(shape))
+    sizes = REDESIGNED_SHAPES[shape](world)
+    ins = [_randn(gen, dtype, cuda, world, *sizes[i % 2]) for i in range(100)]
+    counts = lambda: (common_ops.launches,  # noqa: E731
+                      ar.all_reduce.method_launches["two_shot"])
+    before = counts()
+    runs = []
+    for i, x in enumerate(ins):
+        faults = ({"straggler": ((i // 10) % world, 200_000)} if i % 10 == 0
+                  else {"for_correctness": True} if i % 7 == 0 else {})
+        if op == "broadcast":
+            root = i % world
+            r = torch.tensor(root, device=cuda) if i % 2 else root
+            runs.append((common_ops.broadcast(x, r, "tp", world, **faults),
+                         lambda x=x, root=root:
+                         common_ops.broadcast_reference(x, root)))
+        elif op == "barrier":
+            runs.append((common_ops.barrier_all_on_axis(x, **faults),
+                         lambda x=x: x.clone()))
+        else:
+            ctx = ar.AllReduceContext("tp", world, "two_shot", **faults)
+            assert ar.resolve(x, ctx) == ar.AllReduceMethod.TWO_SHOT
+            runs.append((ar.all_reduce(x, ctx), lambda x=x:
+                         ar.all_reduce_reference(x, "two_shot")))
+    torch.cuda.synchronize()
+    got = tuple(a - b for a, b in zip(counts(), before))
+    assert got == ((0, 100) if op == "two_shot" else (100, 0)), got
+    for i, (out, plain) in enumerate(runs):
+        want = plain()
+        assert out.dtype == dtype and out.shape == want.shape
+        assert torch.equal(out, want), (op, world, shape, i)
+
+
 def test_sp_flash_decode_kernels(cuda):
     """SP decode at world 4 (one K2, K2q or K3 launch over every rank's
     shard, then one K15) against world-1 decode over the whole cache, on

@@ -9,8 +9,11 @@ row r being rank r's copy.  On the card the methods are:
 - ``"one_shot"``: one launch of ``csrc/all_reduce.cu`` (K17): every rank
   pushes its x to every rank, which sums them (`_one_shot_kernel`);
 - ``"two_shot"``: one K17 launch: partial chunks scattered to their owners,
-  summed, and the sums broadcast (`_two_shot_kernel`); one-shot when the
-  rows do not split over the ranks (allreduce.py :350-372);
+  summed, and the sums broadcast (`_two_shot_kernel`), on the
+  scatter-then-sum body that K16 ``scatter_reduce`` runs, with every block
+  waiting only for the blocks that wrote its range (`two_shot_plan` is the
+  plan); one-shot when the rows do not split over the ranks (allreduce.py
+  :350-372);
 - ``"chain"``: one K17 launch: running sums down the line to rank 0, the
   result back up, pipelined over `_chain_chunks` chunks; x itself at
   world 1, where there is nothing to reduce;
@@ -31,7 +34,8 @@ the sums.
 package's TPU ICI model: ``"one_shot"`` up to `ONE_SHOT_MAX_BYTES` of x a
 rank, else ``"two_shot"``: the crossover of ``chip_smoke.py``'s sweep at
 world 4 on an H100 80GB HBM3 at 700 W (PERF.md), one-shot leading up to
-256 KiB and two-shot from 512 KiB.  The chain, which the JAX rule takes
+128 KiB, the two even at 256 KiB (0.0120 ms each) and two-shot leading
+from 512 KiB (0.0119 against 0.0162).  The chain, which the JAX rule takes
 only on open topologies (NVLink and one card are closed), stays an
 explicit method, and so does the ring: the sweep never found either
 fastest.
@@ -56,17 +60,28 @@ from triton_distributed_tpu_torch.kernels.allgather import (
     AllGatherContext, AllGatherMethod, _check, all_gather,
     all_gather_reference)
 from triton_distributed_tpu_torch.kernels.reduce_scatter import (
-    ReduceScatterContext, ReduceScatterMethod, reduce_scatter,
+    SUM_WORDS, ReduceScatterContext, ReduceScatterMethod, reduce_scatter,
     reduce_scatter_reference, sum_in_rank_order)
 from triton_distributed_tpu_torch.language.core import (
-    fault_args, symmetric_buffers)
+    MAX_BLOCKS, fault_args, owned_words, share, symmetric_buffers)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
-_SIGNATURES = {"all_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U64, _I,
-                              _U64, _I, ctypes.c_longlong, _I,
-                              ctypes.POINTER(_I), _P]}
+_FAULTS = [_I, ctypes.c_longlong, _I, ctypes.POINTER(_I), _P]
+_SIGNATURES = {
+    "all_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U64, _I, _U64]
+    + _FAULTS,
+    "all_reduce_two_shot": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U64, _U64]
+    + _FAULTS,
+}
+
+#: Signal words a rank of ``"two_shot"`` (``csrc/scatter_sum.cuh``
+#: TWO_SHOT_WORDS): the scatter-then-sum body's SUM_WORDS (the barrier and
+#: local words, then a bank of MAX_BLOCKS words for each of up to 8 source
+#: ranks), then a second such bank from OUT_WORD on, for the sums' arrival.
+OUT_WORD = SUM_WORDS
+TWO_SHOT_WORDS = OUT_WORD + 8 * MAX_BLOCKS
 
 
 class AllReduceMethod(enum.Enum):
@@ -78,9 +93,9 @@ class AllReduceMethod(enum.Enum):
     XLA = "xla"
 
 
-#: The kernel's method codes (csrc/all_reduce.cu).
-_CODES = {AllReduceMethod.ONE_SHOT: 0, AllReduceMethod.TWO_SHOT: 1,
-          AllReduceMethod.CHAIN: 2}
+#: The kernel's method codes (csrc/all_reduce.cu `all_reduce`; two-shot
+#: has its own entry).
+_CODES = {AllReduceMethod.ONE_SHOT: 0, AllReduceMethod.CHAIN: 2}
 
 #: "auto" takes one-shot up to this many bytes of x a rank, else two-shot
 #: (the crossover of chip_smoke.py's sweep on an H100, PERF.md).
@@ -159,6 +174,61 @@ def all_reduce_reference(x, method="one_shot"):
     return total.expand(world, *total.shape).clone()
 
 
+def two_shot_plan(elems: int, world: int, blocks: int,
+                  bank: int = MAX_BLOCKS):
+    """The plan of one ``"two_shot"`` call on every rank's x of ``elems``
+    elements (W chunks of ``elems // world``), ``blocks`` (P) blocks a rank
+    of at most ``bank`` (the most a launch of the kernel can have), as
+    ``csrc/scatter_sum.cuh`` `scatter_sum_kernel<T, false, 1, true>` runs
+    it: {(rank, block): [event, ..]} in program order, each event
+
+    - ``("add", [(rank, word, amount), ..])``: adds to signal words;
+    - ``("wait", [(word, target), ..])``: until each of the rank's words
+      holds its target (this call's, from an instance at epoch 0);
+    - ``("copy", src, [dst, ..], n)``: ``n`` elements from ``src`` to every
+      ``dst``, each ``(buffer, rank, offset)`` of "x", "rbuf" or "out";
+    - ``("sum", [src, ..], [dst, ..], n)``: the sources summed in their
+      order into every destination.
+
+    The entry barrier is every block's add to each peer's word 0; block b
+    of rank r copies its `block_range` (16-byte units: 8 elements) of each
+    foreign chunk c into slot r of rank c's rbuf, adds P to its words of the
+    first bank at each of those ranks, waits for word (s, b) from each
+    other source, sums its range in rank order (its own partial from x) into
+    chunk r of every rank's out, then does the same with the second bank.
+    The plan is the same whether the copies are bulk or the threads' and
+    the sums go through slabs or registers."""
+    chunk = elems // world
+    plan = {}
+    for r in range(world):
+        for b in range(blocks):
+            lo, hi = share(chunk, 8, b, blocks)
+            n = hi - lo
+            ev = [("add", [(q, 0, 1) for q in range(world) if q != r]),
+                  ("wait", [(0, (world - 1) * blocks)])]
+            for j in range(1, world):
+                c = (r + j) % world
+                ev.append(("copy", ("x", r, c * chunk + lo),
+                           [("rbuf", c, r * chunk + lo)], n))
+            banks = [(r + 1 + i) % world for i in range(world - 1)]
+            ev.append(("add", [(q, 2 + r * MAX_BLOCKS + g, blocks)
+                               for q in banks
+                               for g in owned_words(b, blocks, bank)]))
+            ev.append(("wait", [(2 + s * MAX_BLOCKS + b, blocks)
+                                for s in range(world) if s != r]))
+            srcs = [("x", r, r * chunk + lo) if s == r
+                    else ("rbuf", r, s * chunk + lo) for s in range(world)]
+            ev.append(("sum", srcs, [("out", q, r * chunk + lo)
+                                     for q in range(world)], n))
+            ev.append(("add", [(q, OUT_WORD + r * MAX_BLOCKS + g, blocks)
+                               for q in banks
+                               for g in owned_words(b, blocks, bank)]))
+            ev.append(("wait", [(OUT_WORD + s * MAX_BLOCKS + b, blocks)
+                                for s in range(world) if s != r]))
+            plan[(r, b)] = ev
+    return plan
+
+
 def all_reduce(x, ctx: AllReduceContext):
     """Sum the rank-stacked partials x (W, m, n) on every rank -> (W, m, n).
     The kernels take contiguous bf16 or f32 on a CUDA device, at most 8
@@ -197,14 +267,16 @@ def _launch(x, ctx, method):
     _check("all_reduce", x, world, _build.DTYPE_CODES)
     elems = x[0].numel()
     chunks = _chain_chunks(m) if method == AllReduceMethod.CHAIN else 1
+    two_shot = method == AllReduceMethod.TWO_SHOT
     # The chain's reduce and broadcast words depend on its chunk count:
     # one instance a count keeps every word's adds the same in every call.
     key = method.value + (f"/{chunks}" if chunks > 1 else "")
-    inst = symmetric_buffers("all_reduce", ctx.collective_id, key, x.dtype,
-                             world, x.device)
+    inst = symmetric_buffers(
+        "all_reduce", ctx.collective_id, key, x.dtype, world, x.device,
+        **({"words": TWO_SHOT_WORDS} if two_shot else {}))
     if method == AllReduceMethod.ONE_SHOT:
         buf = inst.buffer("rbuf", (world, elems), x.dtype)
-    elif method == AllReduceMethod.TWO_SHOT:
+    elif two_shot:
         buf = inst.buffer("rbuf", (world, elems // world), x.dtype)
     else:
         buf = inst.buffer("staging", (elems,), x.dtype)
@@ -213,11 +285,19 @@ def _launch(x, ctx, method):
     out = torch.empty_like(x)
     blocks = ctypes.c_int(0)
     lib = _build.load_library("all_reduce", _SIGNATURES)
-    rc = lib.all_reduce(
-        x.data_ptr(), inst.peers(out), inst.peers(buf), inst.signal_peers(),
-        world, 0, world, _CODES[method], _build.DTYPE_CODES[x.dtype], elems,
-        chunks, inst.epoch, *fault_args(ctx.straggler, ctx.for_correctness),
-        ctypes.byref(blocks), torch.cuda.current_stream(x.device).cuda_stream)
+    tail = (inst.epoch, *fault_args(ctx.straggler, ctx.for_correctness),
+            ctypes.byref(blocks),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if two_shot:
+        rc = lib.all_reduce_two_shot(
+            x.data_ptr(), inst.peers(out), inst.peers(buf),
+            inst.signal_peers(), inst.words, world, 0, world,
+            _build.DTYPE_CODES[x.dtype], elems // world, *tail)
+    else:
+        rc = lib.all_reduce(
+            x.data_ptr(), inst.peers(out), inst.peers(buf),
+            inst.signal_peers(), world, 0, world, _CODES[method],
+            _build.DTYPE_CODES[x.dtype], elems, chunks, *tail)
     _build.check(lib, rc, f"all_reduce ({method.value}) kernel launch")
     inst.advance(blocks.value)
     all_reduce.launches += 1

@@ -3,13 +3,15 @@ common_ops.py` `barrier_all_on_axis` :38 and `broadcast` :71).
 
 The operands are rank-stacked (`parallel.mesh`), x (W, ...).  On the card
 each is one launch of ``csrc/common_ops.cu`` (K18) over every rank:
-`barrier_all_on_axis` waits until every rank has arrived, then copies each
-rank's x to its output (JAX `_barrier_kernel`: the copy is the data
-dependency that orders what follows); `broadcast` gives every rank the x
-of rank ``root`` (`_broadcast_kernel` over `dl.emit_broadcast`).  The root
-may be a Python int or a 0-d integer tensor: on the card it is read from
-device memory in every call, so a root that changes from call to call
-changes no kernel.  Both copy bytes: every dtype is exact.
+`barrier_all_on_axis` returns each rank's x copied once every rank has
+arrived (JAX `_barrier_kernel`: the copy is the data dependency that
+orders what follows; the kernel copies while the ranks arrive); `broadcast`
+gives every rank the x of rank ``root`` (`_broadcast_kernel` over
+`dl.emit_broadcast`), each of the root's blocks reading its share of x
+once and storing it into every rank's output (`broadcast_plan` is the
+plan).  The root may be a Python int or a 0-d integer tensor: on the card
+it is read from device memory in every call, so a root that changes from
+call to call changes no kernel.  Both copy bytes: every dtype is exact.
 
 The keyword arguments ``straggler`` and ``for_correctness`` are the other
 collectives' fault injection, which the JAX wrappers of these two do not
@@ -33,14 +35,20 @@ from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.allgather import _check
 from triton_distributed_tpu_torch.language.core import (
-    fault_args, symmetric_buffers)
+    MAX_BLOCKS, fault_args, owned_words, share, symmetric_buffers)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _TAIL = [_U64, _U64, _I, ctypes.c_longlong, _I, ctypes.POINTER(_I), _P]
 _SIGNATURES = {"barrier_all_on_axis": [_P, _P, _P, _I, _I, _I] + _TAIL,
-               "broadcast": [_P, _P, _P, _P, _I, _I, _I] + _TAIL}
+               "broadcast": [_P, _P, _P, _P, _I, _I, _I, _I] + _TAIL}
+
+#: The broadcast's signal words a rank (``csrc/common_ops.cu``
+#: BROADCAST_WORDS): the barrier word, the local word, then an arrival bank
+#: of MAX_BLOCKS words (one a block of the root).
+ARRIVAL_WORD = 2
+BROADCAST_WORDS = ARRIVAL_WORD + MAX_BLOCKS
 
 #: K18's launches, both kernels, and by kernel.
 launches = 0
@@ -57,6 +65,54 @@ def broadcast_reference(x, root):
     of x[root]."""
     src = x[int(root)]
     return src.expand(x.shape[0], *src.shape).clone()
+
+
+def barrier_plan(nbytes: int, world: int, blocks: int):
+    """The plan of one barrier call on every rank's ``nbytes``, ``blocks``
+    (P) blocks a rank, as ``csrc/common_ops.cu`` `barrier_kernel` runs it, in
+    the events of `allreduce.two_shot_plan` ("x" and "out" buffers): block 0
+    adds P to each peer's word 0 (`dl::team_arrive`), every block copies its
+    share of x (16-byte units; bulk copies from a share of 64 KiB on, else
+    the threads') into its rank's out, then waits for (W - 1) P on word
+    0."""
+    plan = {}
+    for r in range(world):
+        for b in range(blocks):
+            lo, hi = share(nbytes, 16, b, blocks)
+            plan[(r, b)] = [
+                ("add", [(q, 0, blocks) for q in range(world)
+                         if q != r and b == 0]),
+                ("copy", ("x", r, lo), [("out", r, lo)], hi - lo),
+                ("wait", [(0, (world - 1) * blocks)])]
+    return plan
+
+
+def broadcast_plan(nbytes: int, world: int, root: int, blocks: int,
+                   bank: int = MAX_BLOCKS):
+    """The plan of one broadcast call from rank ``root`` on every rank's
+    ``nbytes``, ``blocks`` (P) blocks a rank of at most ``bank`` (the most a
+    launch of the kernel can have), as ``csrc/common_ops.cu``
+    `broadcast_kernel` runs it, in the events of `allreduce.two_shot_plan`:
+    the team barrier on word 0; block b of the root copies its share of x
+    (16-byte units) into every rank's out and adds P to its words of the
+    arrival bank at every rank, its own too; block b of every rank waits for
+    word b of that bank."""
+    plan = {}
+    for r in range(world):
+        for b in range(blocks):
+            ev = [("add", [(q, 0, blocks) for q in range(world)
+                           if q != r and b == 0]),
+                  ("wait", [(0, (world - 1) * blocks)])]
+            if r == root:
+                lo, hi = share(nbytes, 16, b, blocks)
+                ev.append(("copy", ("x", r, lo),
+                           [("out", q, lo) for q in range(world)], hi - lo))
+                ev.append(("add", [(q, ARRIVAL_WORD + g, blocks)
+                                   for q in range(world)
+                                   for g in owned_words(b, blocks, bank)]))
+            ev.append(("wait", [(ARRIVAL_WORD + b, blocks)]))
+            plan[(r, b)] = ev
+    return plan
 
 
 def barrier_all_on_axis(x, axis: str = "tp", *,
@@ -112,15 +168,19 @@ def broadcast(x, root, axis: str, world_size: int, *,
 def _launch(fn, x, out, root, collective_id, straggler, for_correctness):
     global launches
     world = x.shape[0]
+    bcast = root is not None
     inst = symmetric_buffers(fn, collective_id, "", x.dtype, world,
-                             x.device)
+                             x.device,
+                             **({"words": BROADCAST_WORDS} if bcast else {}))
     blocks = ctypes.c_int(0)
     lib = _build.load_library("common_ops", _SIGNATURES)
     head = [x.data_ptr(), inst.peers(out)]
-    if root is not None:
-        head.append(root.data_ptr())
+    if bcast:
+        head += [root.data_ptr(), inst.signal_peers(), inst.words]
+    else:
+        head.append(inst.signal_peers())
     rc = getattr(lib, fn)(
-        *head, inst.signal_peers(), world, 0, world,
+        *head, world, 0, world,
         x[0].numel() * x.element_size(), inst.epoch,
         *fault_args(straggler, for_correctness), ctypes.byref(blocks),
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -13,7 +13,7 @@
 //   reduce_scatter.cu);
 // - `reduce_sum`: port of reduce_scatter.py `_emit_reduce_sum` (:94), the
 //   f32 sum over the ranks' partials in rank order 0 .. W-1, cast to the
-//   output type (`reduce_sum_to` stores it to several ranks at once);
+//   output type;
 // - `add_into`: port of reduce_scatter.py `emit_add_into` (:120), one
 //   f32 add of two chunks rounded to their type, over a block's range;
 // - `Crew` and the crew forms `emit_ag_ring_forward` (the ring's copies
@@ -23,13 +23,19 @@
 //   communicate while the others compute;
 // - `Faults` and `inject_faults`: the contexts' straggler and
 //   for_correctness knobs (language/core.py :304, :331);
-// - `launch_cooperative`: the launch of every collective kernel.
+// - `launch_cooperative`: the launch of every collective kernel;
+// - `Staging` and `bulk_runs`: bulk copies (`cp.async.bulk` global ->
+//   shared -> global) through a few shared buffers, issued by one thread
+//   of a block, and `signal_blocks`, the arrival words paired by range of
+//   the bodies with a word a block (K16, K17 `two_shot`, K18 broadcast,
+//   K21b).
 // Every block of a rank calls them with its share (blockIdx.x of
 // gridDim.x).
 #pragma once
 
 #include "common.cuh"
 #include "dl.cuh"
+#include "mbarrier.cuh"
 
 namespace tdt {
 namespace comm {
@@ -77,17 +83,15 @@ __device__ __forceinline__ float load1_cg(const float* p) {
   return __ldcg(p);
 }
 
-// outs[o][i] = sum over w = 0 .. world-1 of src[w * elems + i] for each
-// of the ``nouts`` destinations, each term widened to f32 and added in
-// that order, the sum cast to T: block ``part`` of ``parts`` takes its
-// share of the elements.
+// out[i] = sum over w = 0 .. world-1 of src[w * elems + i], each term
+// widened to f32 and added in that order, the sum cast to T: block
+// ``part`` of ``parts`` takes its share of the elements.
 template <typename T>
-__device__ __forceinline__ void reduce_sum_to(const T* src, T* const* outs,
-                                              int nouts, int world,
-                                              size_t elems, int part,
-                                              int parts) {
-  uintptr_t align = reinterpret_cast<uintptr_t>(src);
-  for (int o = 0; o < nouts; ++o) align |= reinterpret_cast<uintptr_t>(outs[o]);
+__device__ __forceinline__ void reduce_sum(const T* src, T* out, int world,
+                                           size_t elems, int part,
+                                           int parts) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(src) |
+                          reinterpret_cast<uintptr_t>(out);
   const bool vec = elems % 8 == 0 && align % 16 == 0;
   const size_t unit = vec ? 8 : 1;
   const size_t units = elems / unit;
@@ -104,22 +108,13 @@ __device__ __forceinline__ void reduce_sum_to(const T* src, T* const* outs,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[j] = acc[j] + v[j];
       }
-      for (int o = 0; o < nouts; ++o) store8(outs[o] + i * 8, acc);
+      store8(out + i * 8, acc);
     } else {
       float acc = load1_cg(src + i);
       for (int w = 1; w < world; ++w) acc = acc + load1_cg(src + w * elems + i);
-      for (int o = 0; o < nouts; ++o) store1(outs[o] + i, acc);
+      store1(out + i, acc);
     }
   }
-}
-
-// out[i] = sum over w of src[w * elems + i] (`reduce_sum_to` with one
-// destination).
-template <typename T>
-__device__ __forceinline__ void reduce_sum(const T* src, T* out, int world,
-                                           size_t elems, int part,
-                                           int parts) {
-  reduce_sum_to(src, &out, 1, world, elems, part, parts);
 }
 
 // The elements [lo, hi) of a chunk that block ``part`` of ``parts`` owns:
@@ -131,14 +126,22 @@ struct Range {
   size_t lo, hi;
 };
 
+// The part [lo, hi) of ``n`` that ``part`` of ``parts`` owns: whole
+// ``unit``s, the share rounded up (the last parts may be empty), the last
+// part also the tail past the last whole unit.
+__device__ __forceinline__ Range share(size_t n, size_t unit, int part,
+                                       int parts) {
+  const size_t units = n / unit;
+  const size_t each = (units + parts - 1) / parts;
+  const size_t a = (size_t)part * each, b = a + each;
+  Range r{(a < units ? a : units) * unit, (b < units ? b : units) * unit};
+  if (part == parts - 1) r.hi = n;
+  return r;
+}
+
 __device__ __forceinline__ Range block_range(size_t elems, int part,
                                              int parts) {
-  const size_t units = elems / 8;
-  const size_t share = (units + parts - 1) / parts;
-  const size_t a = (size_t)part * share, b = a + share;
-  Range r{(a < units ? a : units) * 8, (b < units ? b : units) * 8};
-  if (part == parts - 1) r.hi = elems;
-  return r;
+  return share(elems, 8, part, parts);
 }
 
 // dst[i] = T(float(a[i]) + float(b[i])) over ``r`` (dst may alias a): the
@@ -188,14 +191,22 @@ __device__ __forceinline__ void inject_faults(const dl::Team& t,
 //: Threads of a collective block.
 constexpr int COMM_THREADS = 256;
 
+//: Blocks a rank at most of a body with an arrival word a block: the words
+//: a source rank owns in one bank at each destination.
+constexpr int MAX_BLOCKS = 256;
+
 // One cooperative launch of ``fn`` with P blocks a rank for ``ranks``
 // ranks (gridDim = (P, ranks)): P is ``want`` (at least 1), at most as
 // many as can be resident together with every other rank's, so a block
 // that spins on a peer never starves it; a grid that cannot be resident
 // is refused.  P goes to ``*blocks``.  ``smem``: dynamic shared memory a
-// block (at most 48 KB).  Returns a cudaError_t code.
+// block (at most 48 KB).  ``bank`` (a field of the arguments, or null): set
+// before the launch to the most blocks a rank any launch of ``fn`` at this
+// world can have, at most MAX_BLOCKS (the words of a bank that
+// `signal_blocks` keeps).  Returns a cudaError_t code.
 inline int launch_cooperative(void* fn, void** args, int ranks, int want,
-                              int* blocks, cudaStream_t s, size_t smem = 0) {
+                              int* blocks, cudaStream_t s, size_t smem = 0,
+                              int* bank = nullptr) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -206,6 +217,7 @@ inline int launch_cooperative(void* fn, void** args, int ranks, int want,
   if (e != cudaSuccess) return (int)e;
   const int fit = occ * sms / ranks;
   if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (bank != nullptr) *bank = fit < MAX_BLOCKS ? fit : MAX_BLOCKS;
   const int P = want < 1 ? 1 : (want < fit ? want : fit);
   *blocks = P;
   return (int)cudaLaunchCooperativeKernel(fn, dim3(P, ranks),
@@ -216,6 +228,135 @@ inline int launch_cooperative(void* fn, void** args, int ranks, int want,
 inline int blocks_for(size_t bytes) {
   const size_t p = (bytes + (32u << 10) - 1) / (32u << 10);
   return p > 4096 ? 4096 : (int)p;
+}
+
+// ---- bulk copies and arrival words paired by range ----------------------
+
+//: The bulk copies' staging: STAGE_BUFS shared buffers of STAGE_BYTES, the
+//: dynamic shared memory of a block (STAGE_SMEM).
+constexpr int STAGE_BUFS = 4;
+constexpr unsigned STAGE_BYTES = 8192;
+constexpr size_t STAGE_SMEM = STAGE_BUFS * STAGE_BYTES;
+
+// A block's staging: the buffers, a transaction barrier a buffer, and the
+// pieces they have carried so far (piece j goes through buffer j %
+// STAGE_BUFS in its barrier's phase j / STAGE_BUFS), so one thread may run
+// `bulk_runs` several times a call.
+struct Staging {
+  uint8_t* buf;
+  uint64_t* bar;
+  unsigned pieces;
+};
+
+// Thread 0 initialises the barriers; the block syncs.
+__device__ __forceinline__ Staging staging(uint8_t* buf, uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < STAGE_BUFS; ++k) mbar_init(&bar[k], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return Staging{buf, bar, 0};
+}
+
+// Pieces of STAGE_BYTES that ``bytes`` take.
+__device__ __forceinline__ unsigned pieces(size_t bytes) {
+  return (unsigned)((bytes + STAGE_BYTES - 1) / STAGE_BYTES);
+}
+
+// One thread's bulk copies (`cp.async.bulk` global -> shared -> global) of
+// ``runs`` runs: run k's ``len(k)`` bytes are read once from ``src(k)`` and
+// stored to ``dst(k, d)`` for every d < ``fan``, in ``per`` pieces of
+// STAGE_BYTES a run (pieces past a run's end carry nothing); lengths and
+// addresses are multiples of 16.  Every buffer's load is in flight before
+// the first store, and a buffer is loaded again once the stores before
+// last have read it.  The stores are performed and fenced against the
+// generic proxy before it returns, so a release that follows covers them.
+// A bulk store's destination is any global address: a peer's buffer
+// mapped over NVLink included.
+template <class Len, class Src, class Dst>
+__device__ __forceinline__ void bulk_runs(Staging& s, unsigned runs,
+                                          unsigned per, int fan, Len len,
+                                          Src src, Dst dst) {
+  const unsigned n = runs * per;
+  auto bytes = [&](unsigned i) {
+    const unsigned l = len(i / per), off = i % per * STAGE_BYTES;
+    return off < l ? min(STAGE_BYTES, l - off) : 0u;
+  };
+  auto load = [&](unsigned i) {
+    const unsigned k = (s.pieces + i) % STAGE_BUFS, b = bytes(i);
+    mbar_expect_tx(&s.bar[k], b);
+    if (b)
+      bulk_load(s.buf + k * STAGE_BYTES,
+                src(i / per) + i % per * STAGE_BYTES, b, &s.bar[k]);
+  };
+  for (unsigned i = 0; i < n && i < STAGE_BUFS; ++i) load(i);
+  for (unsigned i = 0; i < n; ++i) {
+    const unsigned j = s.pieces + i, k = j % STAGE_BUFS, b = bytes(i);
+    mbar_wait(&s.bar[k], (j / STAGE_BUFS) & 1);
+    if (b)
+      for (int d = 0; d < fan; ++d)
+        bulk_store(dst(i / per, d) + i % per * STAGE_BYTES,
+                   s.buf + k * STAGE_BYTES, b);
+    bulk_commit();
+    const unsigned next = i - 1 + STAGE_BUFS;  // piece i - 1's buffer
+    if (i > 0 && next < n) {
+      bulk_wait_read<1>();
+      load(next);
+    }
+  }
+  s.pieces += n;
+  bulk_wait_all();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The block's copy of ``bytes`` from ``src`` into ``dst(d)`` for every d <
+// ``fan``: with ``bulk`` (addresses and bytes multiples of 16) by thread 0's
+// bulk copies through ``s``, else by every thread (`dl::put_nbi`, 16-, 4- or
+// 1-byte units).  No fence or sync after it.
+template <class Dst>
+__device__ __forceinline__ void copy_fan(Staging& s, bool bulk,
+                                         const char* src, size_t bytes,
+                                         int fan, Dst dst) {
+  if (!bulk) {
+    for (int d = 0; d < fan; ++d) dl::put_nbi(dst(d), src, bytes, 0, 1);
+    return;
+  }
+  if (threadIdx.x == 0)
+    bulk_runs(s, 1, pieces(bytes), fan, [&](unsigned) {
+      return (unsigned)bytes; }, [&](unsigned) { return src; },
+      [&](unsigned, int d) { return dst(d); });
+}
+
+// Arrival paired by range: this block adds P (gridDim.x) to each word it
+// owns, b, b + P, .. < ``words``, of each of ``banks`` banks (``bank(i)``
+// the i-th bank's word 0), so every word of a bank receives adds summing
+// to P in every call whatever P is, and a wait's target stays the epoch
+// plus this call's P.  ``words``: the most blocks a rank any launch of the
+// kernel can have (`launch_cooperative`'s ``bank``), the same in every
+// call of an instance.  The block's stores come first, fenced, then a
+// sync; each thread fences again and its adds are relaxed (the fence and
+// the adds are a release pattern, cumulative over what the sync showed it).
+template <class Bank>
+__device__ __forceinline__ void signal_blocks(int banks, int words,
+                                              Bank bank) {
+  const int b = blockIdx.x, P = gridDim.x;
+  const int owned = (words - 1 - b) / P + 1;
+  if (threadIdx.x < banks * owned) dl::fence<dl::Scope::gpu>();
+  for (int i = threadIdx.x; i < banks * owned; i += blockDim.x)
+    dl::red_relaxed_add<dl::Scope::gpu>(bank(i / owned) + b + i % owned * P,
+                                        (u64)P);
+}
+
+// Block b waits until word b of the bank ``bank(i)`` holds ``target`` for
+// every i < ``n`` but ``skip``: the blocks that wrote its own range, not
+// all P of every source.  Thread i spins on bank i; the block syncs.
+template <class Bank>
+__device__ __forceinline__ void wait_blocks(int n, int skip, Bank bank,
+                                            u64 target, int what) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    if (i != skip)
+      dl::signal_wait_until(bank(i) + blockIdx.x, target, what);
+  __syncthreads();
 }
 
 // One-shot push all-gather: this rank's ``bytes``-byte shard goes to slot

@@ -128,6 +128,7 @@ enum Wait : int {
   WAIT_AG_GROUP_GEMM_FORWARD,     //: ag_group_gemm ring forward
   WAIT_AG_GROUP_GEMM_LOAD,        //: ag_group_gemm arrival (TMA loads)
   WAIT_SCATTER_SUM,               //: reduce-scatter scatter-then-sum arrival
+  WAIT_TEAM_BARRIER,              //: team barrier (one add a peer a rank)
 };
 
 // The record (kernels/_build.py `_SpinRecord` mirrors it).

@@ -7,21 +7,46 @@
 //   the entry barrier, then `dl.emit_broadcast`, language/core.py :247).
 //   Layouts are the JAX wrappers' per rank: x_r and out_r of ``bytes``.
 //
-// What bounds it on the H100: the barrier's round trip of signals (a few
-// microseconds) and the copy of x (bytes); the broadcast's bytes, the
-// root's x read once and written into W outputs, each a copy inside one
-// HBM on one card.
+// What bounds it on the H100: bytes.  The barrier copies each rank's x
+// into its out (its round trip of signals is a few microseconds); the
+// broadcast reads the root's x and writes it into W outputs, each a copy
+// inside one HBM on one card.
 //
-// Design (a first kernel that is right).  One cooperative launch holds
-// every rank's blocks (`dl.cuh`).  `barrier_all` has every block signal
-// every peer once and wait for all of theirs, then the blocks share the
-// copy.  The broadcast reads its root from device memory in every call
-// (a 0-d int32 tensor: the kernel is not specialised on it), runs the
-// entry barrier, then the root's blocks push x into every rank's out and
-// add one to every rank's arrival word, its own too, so each word sees the
-// same adds whichever rank is the root; every rank waits on its word.  A
-// root outside the team traps at once instead of leaving the others
-// waiting.
+// Design (redesigned for Hopper).  One cooperative launch holds every
+// rank's P blocks (`dl.cuh`).  Copies are bulk copies (`cp.async.bulk`
+// global -> shared -> global, `comm::bulk_runs`) through 4 x 8 KB of shared
+// memory, issued by one thread a block; x off 16 bytes takes the threads'
+// copies of `dl::put_nbi`.
+// - The team barrier takes one add of P from block 0 of each rank to each
+//   peer's word (`dl::team_arrive`): W (W - 1) remote adds a call, not
+//   W (W - 1) P.
+// - `barrier_kernel`: the arrival, then the block's share of the copy of x
+//   (bulk copies from a share of BARRIER_BULK_MIN on, else the threads'),
+//   then the wait, so the copy runs while the ranks arrive.  No rank's
+//   kernel ends before every rank has arrived; the function is the JAX
+//   kernel's, which waits, then copies.
+// - `broadcast_kernel`: the root's blocks copy, each reading its share of
+//   x into shared memory once and bulk-storing it into all W outputs, its
+//   own included.  The root is read from device memory in every call (a
+//   0-d int32 tensor: the kernel is not specialised on it); a root outside
+//   the team traps at once instead of leaving the others waiting.  After
+//   the team barrier, block b of the root, its stores done, adds P to its
+//   words b, b + P, .. of the arrival bank at every rank, its own too
+//   (`comm::signal_blocks`), so every word receives adds summing to P in
+//   every call whichever rank is the root and whatever P is; block b of
+//   every rank waits only for word b (the root's block b, which wrote its
+//   part of the rank's out).  On an H100 80GB HBM3 at 700 W this form beat
+//   a scatter of the root's chunks followed by an all-gather of them (every
+//   rank's blocks copying, the root reading x once and sending it once) at
+//   every payload measured, 0.0474 against 0.0507 ms at 4 x 2048 x 4096
+//   bf16 a rank and 0.0104 against 0.0166 at 4 x 64 x 1024 (PERF.md,
+//   `scripts/torch_collectives_ab.py --variants` `gather`): on one card the
+//   gather's second hop costs more than the root's W - 1 extra stores.  On
+//   a real node the root's link would carry x W - 1 times (not measured).
+//   The first body (the root's blocks pushing x into every out by thread
+//   copies, every block of every rank adding to each peer's barrier word)
+//   took 0.0636 ms at 4 x 2048 x 4096 (0.0777 in PERF.md's earlier runs),
+//   the barrier 0.0615.
 
 #include "comm_body.cuh"
 
@@ -29,60 +54,102 @@ namespace {
 
 using dl::u64;
 namespace comm = tdt::comm;
+using comm::MAX_BLOCKS;
+
+//: The broadcast's words a rank: the barrier word, the local word, then
+//: the arrival bank (word g: the root's block g delivered).
+constexpr int BROADCAST_WORDS = dl::ARRIVAL_WORD + MAX_BLOCKS;
+//: The barrier's copy: bulk copies for a block's share of at least this
+//: many bytes, else the threads' (on an H100 80GB HBM3 at 700 W a 32 KiB
+//: share took 0.0040 ms by the threads against 0.0046 by bulk copies, a 72
+//: KiB share 0.0589 against 0.0578 at 4 x 2048 x 4096: PERF.md,
+//: `scripts/torch_collectives_ab.py --variants` `threads`).
+constexpr size_t BARRIER_BULK_MIN = 64 << 10;
 
 struct CommonArgs {
   const char* x;         // (R, bytes)
   dl::Symm<char> out;    // rank r's (bytes)
   const int* root;       // broadcast: the root rank (device memory)
-  dl::Symm<u64> sig;     // rank r's dl::SIGNAL_WORDS counters
+  dl::Symm<u64> sig;     // rank r's counters
   dl::Team team;
   size_t bytes;
   u64 epoch;             // the instance's sum of P before this call
+  int bulk;              // x and every out on 16 bytes, bytes too
+  int bank;              // words a bank in use (`launch_cooperative`)
   comm::Faults faults;
 };
 
 __global__ void __launch_bounds__(comm::COMM_THREADS)
-    barrier_kernel(CommonArgs p) {
+    barrier_kernel(const __grid_constant__ CommonArgs p) {
+  extern __shared__ __align__(128) uint8_t stage[];
+  __shared__ uint64_t bar[comm::STAGE_BUFS];
   const dl::Team& t = p.team;
   const int me = dl::rank(t);
+  comm::Staging s = comm::staging(stage, bar);
   comm::inject_faults(t, p.faults);
-  dl::barrier_all(t, p.sig, p.epoch + gridDim.x);
-  dl::put_nbi(p.out[me], p.x + blockIdx.y * p.bytes, p.bytes, blockIdx.x,
-              gridDim.x);
+  dl::team_arrive(t, p.sig);
+  const comm::Range r = comm::share(p.bytes, 16, blockIdx.x, gridDim.x);
+  comm::copy_fan(s, p.bulk != 0 && r.hi - r.lo >= BARRIER_BULK_MIN,
+                 p.x + blockIdx.y * p.bytes + r.lo, r.hi - r.lo, 1,
+                 [&](int) { return p.out[me] + r.lo; });
+  dl::team_wait(t, p.sig, p.epoch + gridDim.x);
 }
 
 __global__ void __launch_bounds__(comm::COMM_THREADS)
-    broadcast_kernel(CommonArgs p) {
+    broadcast_kernel(const __grid_constant__ CommonArgs p) {
+  extern __shared__ __align__(128) uint8_t stage[];
+  __shared__ uint64_t bar[comm::STAGE_BUFS];
   const dl::Team& t = p.team;
+  const int me = dl::rank(t), w = t.world;
   const u64 target = p.epoch + gridDim.x;
+  const bool bulk = p.bulk != 0;
   const int root = *p.root;
-  if (root < 0 || root >= t.world)
-    tdt::spin_timeout(tdt::WAIT_BROADCAST_ROOT, p.root, t.world, root);
+  if (root < 0 || root >= w)
+    tdt::spin_timeout(tdt::WAIT_BROADCAST_ROOT, p.root, w, root);
+  comm::Staging s = comm::staging(stage, bar);
   comm::inject_faults(t, p.faults);
-  dl::entry_barrier(t, p.sig, target, /*neighbors_only=*/false);
-  dl::emit_broadcast(t, root, p.x + blockIdx.y * p.bytes, p.out, p.bytes,
-                     p.sig, dl::ARRIVAL_WORD, target);
+  dl::team_arrive(t, p.sig);
+  dl::team_wait(t, p.sig, target);
+  // The root's block b: its share of x into every rank's out.
+  if (me == root) {
+    const comm::Range r = comm::share(p.bytes, 16, blockIdx.x, gridDim.x);
+    comm::copy_fan(s, bulk, p.x + blockIdx.y * p.bytes + r.lo, r.hi - r.lo,
+                   w, [&](int d) { return p.out[d] + r.lo; });
+    dl::fence<dl::Scope::gpu>();
+    __syncthreads();
+    comm::signal_blocks(w, p.bank,
+                        [&](int c) { return p.sig[c] + dl::ARRIVAL_WORD; });
+  }
+  // Block b waits only for the root's block b.
+  if (threadIdx.x == 0)
+    dl::signal_wait_until(p.sig[me] + dl::ARRIVAL_WORD + blockIdx.x, target,
+                          tdt::WAIT_BROADCAST_ARRIVAL);
+  __syncthreads();
 }
 
 // ``moved``: the bytes a rank's blocks copy, which sets their number.
 int launch(void* fn, const void* x, void* const* out, const int* root,
            void* const* sig, int world, int base, int ranks, size_t bytes,
-           size_t moved, u64 epoch, comm::Faults f, int* blocks,
+           size_t moved, int cap, u64 epoch, comm::Faults f, int* blocks,
            cudaStream_t s) {
   CommonArgs p{};
   p.x = static_cast<const char*>(x);
   p.root = root;
+  uintptr_t align = reinterpret_cast<uintptr_t>(x) | bytes;
   for (int r = 0; r < world; ++r) {
     p.out.ptr[r] = static_cast<char*>(out[r]);
     p.sig.ptr[r] = static_cast<u64*>(sig[r]);
+    align |= reinterpret_cast<uintptr_t>(out[r]);
   }
   p.team = dl::Team{world, base};
   p.bytes = bytes;
   p.epoch = epoch;
+  p.bulk = align % 16 == 0;
   p.faults = f;
   void* args[] = {&p};
-  return comm::launch_cooperative(fn, args, ranks, comm::blocks_for(moved),
-                                  blocks, s);
+  const int want = comm::blocks_for(moved);
+  return comm::launch_cooperative(fn, args, ranks, want < cap ? want : cap,
+                                  blocks, s, comm::STAGE_SMEM, &p.bank);
 }
 
 bool bad_team(int world, int base, int ranks) {
@@ -95,7 +162,7 @@ bool bad_team(int world, int base, int ranks) {
 // x (ranks, bytes): the launched ranks' data (ranks base .. base + ranks -
 // 1 of a team of ``world``); ``out`` and ``sig``: host tables of ``world``
 // device pointers, rank r's (bytes) output and its dl::SIGNAL_WORDS u64
-// counters.  Every rank waits for every other, then copies its x to its
+// counters.  Every rank waits for every other, and copies its x to its
 // out.  ``epoch``: the instance's sum of blocks a rank over its earlier
 // calls; the blocks a rank of this launch go to ``*blocks``.
 // ``straggler`` (-1: none) spins ``cycles`` first; ``for_correctness``
@@ -109,24 +176,27 @@ extern "C" int barrier_all_on_axis(const void* x, void* const* out,
   *blocks = 0;
   if (bad_team(world, base, ranks)) return (int)cudaErrorInvalidValue;
   return launch(reinterpret_cast<void*>(barrier_kernel), x, out, nullptr,
-                sig, world, base, ranks, bytes, bytes, epoch,
+                sig, world, base, ranks, bytes, bytes, 1 << 30, epoch,
                 comm::Faults{straggler, cycles, for_correctness}, blocks,
                 static_cast<cudaStream_t>(stream));
 }
 
 // As `barrier_all_on_axis`, but every rank's out gets the x of the rank
-// that ``root`` (a device int32) names; ``bytes`` >= 1.
+// that ``root`` (a device int32) names; ``bytes`` >= 1; ``words`` counters
+// a rank (at least BROADCAST_WORDS, `kernels/common_ops.py`).
 extern "C" int broadcast(const void* x, void* const* out, const void* root,
-                         void* const* sig, int world, int base, int ranks,
-                         unsigned long long bytes, unsigned long long epoch,
-                         int straggler, long long cycles,
-                         int for_correctness, int* blocks, void* stream) {
+                         void* const* sig, int words, int world, int base,
+                         int ranks, unsigned long long bytes,
+                         unsigned long long epoch, int straggler,
+                         long long cycles, int for_correctness, int* blocks,
+                         void* stream) {
   *blocks = 0;
-  if (bad_team(world, base, ranks) || bytes < 1 || root == nullptr)
+  if (bad_team(world, base, ranks) || bytes < 1 || root == nullptr ||
+      words < BROADCAST_WORDS)
     return (int)cudaErrorInvalidValue;
   return launch(reinterpret_cast<void*>(broadcast_kernel), x, out,
                 static_cast<const int*>(root), sig, world, base, ranks, bytes,
-                world * bytes, epoch,
+                world * bytes, MAX_BLOCKS, epoch,
                 comm::Faults{straggler, cycles, for_correctness}, blocks,
                 static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,10 @@
 // triton_distributed_tpu/language/core.py (`dl`): rank / num_ranks /
 // peer_id (:35-52), put / put_nbi (:70-92), notify (:129),
 // signal_wait_until / wait (:153-165), barrier_all (:193), entry_barrier
-// (:223), barrier_neighbors (:364), emit_broadcast (:247), and the fault
-// injection of maybe_straggle (:304) and correctness_delay (:331).
+// (:223), barrier_neighbors (:364), and the fault injection of
+// maybe_straggle (:304) and correctness_delay (:331); `team_arrive` /
+// `team_wait` are barrier_all with one add a peer from each rank (K18, whose
+// broadcast, JAX `emit_broadcast` (:247), is common_ops.cu's own).
 //
 // A collective runs over a team of `world` ranks.  Every rank owns the same
 // symmetric buffers and signal words; a device function reaches rank p's
@@ -18,8 +20,9 @@
 //
 // Signals are monotonic 64-bit counters, never reset.  In a call every
 // signal word receives the same number of adds from each block of the
-// ranks that signal it, or (the scatter-then-sum body of K16 and K21b,
-// reduce_scatter.cu) one add of P from one block of its signaller, so
+// ranks that signal it, or one add of P from one block of each of its
+// signallers (`team_arrive`; the words paired by range of
+// `comm::signal_blocks`: K16, K17 `two_shot`, K18's broadcast, K21b), so
 // after the call it holds k * T, where T is the sum, over this instance's
 // calls so far, of P: the host keeps T (its epoch, `language/core.py`
 // SymmetricBuffers) and passes the value before the call; the kernel adds
@@ -128,6 +131,19 @@ __device__ __forceinline__ void red_release_add<Scope::gpu>(u64* p, u64 v) {
 template <>
 __device__ __forceinline__ void red_release_add<Scope::sys>(u64* p, u64 v) {
   asm volatile("red.release.sys.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+template <Scope S>
+__device__ __forceinline__ void red_relaxed_add(u64* p, u64 v);
+template <>
+__device__ __forceinline__ void red_relaxed_add<Scope::gpu>(u64* p, u64 v) {
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+template <>
+__device__ __forceinline__ void red_relaxed_add<Scope::sys>(u64* p, u64 v) {
+  asm volatile("red.relaxed.sys.global.add.u64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
 }
 
@@ -263,6 +279,27 @@ __device__ __forceinline__ void barrier_all(const Team& t, Symm<u64> sig,
           tdt::WAIT_BARRIER_ALL);
 }
 
+// The team barrier with one add a peer from each rank: thread i of block 0
+// adds P (gridDim.x) to peer i's BARRIER_WORD.  One block of this rank
+// running this call is enough: every block of its last call has ended (the
+// stream orders a rank's calls).  Each word receives world - 1 adds of P a
+// call.  Returns at once; `team_wait` waits.
+template <Scope S = Scope::gpu>
+__device__ __forceinline__ void team_arrive(const Team& t, Symm<u64> sig) {
+  const int me = rank(t), tid = threadIdx.x;
+  if (blockIdx.x == 0 && tid < t.world && tid != me)
+    notify<S>(sig[tid] + BARRIER_WORD, gridDim.x);
+}
+
+// The whole block waits until every peer has arrived (`team_arrive`):
+// ``target`` is the instance's blocks a rank with this call's.
+template <Scope S = Scope::gpu>
+__device__ __forceinline__ void team_wait(const Team& t, Symm<u64> sig,
+                                          u64 target) {
+  wait<S>(sig[rank(t)] + BARRIER_WORD, 1, 0, (u64)(t.world - 1) * target,
+          tdt::WAIT_TEAM_BARRIER);
+}
+
 // Ring barrier with the left and right neighbours only (two signals a
 // block in, two out).  (JAX `dl.barrier_neighbors`.)
 template <Scope S = Scope::gpu>
@@ -326,31 +363,6 @@ __device__ __forceinline__ void barrier_rank(const Team& t, Symm<u64> sig,
   u64* word = sig[rank(t)] + LOCAL_WORD;
   signal_after_puts<S>(&word, 1);
   wait<S>(word, 1, 0, target, tdt::WAIT_BARRIER_RANK);
-}
-
-// Broadcast: the root's ``bytes`` from ``src`` into every rank's ``dst``
-// (its own included, the JAX body's local copy), then one add to word
-// ``word`` of every rank, the root's own too, so that each rank's word
-// sees the same adds in every call whichever rank is the root; every rank
-// then waits on its own word.  ``root`` is data, read by the caller from
-// device memory, not a compile-time choice.  Callers run the entry barrier
-// before it when ``dst`` may still be read by the previous call.  (JAX
-// `dl.emit_broadcast`.)
-template <Scope S = Scope::gpu>
-__device__ __forceinline__ void emit_broadcast(const Team& t, int root,
-                                               const void* src,
-                                               Symm<char> dst, size_t bytes,
-                                               Symm<u64> sig, int word,
-                                               u64 target) {
-  const int me = rank(t);
-  if (me == root) {
-    for (int p = 0; p < t.world; ++p)
-      put_nbi(dst[p], src, bytes, blockIdx.x, gridDim.x);
-    u64* words[MAX_RANKS];
-    for (int p = 0; p < t.world; ++p) words[p] = sig[p] + word;
-    signal_after_puts<S>(words, t.world);
-  }
-  wait<S>(sig[me] + word, 1, 0, target, tdt::WAIT_BROADCAST_ARRIVAL);
 }
 
 // Spin ``cycles`` SM clock cycles (the TPU's `pl.delay`).

@@ -4,18 +4,21 @@
 The primitives themselves are device functions in ``kernels/csrc/dl.cuh``:
 ``rank``, ``num_ranks`` and ``peer_id`` (JAX :35-52), ``put`` / ``put_nbi``
 (:70-92), ``notify`` (:129), ``signal_wait_until`` / ``wait`` (:153-165),
-``barrier_all`` (:193), ``entry_barrier`` (:223), ``emit_broadcast``
-(:247), ``maybe_straggle`` (:304), ``correctness_delay`` (:331) and
-``barrier_neighbors`` (:364), over a table of peer pointers, with the
-memory scope a template parameter.  What the host keeps for them lives here: each collective
-instance's symmetric buffers and signal words, and its epoch.
+``barrier_all`` (:193), ``entry_barrier`` (:223), ``maybe_straggle`` (:304),
+``correctness_delay`` (:331) and ``barrier_neighbors`` (:364), over a
+table of peer pointers, with the memory scope a template parameter (JAX's
+``emit_broadcast`` (:247) is K18's own kernel).  What the host keeps for
+them lives here: each collective instance's symmetric buffers and signal
+words, and its epoch.
 
 Signal words are monotonic counters that no call resets.  In every call of
 an instance each of its signal words receives adds summing to the same
 multiple of P, P being the blocks a rank of that launch (one add from each
-block of its signallers, or, for the scatter-then-sum body of K16
-``scatter_reduce`` and K21b, one add of P from the one block that owns
-the word); the instance's ``epoch`` is the sum of P over its calls so
+block of its signallers, or one add of P from one block of each
+signaller: ``dl.cuh`` `team_arrive`, and the words paired by range of the
+scatter-then-sum body of K16 ``scatter_reduce``, K17 ``two_shot`` and K21b
+and of K18's broadcast, each owned by one block, `owned_words`); the
+instance's ``epoch`` is the sum of P over its calls so
 far.  A kernel is handed the epoch before its
 call, adds its own P and waits for that multiple of the sum, so a signal of
 a later call cannot satisfy a wait early and no stale signal of an earlier
@@ -29,9 +32,11 @@ pair keys its own instance.
 An instance has `SIGNAL_WORDS` words a rank unless its kernels need more:
 the torus kernels (``csrc/torus.cu``) give every (phase, lane, ring
 position) its own word, so no wait can be met by another lane's adds, and
-size their instances by their grid; the scatter-then-sum body gives every
-(source rank, block) its own word (`reduce_scatter.SUM_WORDS`), so a block
-waits only for the blocks that wrote its range.  A kernel
+size their instances by their grid; the scatter-then-sum body and K18's
+broadcast give every (source rank, block) its own word
+(`reduce_scatter.SUM_WORDS`, `allreduce.TWO_SHOT_WORDS`,
+`common_ops.BROADCAST_WORDS`; `owned_words`), so a block waits only for the
+blocks that wrote its range.  A kernel
 that runs once per group of ranks (the hierarchical collectives launch the
 intra-slice kernel once a slice) keys one instance a group.
 """
@@ -48,6 +53,31 @@ import torch
 #: a chunk or a ring step each; the second bank for a second phase,
 #: direction or the acks).
 SIGNAL_WORDS = 18
+
+
+#: Blocks a rank at most of a body with an arrival word a block, and the
+#: words a source rank owns in one bank at each destination (``comm_body.cuh``
+#: MAX_BLOCKS).
+MAX_BLOCKS = 256
+
+
+def share(n: int, unit: int, part: int, parts: int) -> tuple[int, int]:
+    """The part [lo, hi) of ``n`` that ``part`` of ``parts`` owns
+    (``comm_body.cuh`` `share`): whole ``unit``s, the share rounded up (the
+    last parts may be empty), the last part also the tail."""
+    units = n // unit
+    each = -(-units // parts)
+    lo, hi = min(part * each, units) * unit, min((part + 1) * each, units) * unit
+    return lo, n if part == parts - 1 else hi
+
+
+def owned_words(block: int, blocks: int, words: int = MAX_BLOCKS) -> range:
+    """The words of a bank to which block ``block`` of ``blocks`` adds
+    ``blocks`` in every call (``comm_body.cuh`` `signal_blocks`): b, b + P,
+    .. < ``words``, the most blocks a rank any launch of the kernel can
+    have (at most MAX_BLOCKS), so every word of the bank that a block may
+    wait on receives adds summing to P whatever P is."""
+    return range(block, words, blocks)
 
 
 def fault_args(straggler, for_correctness: bool):
