@@ -45,8 +45,15 @@ sources:
   bulk-stored while the next slab is summed;
 - ``threads``: every copy of the three kernels as each thread's 16-, 4- or
   1-byte loads and stores (`dl::put_nbi`), not bulk copies;
-- ``allbulk``: the barrier's copy by bulk copies at every share, not the
-  threads' below BARRIER_BULK_MIN bytes a block;
+- ``allbulk``: the barrier's copy by bulk copies through 4 x 8 KB of
+  shared memory a block, as the broadcast's, not the threads' copies;
+- ``stride``: the barrier's threads copy x in a grid-stride loop over the
+  rank's blocks (16-byte units 4 KB apart swept by every block together),
+  not each block its own contiguous share;
+- ``smN``: the barrier at most N blocks an SM, every rank's together, not
+  BARRIER_BLOCKS_PER_SM (``sm64``: as many as fit; the default list takes
+  ``sm1``, ``sm4`` and ``sm64``); ``capN``: at most N blocks a rank, as
+  many an SM as fit (not in the default list);
 - ``whole``: every block waits for every block of each source (the
   broadcast's arrival bank and ``two_shot``'s two), not only for the blocks
   that wrote its own range.
@@ -152,6 +159,40 @@ _WAIT_WHOLE = """  const int P = gridDim.x;
     if (i / P != skip)
       dl::signal_wait_until(bank(i / P) + i % P, target, what);"""
 
+_BARRIER_COPY = (r"  const comm::Range r = comm::share\(p\.bytes, 16, "
+                 r"blockIdx\.x, gridDim\.x\);\n"
+                 r"  dl::put_nbi\(p\.out\[me\] \+ r\.lo, p\.x \+ "
+                 r"blockIdx\.y \* p\.bytes \+ r\.lo,\n"
+                 r"              r\.hi - r\.lo, 0, 1\);")
+_BARRIER_BULK = """  extern __shared__ __align__(128) uint8_t stage[];
+  __shared__ uint64_t bar[comm::STAGE_BUFS];
+  comm::Staging s = comm::staging(stage, bar);
+  const comm::Range r = comm::share(p.bytes, 16, blockIdx.x, gridDim.x);
+  comm::copy_fan(s, p.bulk != 0, p.x + blockIdx.y * p.bytes + r.lo,
+                 r.hi - r.lo, 1, [&](int) { return p.out[me] + r.lo; });"""
+
+_BARRIER_STRIDE = """  if (p.bulk) {
+    const uint4* s =
+        reinterpret_cast<const uint4*>(p.x + blockIdx.y * p.bytes);
+    uint4* d = reinterpret_cast<uint4*>(p.out[me]);
+    const size_t n = p.bytes / 16, step = (size_t)gridDim.x * blockDim.x;
+    size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    for (; i + 3 * step < n; i += 4 * step) {
+      const uint4 v0 = __ldcg(s + i), v1 = __ldcg(s + i + step);
+      const uint4 v2 = __ldcg(s + i + 2 * step), v3 = __ldcg(s + i + 3 * step);
+      d[i] = v0;
+      d[i + step] = v1;
+      d[i + 2 * step] = v2;
+      d[i + 3 * step] = v3;
+    }
+    for (; i < n; i += step) d[i] = __ldcg(s + i);
+  } else {
+    const comm::Range r = comm::share(p.bytes, 16, blockIdx.x, gridDim.x);
+    dl::put_nbi(p.out[me] + r.lo, p.x + blockIdx.y * p.bytes + r.lo,
+                r.hi - r.lo, 0, 1);
+  }"""
+
+
 #: variant -> (file under csrc, regex, replacement) edits, each matching
 #: once.
 VARIANTS = {
@@ -168,9 +209,12 @@ VARIANTS = {
                    "  const comm::Range r = comm::share")],
     "regs": [("scatter_sum.cuh", r"  if \(ALL && p\.vec\) \{",
               "  if (false) {")],
-    "allbulk": [("common_ops.cu",
-                 r"p\.bulk != 0 && r\.hi - r\.lo >= BARRIER_BULK_MIN",
-                 "p.bulk != 0")],
+    "allbulk": [("common_ops.cu", _BARRIER_COPY, _BARRIER_BULK),
+                ("common_ops.cu",
+                 r"launch\(reinterpret_cast<void\*>\(barrier_kernel\), 0,",
+                 "launch(reinterpret_cast<void*>(barrier_kernel), "
+                 "comm::STAGE_SMEM,")],
+    "stride": [("common_ops.cu", _BARRIER_COPY, _BARRIER_STRIDE)],
     "threads": [("common_ops.cu", r"  p\.bulk = align % 16 == 0;",
                  "  p.bulk = 0;"),
                 ("scatter_sum.cuh", r"  if \(!vec\) \{\n    for \(int j = 1;",
@@ -184,6 +228,21 @@ VARIANTS = {
                "    dl::signal_wait_until(p.sig[me] + dl::ARRIVAL_WORD + g, "
                "target,")],
 }
+
+
+def edits(name: str):
+    """Variant ``name``'s edits: VARIANTS, or ``smN`` (the barrier at most N
+    blocks an SM) and ``capN`` (the barrier at most N blocks a rank, with
+    as many an SM as fit)."""
+    m = re.fullmatch(r"(sm|cap)(\d+)", name)
+    if m is None:
+        return VARIANTS[name]
+    n = int(m.group(2))
+    if m.group(1) == "sm":
+        return [("common_ops.cu", r"BARRIER_BLOCKS_PER_SM = \d+;",
+                 f"BARRIER_BLOCKS_PER_SM = {n};")]
+    return [("common_ops.cu", r"bytes, bytes, 1 << 30,\n(\s*)"
+             r"BARRIER_BLOCKS_PER_SM,", f"bytes, bytes, {n},\n\\1 0,")]
 
 
 def card() -> str:
@@ -403,7 +462,7 @@ def build_variant(name: str):
 
     tmp = Path(tempfile.mkdtemp(prefix=f"coll_{name}_"))
     shutil.copytree(_build.CSRC, tmp / "csrc")
-    for file, pattern, new in VARIANTS[name]:
+    for file, pattern, new in edits(name):
         src = tmp / "csrc" / file
         text, count = re.subn(pattern, lambda m, new=new: new.replace(
             "\\1", m.group(1) if m.groups() else ""), src.read_text())
@@ -459,12 +518,16 @@ def main() -> int:
     group = ap.add_mutually_exclusive_group(required=True)
     group.add_argument("--root", type=Path)
     group.add_argument("--ab", type=Path, metavar="OTHER_ROOT")
-    group.add_argument("--variants", nargs="*", choices=list(VARIANTS),
-                       metavar="VARIANT")
+    group.add_argument("--variants", nargs="*", metavar="VARIANT")
     args = ap.parse_args()
+    for name in args.variants or ():
+        if name not in VARIANTS and not re.fullmatch(r"(sm|cap)\d+", name):
+            ap.error(f"unknown variant {name!r}: one of {', '.join(VARIANTS)}"
+                     ", smN or capN")
     if args.variants is not None:
         sys.path.insert(0, str(HERE))
-        return variants(args.variants or [*VARIANTS, "base"])
+        return variants(args.variants
+                        or [*VARIANTS, "sm1", "sm4", "sm64", "base"])
     if args.root is not None:
         import torch
 

@@ -9,8 +9,9 @@ and waits on.
 and tracks, for every event, the copies that happen before it (program
 order, and every add to a word before a wait on it, since each wait's
 target is the sum of the adds its word receives in the call).  For W in
-2..8, every root and P in {1, 3, 7, 256} (and in {1, 7, 66} of a bank of
-66 words, as residency caps it) it holds that
+2..8, every root and P in {1, 3, 7} of a bank of 66 words (as residency
+caps it), at W = 2 and 8 also P in {1, 3, 7} of a bank of 256 and P = 66
+of 66, and at W = 2 and 4 P = 256 (`GRID`), it holds that
 
 - no block waits forever, and every wait's target is its word's adds;
 - every output element (and receive slot) is written exactly once, with
@@ -24,6 +25,8 @@ target is the sum of the adds its word receives in the call).  For W in
 The sizes are small, ragged and aligned, some with empty chunks or parts.
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -35,8 +38,16 @@ WORLDS = range(2, 9)
 #: (P, bank): blocks a rank, and the most a launch of the kernel can have
 #: (the words of a bank in use; the card's residency caps it, e.g. 66 at
 #: W = 4 for two-shot on an H100).
-BLOCKS = ((1, 256), (3, 256), (7, 256), (256, 256), (1, 66), (7, 66),
-          (66, 66))
+BLOCKS = ((1, 256), (3, 256), (7, 256), (256, 256), (1, 66), (3, 66),
+          (7, 66), (66, 66))
+#: (W, P, bank) of the broadcast and two-shot plans, kept to a few seconds
+#: (a run's cost grows with W P and W^2 bank): P in {1, 3, 7} of a bank of
+#: 66 at every W; of the whole bank of MAX_BLOCKS, and P = 66 filling a bank
+#: of 66, at W = 2 and 8; P = MAX_BLOCKS (one word a block) at W = 2 and 4.
+GRID = ([(w, p, 66) for w in WORLDS for p in (1, 3, 7)]
+        + [(w, p, bank) for w in (2, 8)
+           for p, bank in ((1, 256), (3, 256), (7, 256), (66, 66))]
+        + [(w, 256, 256) for w in (2, 4)])
 
 
 def run(plan, bufs):
@@ -46,12 +57,13 @@ def run(plan, bufs):
     of something not yet known written, or a second write."""
     world = max(r for r, _ in plan) + 1
     writer = {k: np.full(v.shape, -1, dtype=np.int64) for k, v in bufs.items()}
-    adds = {}
+    adds = collections.defaultdict(int)
     for evs in plan.values():
         for ev in evs:
             if ev[0] == "add":
                 for q, word, n in ev[1]:
-                    adds[(q, word)] = adds.get((q, word), 0) + n
+                    adds[(q, word)] += n
+    adds = dict(adds)
     waits = {}                           # (block, event) -> word keys
     for block, evs in plan.items():
         for i, ev in enumerate(evs):
@@ -137,13 +149,12 @@ def run(plan, bufs):
             ends[block] = mask[block]
     stuck = [blk for blk in plan if blk not in ends]
     assert not stuck, f"deadlock: {stuck[:4]} wait forever"
+    seen = [0] * world                   # copies before a rank's ends
+    for (r, _), m in ends.items():
+        seen[r] |= m
     for q in range(world):
-        seen = 0
-        for (r, _), m in ends.items():
-            if r == q:
-                seen |= m
         for i in np.unique(writer["out"][q]).tolist():
-            assert seen >> i & 1, f"rank {q} ends before write {i}"
+            assert seen[q] >> i & 1, f"rank {q} ends before write {i}"
     return adds, writer
 
 
@@ -161,8 +172,7 @@ def seeded(world, n, seed):
         -64, 64, size=(world, n)).astype(np.float64)
 
 
-@pytest.mark.parametrize("blocks,bank", BLOCKS)
-@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("world,blocks,bank", GRID)
 def test_broadcast_plan(world, blocks, bank):
     """Every root: each rank's out is the root's x, each element written
     once; each block's wait is paired to the root's block that wrote its
@@ -209,13 +219,16 @@ def test_barrier_plan(world, blocks):
         assert len(remote) == world * (world - 1)
 
 
-@pytest.mark.parametrize("blocks,bank", BLOCKS)
-@pytest.mark.parametrize("world", [1, *WORLDS])
+@pytest.mark.parametrize("world,blocks,bank",
+                         [(1, p, bank) for p, bank in BLOCKS] + GRID)
 def test_two_shot_plan(world, blocks, bank):
     """Every rank's out is the sum of the partials in rank order, each
     element written once; the foreign chunks land in the receive slots once
     (the own chunk is never copied); each block's waits cover exactly the
     blocks that wrote its range."""
+    banks = {(q, base + s * MAX_BLOCKS + g): 1 for q in range(world)
+             for s in range(world) if s != q for g in range(bank)
+             for base in (2, allreduce.OUT_WORD)}
     for chunk in (3, 8 * 5, 8 * 5 + 3):
         elems = world * chunk
         x = seeded(world, elems, world * 100 + chunk)
@@ -233,12 +246,7 @@ def test_two_shot_plan(world, blocks, bank):
             slot = writer["rbuf"][r].reshape(world, chunk)
             assert (slot[r] < 0).all() and (np.delete(slot, r, 0) >= 0).all()
         mult = word_multiples(adds, blocks)
-        for q in range(world):
-            for s in range(world):
-                for g in range(MAX_BLOCKS):
-                    for base in (2, allreduce.OUT_WORD):
-                        key = (q, base + s * MAX_BLOCKS + g)
-                        assert mult.get(key, 0) == (s != q and g < bank)
+        assert {k: n for k, n in mult.items() if k[1] >= 2} == banks
 
 
 def test_shares_tile_the_payload():

@@ -197,7 +197,13 @@ def two_shot_plan(elems: int, world: int, blocks: int,
     other source, sums its range in rank order (its own partial from x) into
     chunk r of every rank's out, then does the same with the second bank.
     The plan is the same whether the copies are bulk or the threads' and
-    the sums go through slabs or registers."""
+    the sums go through slabs or registers.
+
+    It mirrors `scatter_sum_kernel`'s body (``csrc/scatter_sum.cuh``
+    :354-400 with ALL: `scatter`, the first bank `sum_word`, the sum, the
+    second bank `out_word`), its entry barrier (``dl.cuh`` `barrier_all`,
+    :274) and ``comm_body.cuh`` `signal_blocks` / `wait_blocks` (:342-363):
+    an edit there needs the same edit here."""
     chunk = elems // world
     plan = {}
     for r in range(world):

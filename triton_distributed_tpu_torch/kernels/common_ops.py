@@ -72,9 +72,12 @@ def barrier_plan(nbytes: int, world: int, blocks: int):
     (P) blocks a rank, as ``csrc/common_ops.cu`` `barrier_kernel` runs it, in
     the events of `allreduce.two_shot_plan` ("x" and "out" buffers): block 0
     adds P to each peer's word 0 (`dl::team_arrive`), every block copies its
-    share of x (16-byte units; bulk copies from a share of 64 KiB on, else
-    the threads') into its rank's out, then waits for (W - 1) P on word
-    0."""
+    share of x (16-byte units, `comm::share`) into its rank's out, then
+    waits for (W - 1) P on word 0 (`dl::team_wait`).
+
+    It mirrors `barrier_kernel`'s body (common_ops.cu :87-91) and
+    ``csrc/dl.cuh`` `team_arrive` / `team_wait` (:288-301): an edit there
+    needs the same edit here."""
     plan = {}
     for r in range(world):
         for b in range(blocks):
@@ -96,7 +99,11 @@ def broadcast_plan(nbytes: int, world: int, root: int, blocks: int,
     the team barrier on word 0; block b of the root copies its share of x
     (16-byte units) into every rank's out and adds P to its words of the
     arrival bank at every rank, its own too; block b of every rank waits for
-    word b of that bank."""
+    word b of that bank.
+
+    It mirrors `broadcast_kernel`'s body (common_ops.cu :107-123, the root's
+    words from ``comm_body.cuh`` `signal_blocks`, :342) and the arrival bank
+    of BROADCAST_WORDS: an edit there needs the same edit here."""
     plan = {}
     for r in range(world):
         for b in range(blocks):

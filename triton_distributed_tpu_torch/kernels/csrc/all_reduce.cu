@@ -27,10 +27,11 @@
 //   entry barrier; block b bulk-copies its range of each foreign chunk c
 //   into slot r of rank c's rbuf (the own chunk never copied), adds P to
 //   its arrival words paired by range and waits only for word (s, b) of
-//   each source; sums its range in rank order in f32 and stores each
-//   16-byte unit from registers into chunk r of every rank's out, its own
-//   included; then the same pairing in a second bank for the W - 1 other
-//   chunks of its range.  The first body (chunks by thread copies, every
+//   each source; sums its range in rank order in f32 into 16 KB slabs of
+//   shared memory, each slab bulk-stored into chunk r of every rank's out,
+//   its own included, while the next is summed (`sum_to_slabs`; a chunk
+//   off 16 bytes stores from registers instead); then the same pairing in
+//   a second bank for the W - 1 other chunks of its range.  The first body (chunks by thread copies, every
 //   block waiting on every block of every source, twice) took 0.1283 ms at
 //   4 x 2048 x 4096 bf16 on an H100 80GB HBM3 at 700 W (PERF.md).
 // - `one_shot`: `emit_push_allgather` of x into every rank's rbuf slot r

@@ -203,10 +203,11 @@ constexpr int MAX_BLOCKS = 256;
 // block (at most 48 KB).  ``bank`` (a field of the arguments, or null): set
 // before the launch to the most blocks a rank any launch of ``fn`` at this
 // world can have, at most MAX_BLOCKS (the words of a bank that
-// `signal_blocks` keeps).  Returns a cudaError_t code.
+// `signal_blocks` keeps).  ``per_sm`` (0: none): at most so many blocks an
+// SM, every rank's together, below what fits.  Returns a cudaError_t code.
 inline int launch_cooperative(void* fn, void** args, int ranks, int want,
                               int* blocks, cudaStream_t s, size_t smem = 0,
-                              int* bank = nullptr) {
+                              int* bank = nullptr, int per_sm = 0) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -215,6 +216,7 @@ inline int launch_cooperative(void* fn, void** args, int ranks, int want,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, fn, COMM_THREADS,
                                                       smem);
   if (e != cudaSuccess) return (int)e;
+  if (per_sm > 0 && per_sm < occ) occ = per_sm;
   const int fit = occ * sms / ranks;
   if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (bank != nullptr) *bank = fit < MAX_BLOCKS ? fit : MAX_BLOCKS;

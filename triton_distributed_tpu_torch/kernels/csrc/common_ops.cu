@@ -13,21 +13,24 @@
 // inside one HBM on one card.
 //
 // Design (redesigned for Hopper).  One cooperative launch holds every
-// rank's P blocks (`dl.cuh`).  Copies are bulk copies (`cp.async.bulk`
-// global -> shared -> global, `comm::bulk_runs`) through 4 x 8 KB of shared
-// memory, issued by one thread a block; x off 16 bytes takes the threads'
-// copies of `dl::put_nbi`.
+// rank's P blocks (`dl.cuh`).
 // - The team barrier takes one add of P from block 0 of each rank to each
 //   peer's word (`dl::team_arrive`): W (W - 1) remote adds a call, not
 //   W (W - 1) P.
 // - `barrier_kernel`: the arrival, then the block's share of the copy of x
-//   (bulk copies from a share of BARRIER_BULK_MIN on, else the threads'),
-//   then the wait, so the copy runs while the ranks arrive.  No rank's
-//   kernel ends before every rank has arrived; the function is the JAX
-//   kernel's, which waits, then copies.
-// - `broadcast_kernel`: the root's blocks copy, each reading its share of
-//   x into shared memory once and bulk-storing it into all W outputs, its
-//   own included.  The root is read from device memory in every call (a
+//   by the threads' copies of `dl::put_nbi`, then the wait, so the copy
+//   runs while the ranks arrive.  No rank's kernel ends before every rank
+//   has arrived; the function is the JAX kernel's, which waits, then
+//   copies.  Its blocks are at most BARRIER_BLOCKS_PER_SM an SM, every
+//   rank's together: a copy of 16 MiB a rank by every block that fits (8
+//   an SM) lost to the first body, its streams contending for HBM
+//   (PERF.md, `scripts/torch_collectives_ab.py --variants`).
+// - `broadcast_kernel`: the root's blocks copy by bulk copies
+//   (`cp.async.bulk` global -> shared -> global, `comm::bulk_runs`) through
+//   4 x 8 KB of shared memory, issued by one thread a block, each reading
+//   its share of x into shared memory once and bulk-storing it into all W
+//   outputs, its own included; x off 16 bytes takes the threads' copies of
+//   `dl::put_nbi`.  The root is read from device memory in every call (a
 //   0-d int32 tensor: the kernel is not specialised on it); a root outside
 //   the team traps at once instead of leaving the others waiting.  After
 //   the team barrier, block b of the root, its stores done, adds P to its
@@ -59,12 +62,9 @@ using comm::MAX_BLOCKS;
 //: The broadcast's words a rank: the barrier word, the local word, then
 //: the arrival bank (word g: the root's block g delivered).
 constexpr int BROADCAST_WORDS = dl::ARRIVAL_WORD + MAX_BLOCKS;
-//: The barrier's copy: bulk copies for a block's share of at least this
-//: many bytes, else the threads' (on an H100 80GB HBM3 at 700 W a 32 KiB
-//: share took 0.0040 ms by the threads against 0.0046 by bulk copies, a 72
-//: KiB share 0.0589 against 0.0578 at 4 x 2048 x 4096: PERF.md,
-//: `scripts/torch_collectives_ab.py --variants` `threads`).
-constexpr size_t BARRIER_BULK_MIN = 64 << 10;
+//: The barrier's blocks an SM at most, every launched rank's together
+//: (`launch_cooperative`'s ``per_sm``).
+constexpr int BARRIER_BLOCKS_PER_SM = 2;
 
 struct CommonArgs {
   const char* x;         // (R, bytes)
@@ -74,24 +74,20 @@ struct CommonArgs {
   dl::Team team;
   size_t bytes;
   u64 epoch;             // the instance's sum of P before this call
-  int bulk;              // x and every out on 16 bytes, bytes too
-  int bank;              // words a bank in use (`launch_cooperative`)
+  int bulk;              // broadcast: x and every out on 16 bytes, bytes too
+  int bank;              // broadcast: words a bank in use
   comm::Faults faults;
 };
 
 __global__ void __launch_bounds__(comm::COMM_THREADS)
     barrier_kernel(const __grid_constant__ CommonArgs p) {
-  extern __shared__ __align__(128) uint8_t stage[];
-  __shared__ uint64_t bar[comm::STAGE_BUFS];
   const dl::Team& t = p.team;
   const int me = dl::rank(t);
-  comm::Staging s = comm::staging(stage, bar);
   comm::inject_faults(t, p.faults);
   dl::team_arrive(t, p.sig);
   const comm::Range r = comm::share(p.bytes, 16, blockIdx.x, gridDim.x);
-  comm::copy_fan(s, p.bulk != 0 && r.hi - r.lo >= BARRIER_BULK_MIN,
-                 p.x + blockIdx.y * p.bytes + r.lo, r.hi - r.lo, 1,
-                 [&](int) { return p.out[me] + r.lo; });
+  dl::put_nbi(p.out[me] + r.lo, p.x + blockIdx.y * p.bytes + r.lo,
+              r.hi - r.lo, 0, 1);
   dl::team_wait(t, p.sig, p.epoch + gridDim.x);
 }
 
@@ -127,11 +123,13 @@ __global__ void __launch_bounds__(comm::COMM_THREADS)
   __syncthreads();
 }
 
-// ``moved``: the bytes a rank's blocks copy, which sets their number.
-int launch(void* fn, const void* x, void* const* out, const int* root,
-           void* const* sig, int world, int base, int ranks, size_t bytes,
-           size_t moved, int cap, u64 epoch, comm::Faults f, int* blocks,
-           cudaStream_t s) {
+// ``moved``: the bytes a rank's blocks copy, which sets their number, at
+// most ``cap`` a rank and ``per_sm`` an SM (0: as many as fit); ``smem``:
+// the dynamic shared memory a block.
+int launch(void* fn, size_t smem, const void* x, void* const* out,
+           const int* root, void* const* sig, int world, int base, int ranks,
+           size_t bytes, size_t moved, int cap, int per_sm, u64 epoch,
+           comm::Faults f, int* blocks, cudaStream_t s) {
   CommonArgs p{};
   p.x = static_cast<const char*>(x);
   p.root = root;
@@ -149,7 +147,7 @@ int launch(void* fn, const void* x, void* const* out, const int* root,
   void* args[] = {&p};
   const int want = comm::blocks_for(moved);
   return comm::launch_cooperative(fn, args, ranks, want < cap ? want : cap,
-                                  blocks, s, comm::STAGE_SMEM, &p.bank);
+                                  blocks, s, smem, &p.bank, per_sm);
 }
 
 bool bad_team(int world, int base, int ranks) {
@@ -175,8 +173,9 @@ extern "C" int barrier_all_on_axis(const void* x, void* const* out,
                                    int* blocks, void* stream) {
   *blocks = 0;
   if (bad_team(world, base, ranks)) return (int)cudaErrorInvalidValue;
-  return launch(reinterpret_cast<void*>(barrier_kernel), x, out, nullptr,
-                sig, world, base, ranks, bytes, bytes, 1 << 30, epoch,
+  return launch(reinterpret_cast<void*>(barrier_kernel), 0, x, out,
+                nullptr, sig, world, base, ranks, bytes, bytes, 1 << 30,
+                BARRIER_BLOCKS_PER_SM, epoch,
                 comm::Faults{straggler, cycles, for_correctness}, blocks,
                 static_cast<cudaStream_t>(stream));
 }
@@ -194,9 +193,9 @@ extern "C" int broadcast(const void* x, void* const* out, const void* root,
   if (bad_team(world, base, ranks) || bytes < 1 || root == nullptr ||
       words < BROADCAST_WORDS)
     return (int)cudaErrorInvalidValue;
-  return launch(reinterpret_cast<void*>(broadcast_kernel), x, out,
-                static_cast<const int*>(root), sig, world, base, ranks, bytes,
-                world * bytes, MAX_BLOCKS, epoch,
+  return launch(reinterpret_cast<void*>(broadcast_kernel), comm::STAGE_SMEM,
+                x, out, static_cast<const int*>(root), sig, world, base,
+                ranks, bytes, world * bytes, MAX_BLOCKS, 0, epoch,
                 comm::Faults{straggler, cycles, for_correctness}, blocks,
                 static_cast<cudaStream_t>(stream));
 }
