@@ -96,13 +96,14 @@ non-zero):
    and int8 weights) and K13 (``ag_gemm_w8a8``) against their plain
    versions at world 2, 4 and 8 (the int8 GEMMs bit for bit, the rest row
    by row) on Qwen3-30B-A3B's prefill and decode chunks and three edge
-   routings, and over 100 back-to-back calls each; K11's Hopper body (bf16
+   routings, and over 100 back-to-back calls each, every bf16 K10 call on
+   its Hopper body; K11's Hopper body (bf16
    on 16-byte rows) bit for bit K8's on every live row at worlds 2, 4 and
    8; a 2-layer f32 model of
    its widths at world 4, card against CPU; Qwen3-30B-A3B built at world
    4 in mode ``fused`` through ``Engine.serve`` of 4 x 512 prompt tokens
-   to 32 with exact K11/K10/K12/K14/K1/K2/K8 launches (K11, K12 and K14
-   all on the `wgmma` body), every layer's
+   to 32 with exact K11/K10/K12/K14/K1/K2/K8 launches (K11, K10, K12 and
+   K14 all on the `wgmma` body), every layer's
    fused output within 3x the xla layer's bf16 error of an f32 reference
    where the local and gathered routings agree; ``MoEMLP(mode="w8a8")``
    and ``TPMLP(4096, 12288, mode="w8a8")`` at world 4 within 5% of bf16;
@@ -386,6 +387,26 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, key: str, iters: int):
+    """The device ms a call of the kernels whose name holds ``key``, over
+    ``iters`` calls of ``fn`` under torch.profiler, or None when the trace
+    holds no device time.  For a wrapper whose host work outlasts its
+    kernel, where events around queued calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.key)
+    return us / 1e3 / iters if us else None
 
 
 def wall_ms(fn) -> float:
@@ -1402,6 +1423,7 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         gemm_rs)
     from triton_distributed_tpu_torch.kernels.grouped_gemm import (
         grouped_matmul, row_tile, zero_past_counts)
+    from triton_distributed_tpu_torch.kernels import moe_reduce_rs
     from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
         MoEReduceRSContext, moe_reduce_rs_fused, moe_reduce_rs_fused_plain)
     from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
@@ -1476,7 +1498,14 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
                 a_q, dq, plan, rows, pw.to(bf16), sa, ds), (dq, ds)
         down = (wts if wts is not None
                 else randn(world, e, k, h) * ffn ** -0.5)
+        wg0 = moe_reduce_rs_fused.wgmma_launches
         out = moe_reduce_rs_fused(act, down, plan, ctx)
+        # Every bf16 call at these widths (k = 768 / W, n = 2048) takes the
+        # Hopper body.
+        if (moe_reduce_rs.kernel_body(act, down) != "wgmma"
+                or moe_reduce_rs_fused.wgmma_launches != wg0 + 1):
+            raise AssertionError(f"K10 at world {world}, {mc} rows a rank: "
+                                 "off the wgmma body")
         return out, lambda: moe_reduce_rs_fused_plain(
             act, down, plan, rows, pw.to(bf16)), down
 
@@ -1663,13 +1692,14 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
     served, t_serve = [], []
     ll0 = (ag_gemm.ll_launches, gemm_rs.ll_launches)
     wg0 = (ag_gemm.wgmma_launches, gemm_rs.wgmma_launches,
-           ag_group_gemm.wgmma_launches)
+           ag_group_gemm.wgmma_launches, moe_reduce_rs_fused.wgmma_launches)
     launches = counted(lambda: t_serve.append(wall_ms(lambda: served.append(
         engine.serve(prompts, GEN_LEN, cache=cache)))))
     ll = (ag_gemm.ll_launches - ll0[0], gemm_rs.ll_launches - ll0[1])
     wg12 = ag_gemm.wgmma_launches - wg0[0]
     wg14 = gemm_rs.wgmma_launches - wg0[1]
     wg11 = ag_group_gemm.wgmma_launches - wg0[2]
+    wg10 = moe_reduce_rs_fused.wgmma_launches - wg0[3]
     tokens = served[0]
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = expect(flash_attention=nl, flash_decode=nl * (GEN_LEN - 1),
@@ -1683,16 +1713,19 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
           f"K12/K14 once a forward, ll in decode {ll}, decode's MoE on the "
           f"xla path, two K8 a rank); on the wgmma body: K12 {wg12} of "
           f"{launches['ag_gemm']}, K14 {wg14} of {launches['gemm_rs']}, K11 "
-          f"{wg11} of {launches['ag_group_gemm']}; "
+          f"{wg11} of {launches['ag_group_gemm']}, K10 {wg10} of "
+          f"{launches['moe_reduce_rs_fused']}; "
           f"peak memory {peak:.2f} GiB; {card}")
     if launches != want or ll != (nl * (GEN_LEN - 1),) * 2:
         raise AssertionError(f"MoE TP launch counts {launches}, ll {ll} != "
                              f"{want}")
-    if (wg12, wg14, wg11) != (launches["ag_gemm"], launches["gemm_rs"],
-                              launches["ag_group_gemm"]):
+    if (wg12, wg14, wg11, wg10) != (
+            launches["ag_gemm"], launches["gemm_rs"],
+            launches["ag_group_gemm"], launches["moe_reduce_rs_fused"]):
         raise AssertionError(f"MoE TP: {launches['ag_gemm'] - wg12} K12, "
-                             f"{launches['gemm_rs'] - wg14} K14 and "
-                             f"{launches['ag_group_gemm'] - wg11} K11 "
+                             f"{launches['gemm_rs'] - wg14} K14, "
+                             f"{launches['ag_group_gemm'] - wg11} K11 and "
+                             f"{launches['moe_reduce_rs_fused'] - wg10} K10 "
                              "launches left the wgmma body")
     if tokens.shape != (BATCH, GEN_LEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
@@ -1859,9 +1892,21 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
             "library_note": f"no single PyTorch call computes it; "
             f"library_loop_ms is a loop of {w} x {e} torch._int_mm calls "
             "(no epilogue, no gather)"}))
-        # K10
-        ms = time_ms(lambda: moe_reduce_rs_fused(act, mlp0.down, plan,
-                                                 rs_ctx), 20)
+        # K10: the wrapper's routing tables (`combine_pairs`, `unit_list`)
+        # take more host time than the kernel takes on the device, so events
+        # around queued calls time the host; the kernel's own device time
+        # comes from the profiler.
+        wg0 = moe_reduce_rs_fused.wgmma_launches
+        call_ms = time_ms(lambda: moe_reduce_rs_fused(act, mlp0.down, plan,
+                                                      rs_ctx), 20)
+        ms = kernel_ms(lambda: moe_reduce_rs_fused(act, mlp0.down, plan,
+                                                   rs_ctx),
+                       "moe_reduce_rs", 20)
+        timed = moe_reduce_rs_fused.wgmma_launches - wg0
+        if ms is None:
+            print("[times] moe_reduce_rs_fused: the profiler recorded no "
+                  "device time; K10's ms is the events' time of the call")
+            ms = call_ms
         plain = time_ms(lambda: moe_reduce_rs_fused_plain(
             act, mlp0.down, plan, rows, pw.to(bf16)), 2, warmup=1)
 
@@ -1876,16 +1921,22 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         lib10 = time_ms(bmm_combine, 3)
         bms, by = moe_tp_bound("moe_reduce_rs", w, counts, e_occ, cap,
                                act.shape[-1], h, mc=x0.shape[1], pairs=kept)
-        print(f"[times] moe_reduce_rs_fused (K10) prefill layer 0 act "
+        print(f"[times] moe_reduce_rs_fused (K10, {timed} timed launches "
+              f"on the wgmma body) prefill layer 0 act "
               f"{tuple(act.shape)} @ {tuple(mlp0.down.shape)}, "
               f"{int(plan.n_blocks.sum())} occupied blocks of "
               f"{plan.pack_block_size} rows, {kept} kept pairs: {ms:.4f} ms "
+              f"(the kernel on the device; a call with the wrapper's tables "
+              f"{call_ms:.4f} ms by events around queued calls) "
               f"(bound {bms:.4f} ms by {by}, {bms / ms:.1%} of bound), plain "
               f"{plain:.4f} ms, torch.matmul over every expert + the dense "
               f"one-hot combine product + the rank sum {lib10:.4f} ms; "
               f"{card}")
         records.append(("moe_reduce_rs_fused", ms, plain, bms, by, None, {
-            "shape": "prefill layer 0", "library_loop_ms": lib10,
+            "shape": "prefill layer 0", "call_ms": call_ms,
+            "ms_note": "the kernel's device time by torch.profiler; "
+            "call_ms: CUDA events around queued wrapper calls",
+            "library_loop_ms": lib10,
             "library_note": "no single PyTorch call computes it; "
             "library_loop_ms is torch.matmul of every rank's buckets with "
             "its down shard (every expert), torch.matmul of the dense "
@@ -4071,7 +4122,8 @@ def main() -> int:
           + ", ".join(p.name for p in paths.values()))
     for lib in ("flash_attention", "flash_decode", "flash_decode_paged",
                 "grouped_matmul", "ag_gemm", "gemm_rs", "ag_group_gemm",
-                "all_to_all", "sp_ag_attention", "torus", "reduce_scatter"):
+                "moe_reduce_rs", "all_to_all", "sp_ag_attention", "torus",
+                "reduce_scatter"):
         print(f"[build] ptxas {lib}: " + "; ".join(
             f"{kernel_entry(k)} {regs} registers, spill stores {st} B, "
             f"loads {ld} B, static shared {sm} B"

@@ -289,11 +289,12 @@ def build_variant(name: str):
     return path, tmp
 
 
-def spill_sites(path: Path) -> dict:
-    """K11's Hopper kernel in the library at ``path``: its local-memory
-    loads and stores (STL, LDL) counted by the `setmaxnreg` that last
-    precedes them in the SASS (the producer warpgroup's 40, the
-    consumers' 232, or none: the code before either)."""
+def spill_sites(path: Path, kernel: str = "ag_group_gemm_wgmma") -> dict:
+    """The kernel named with ``kernel`` (K11's Hopper kernel by default) in
+    the library at ``path``: its local-memory loads and stores (STL, LDL)
+    counted by the `setmaxnreg` that last precedes them in the SASS (the
+    producer warpgroup's 40, the consumers' 232, or none: the code before
+    either)."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -303,7 +304,7 @@ def spill_sites(path: Path) -> dict:
                           text=True).stdout
     out = {}
     for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        if "ag_group_gemm_wgmma" not in body.split("\n", 1)[0]:
+        if kernel not in body.split("\n", 1)[0]:
             continue
         region = "entry"
         for line in body.splitlines():

@@ -74,9 +74,11 @@ PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 VARIANTS = {
     "base": [],
     "nostore": [("      if (rows[k] != nullptr && col + 64 * s < N)",
-                 "      if (rows[k] == nullptr && col < 0)")],
+                 "      if (rows[k] == nullptr && col < 0)",
+                 "wgmma_epilogue.cuh")],
     "nosum": [("  for (unsigned i = lo + threadIdx.x; i < hi; i += NT) {",
-               "  for (unsigned i = hi + threadIdx.x; i < hi; i += NT) {")],
+               "  for (unsigned i = hi + threadIdx.x; i < hi; i += NT) {",
+               "wgmma_epilogue.cuh")],
     "tail": [("        sched.store(t, w, wg, acc);\n      }\n    }",
               "        sched.store(t, w, wg, acc);\n      }\n"
               "      sched.tail(wg);\n    }", "wgmma_tile.cuh"),

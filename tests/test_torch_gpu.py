@@ -1736,21 +1736,47 @@ def test_ag_group_gemm_w8a8_kernel(cuda, out_dtype, world, e, cap, k, n):
     assert ag_group_gemm_w8a8.launches == before + 3
 
 
-#: (world, mc, experts, topk, capacity, k, n, dtype, routing case).
+#: (world, mc, experts, topk, capacity, k, n, dtype, routing case); bf16
+#: on 16-byte rows takes the Hopper body: world 8 (eight live boxes an
+#: expert, two units), cap 128 (two row boxes a bucket), k 96 (a stage and
+#: a half), n 200 (a partial column tile), a chunk whose pairs were all
+#: dropped; n 100 (off 16-byte rows) and f32 the first body.
 MOE_RS_CASES = [
     (2, 32, 8, 2, 16, 128, 256, torch.bfloat16, "random"),
     (4, 64, 8, 2, 32, 64, 128, torch.bfloat16, "empty"),
     (4, 32, 4, 2, 64, 64, 96, torch.float32, "one"),
     (8, 16, 4, 1, 16, 32, 64, torch.float32, "boundary"),
     (4, 48, 6, 3, 32, 40, 100, torch.bfloat16, "random"),
+    (8, 32, 4, 2, 64, 64, 128, torch.bfloat16, "random"),
+    (4, 128, 4, 2, 128, 128, 256, torch.bfloat16, "one"),
+    (4, 64, 8, 2, 64, 96, 256, torch.bfloat16, "random"),
+    (2, 64, 8, 2, 64, 128, 200, torch.bfloat16, "boundary"),
+    (4, 64, 8, 4, 64, 192, 256, torch.bfloat16, "dropped chunk"),
 ]
+
+
+def _drop_chunk(plan, c):
+    """``plan`` with every pair of chunk c dropped: no counts, blocks or
+    kept pairs there."""
+    mc = plan.combine_blocks.shape[3]
+    f = {name: t.clone() for name, t in plan._asdict().items()}
+    f["dispatch_index"][c] = mc
+    f["slot_of_pair"][c] = -1
+    for name in ("counts", "block_expert", "block_slot", "n_blocks",
+                 "combine_blocks"):
+        f[name][c] = 0
+    return type(plan)(**f)
 
 
 def _moe_rs_inputs(cuda, world, mc, e, topk, cap, k, n, dtype, case, gen):
     from triton_distributed_tpu_torch.kernels.moe_utils import plan_chunks
 
-    ids, w = _plan_case(case, world, mc, e, topk, cap, cuda)
+    dropped = case == "dropped chunk"
+    ids, w = _plan_case("random" if dropped else case, world, mc, e, topk,
+                        cap, cuda)
     plan = plan_chunks(ids, w, world, e, cap)
+    if dropped:
+        plan = _drop_chunk(plan, 1)
     a = _randn(gen, dtype, cuda, world, world, e, cap, k)
     b = _randn(gen, dtype, cuda, world, e, k, n) * (world * k) ** -0.5
     return plan, a, b
@@ -1766,13 +1792,15 @@ def test_moe_reduce_rs_fused_kernel(cuda, world, mc, e, topk, cap, k, n,
     """K10 against its plain version (the wrapper on CPU copies: tiles
     rounded to the activations' dtype, the combine in ascending expert
     order, partials rounded, the rank-order f32 sum) row by row, over 3
-    back-to-back calls; a rerun is bit-identical; one launch a call."""
+    back-to-back calls; a rerun is bit-identical; one launch a call, of
+    the Hopper body (``wgmma_launches``) for bf16 on 16-byte rows only."""
     from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
-        MoEReduceRSContext, moe_reduce_rs_fused)
+        MoEReduceRSContext, kernel_body, moe_reduce_rs_fused)
 
     gen = torch.Generator(device=cuda).manual_seed(world * 10 + mc + n)
     ctx = MoEReduceRSContext("tp", world, e, topk)
-    before = moe_reduce_rs_fused.launches
+    before = (moe_reduce_rs_fused.launches,
+              moe_reduce_rs_fused.wgmma_launches)
     for _ in range(3):
         plan, a, b = _moe_rs_inputs(cuda, world, mc, e, topk, cap, k, n,
                                     dtype, case, gen)
@@ -1783,7 +1811,12 @@ def test_moe_reduce_rs_fused_kernel(cuda, world, mc, e, topk, cap, k, n,
         _assert_rows_close("moe_reduce_rs_fused", out.cpu(), ref.float(),
                            *GEMM_TOL[dtype])
     assert torch.equal(out, moe_reduce_rs_fused(a, b, plan, ctx))
-    assert moe_reduce_rs_fused.launches == before + 4
+    body = kernel_body(a, b)
+    assert body == ("wgmma" if dtype == torch.bfloat16 and n % 8 == 0
+                    else "mma" if dtype == torch.bfloat16 else "f32")
+    assert (moe_reduce_rs_fused.launches - before[0],
+            moe_reduce_rs_fused.wgmma_launches - before[1]) == (
+        4, 4 if body == "wgmma" else 0)
 
 
 @pytest.mark.parametrize("world,mc,e,topk,cap,k,n,dtype,case", [
@@ -1805,13 +1838,42 @@ def test_moe_reduce_rs_fused_w8a8_kernel(cuda, world, mc, e, topk, cap, k,
     full = b.float().permute(1, 0, 2, 3).reshape(e, world * k, n)
     bq, bs = quantize_sym(full, 1)                 # global (E, n) scales
     bq = bq.reshape(e, world, k, n).transpose(0, 1).contiguous()
-    before = moe_reduce_rs_fused.launches
+    before = (moe_reduce_rs_fused.launches,
+              moe_reduce_rs_fused.wgmma_launches)
     out = moe_reduce_rs_fused(a, bq, plan, ctx, weight_scales=bs)
     ref = moe_reduce_rs_fused(a.cpu(), bq.cpu(), _cpu_plan(plan), ctx,
                               weight_scales=bs.cpu())
-    assert moe_reduce_rs_fused.launches == before + 1
+    assert (moe_reduce_rs_fused.launches - before[0],
+            moe_reduce_rs_fused.wgmma_launches - before[1]) == (1, 0)
     _assert_rows_close("moe_reduce_rs_fused int8", out.cpu(), ref.float(),
                        *GEMM_TOL[dtype])
+
+
+def test_moe_reduce_rs_fused_back_to_back(cuda):
+    """K10's Hopper body over 100 back-to-back calls on one instance,
+    alternating two plans (random routing at cap 64; every pair to one
+    expert at cap 128, two row boxes a bucket), queued before any check:
+    each bit for bit the single call's output on the same operands."""
+    from triton_distributed_tpu_torch.kernels.moe_reduce_rs import (
+        MoEReduceRSContext, moe_reduce_rs_fused)
+
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    world, e, topk = 4, 8, 2
+    ctx = MoEReduceRSContext("tp", world, e, topk)
+    sets = [_moe_rs_inputs(cuda, world, 64, e, topk, 64, 192, 256,
+                           torch.bfloat16, "random", gen),
+            _moe_rs_inputs(cuda, world, 128, e, topk, 128, 192, 256,
+                           torch.bfloat16, "one", gen)]
+    single = []
+    for plan, a, b in sets:
+        single.append(moe_reduce_rs_fused(a, b, plan, ctx))
+        torch.cuda.synchronize()
+    wg0 = moe_reduce_rs_fused.wgmma_launches
+    outs = [moe_reduce_rs_fused(sets[i % 2][1], sets[i % 2][2],
+                                sets[i % 2][0], ctx) for i in range(100)]
+    torch.cuda.synchronize()
+    assert moe_reduce_rs_fused.wgmma_launches == wg0 + 100
+    assert all(torch.equal(out, single[i % 2]) for i, out in enumerate(outs))
 
 
 #: (world, rows a rank, k, n): a prefill shard, a decode row a rank (32-row

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -121,41 +122,47 @@ def unit_list(counts, world: int, num_experts: int, cap: int, n: int):
     list is expert-major, then column tile, so the units that share a
     weight tile are one run.  Unit t (t < ntiles) is {e, column tile,
     box 0 | box 1 << 16, box 2 | box 3 << 16}, a box i << 3 | c and 0xFFFF
-    an empty slot; T, the most units any counts give, sizes the launch."""
-    dev = counts.device
-    e, rt = num_experts, -(-cap // UNIT_ROWS)
-    nt, per = -(-n // UNIT_N), rt * world
-    tmax = e * nt * -(-per // UNIT_BOXES)
-    i = torch.arange(rt, device=dev)
-    live = (counts.long().t()[:, None, :] > UNIT_ROWS * i[None, :, None]
-            ).reshape(e, per)
-    code = (i[:, None] * 8 + torch.arange(world, device=dev)).reshape(per)
-    units_e = (live.sum(1) + UNIT_BOXES - 1) // UNIT_BOXES
-    first = (torch.cumsum(units_e, 0) - units_e) * nt
-    col = torch.arange(nt, device=dev)[None, :, None]
-    base = first[:, None, None] + col * units_e[:, None, None]
-    rank = torch.cumsum(live.long(), 1) - 1
-    # Box slots: slot rank % 4 of unit rank // 4 of each column tile; the
-    # dead boxes go to a row past the list.
-    t = torch.where(live[:, None, :], base + rank[:, None, :] // UNIT_BOXES,
-                    tmax)
-    slots = torch.full((tmax + 1, UNIT_BOXES), 0xFFFF, dtype=torch.int64,
-                       device=dev)
-    slots.view(-1).scatter_(
-        0, (t * UNIT_BOXES + rank[:, None, :] % UNIT_BOXES).reshape(-1),
-        code.expand(e, nt, per).reshape(-1))
-    j = torch.arange(-(-per // UNIT_BOXES), device=dev)
-    tu = torch.where(j < units_e[:, None, None], base + j, tmax).reshape(-1)
-    head = torch.zeros((tmax + 1, 2), dtype=torch.int64, device=dev)
-    ex = torch.arange(e, device=dev)[:, None, None].expand(e, nt, j.numel())
-    head[:, 0].scatter_(0, tu, ex.reshape(-1))
-    head[:, 1].scatter_(0, tu, col.expand(e, nt, j.numel()).reshape(-1))
-    lo = slots[:, 0] | slots[:, 1] << 16
-    hi = slots[:, 2] | slots[:, 3] << 16
-    packed = torch.stack([head[:, 0], head[:, 1], lo, hi], 1)[:tmax]
-    units = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(
-        torch.int32)
-    return units, (units_e.sum() * nt).to(torch.int32).reshape(1)
+    an empty slot; T, the most units any counts give, sizes the launch (the
+    rows past ntiles are not units).  About 25 small kernels a call: K11
+    and K10 build a list at every MoE layer."""
+    e, nt = num_experts, -(-n // UNIT_N)
+    row0, code, t = _unit_consts(world, e, cap, n, counts.device)
+    slots = code.numel() // UNIT_BOXES           # box slots of an expert
+    # live[e, p]: box p = (i, c) of expert e holds a token; rank: its
+    # 1-based place among e's live boxes, 0 for a dead one.
+    live = (counts.t()[:, None, :] > row0[None, :, None]).reshape(e, -1)
+    rank = torch.cumsum(live, 1)
+    boxes = torch.full((e, 1 + slots * UNIT_BOXES), 0xFFFF,
+                       dtype=torch.int64, device=counts.device)
+    boxes.scatter_(1, rank * live, code[:live.shape[1]].expand_as(live))
+    # Each unit slot's two 32-bit words (signed: the high box's top bit
+    # is the word's sign), (E, slots, 2).
+    pair = boxes[:, 1:].view(e, slots, 2, 2)
+    words = pair[..., 0] + ((pair[..., 1] ^ 0x8000) - 0x8000) * 65536
+    units_e = (rank[:, -1] + UNIT_BOXES - 1) // UNIT_BOXES
+    tiles_e = units_e * nt
+    last = torch.cumsum(tiles_e, 0)
+    ex = torch.searchsorted(last, t, right=True).clamp_(max=e - 1)
+    rem = t - (last - tiles_e)[ex]
+    per_col = units_e[ex].clamp_(min=1)
+    col = rem // per_col
+    unit = words[ex, rem - col * per_col]
+    units = torch.stack([ex, col, unit[:, 0], unit[:, 1]], 1).to(torch.int32)
+    return units, last[-1:].to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_consts(world: int, num_experts: int, cap: int, n: int, device):
+    """`unit_list`'s constants: each row box's first row (rt,), the box
+    codes i << 3 | c in the order (i, c), padded with empty slots to whole
+    units, and the list's indices (T,)."""
+    rt, nt = -(-cap // UNIT_ROWS), -(-n // UNIT_N)
+    slots = -(-rt * world // UNIT_BOXES)
+    code = torch.full((slots * UNIT_BOXES,), 0xFFFF, dtype=torch.int64)
+    code[:rt * world] = (torch.arange(rt)[:, None] * 8
+                         + torch.arange(world)).reshape(-1)
+    return (torch.arange(rt, device=device) * UNIT_ROWS, code.to(device),
+            torch.arange(num_experts * nt * slots, device=device))
 
 
 def ag_group_gemm_w8a8_plain(buckets_q, scales, expert_weights_q, w_scales,

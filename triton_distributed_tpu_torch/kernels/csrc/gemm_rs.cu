@@ -83,7 +83,7 @@
 
 #include "comm_body.cuh"
 #include "gemm_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "wgmma_epilogue.cuh"
 
 namespace {
 
@@ -203,9 +203,12 @@ namespace comm = tdt::comm;
 using WgTile64 = wg::Tile<1, 5>;
 using WgTile128 = wg::Tile<2, 4>;
 
-//: The crew (the producer warpgroup's warps 1-3) syncs on named barrier 1,
-//: the consumer warpgroups on named barrier 2.
-constexpr int CREW_THREADS = 96, CREW_BARRIER = 1, STORE_BARRIER = 2;
+using wg::consumers_sync;
+using wg::piece_row;
+using wg::reduce_partials;
+using wg::SLAB_BYTES;
+using wg::store_pieces;
+using wg::wait_entered;
 
 struct WgArgs {
   CUtensorMap ta;       // a (R, W mc, k): fused (k, mc, R W), ll (k, W mc, R)
@@ -218,178 +221,11 @@ struct WgArgs {
   u64 epoch;            // the instance's sum of P before this call
 };
 
-// The C consumer warpgroups of a block (threads [0, 128 C)) meet.
-template <int C>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(STORE_BARRIER), "n"(C * wg::WG)
-               : "memory");
-}
-
-// Consumer thread i < n waits until words[i] holds ``target``; then the
-// consumers meet, and the partials the words announce may be read through
-// L2 (`dl::wait` on the consumers).
-template <int C>
-__device__ __forceinline__ void consumers_wait(const u64* words, int n,
-                                               u64 target) {
-  const int i = threadIdx.x;
-  if (i < n)
-    dl::signal_wait_until(words + i, target, tdt::WAIT_GEMM_RS_PARTIAL);
-  consumers_sync<C>();
-}
-
-// The crew: the entry barrier, then the consumers may store into the
-// peers' buffers (a peer has left the last call's reads of them).
-__device__ __forceinline__ void enter(const WgArgs& p, uint64_t* entered,
-                                      u64 target, int i) {
-  const comm::Crew c{i, CREW_THREADS, CREW_BARRIER};
-  comm::crew_entry_barrier(p.team, p.sig, target, /*neighbors_only=*/false,
-                           c);
-  if (i == 0) tdt::mbar_arrive(entered);
-}
-
-// A consumer's first store waits for the crew's entry barrier.
-__device__ __forceinline__ void wait_entered(uint64_t* entered, bool& open) {
-  if (!open) {
-    tdt::mbar_wait(entered, 0);
-    open = true;
-  }
-}
-
-// ---- the epilogue: 16-byte row pieces through a slab a warp ---------------
-//
-// A consumer warp holds 16 rows of its warpgroup's 64 as `wgmma`
-// fragments (row lane / 4 and + 8, columns 8 j + 2 (lane % 4) and + 1).
-// Stored as they are, each instruction writes 8 pieces of 4 bytes.  So a
-// warp rounds its accumulators to bf16 into a slab of shared memory beside
-// the ring, 64 columns at a time (16 rows of 128 bytes, the 16-byte chunk j
-// of row i at j ^ (i % 8): no bank conflict either way), and reads them back
-// as 16-byte pieces of a row, 8 lanes a row: 128 contiguous bytes a row.
-
-//: A warp's slab, and the slabs of a block's C consumer warpgroups, at
-//: the start of the dynamic shared memory, the ring after them.
-constexpr int SLAB_BYTES = 16 * 128;
+//: The slabs of a block's consumer warps, a warp's each, at the start of the
+//: dynamic shared memory, the ring after them.
 template <class Tile>
 constexpr int EPI_BYTES = Tile::BM / 16 * SLAB_BYTES;
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// Columns [64 s, 64 s + 64) of a consumer warp's accumulators, rounded to
-// bf16, into its slab.
-template <int R>
-__device__ __forceinline__ void to_slab(uint8_t* slab, int s,
-                                        const float (&acc)[R]) {
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const int j = 8 * s + jj;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = lane / 4 + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(
-          slab + i * 128 + (jj ^ (i % 8)) * 16 + (lane % 4) * 4) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
-// A lane's piece k (0 .. 3) of its warp's slab: row lane / 8 + 4 k of the
-// warp's 16, columns 8 (lane % 8) .. + 8 of the slab's 64.
-__device__ __forceinline__ uint4 slab_piece(const uint8_t* slab, int k) {
-  const int lane = threadIdx.x % 32, i = lane / 8 + 4 * k, c = lane % 8;
-  return *reinterpret_cast<const uint4*>(slab + i * 128 + (c ^ (i % 8)) * 16);
-}
-
-// The row of the warpgroup's 64 that a lane's piece k (0 .. 3) of every
-// slab lies in.
-__device__ __forceinline__ int piece_row(int k) {
-  return threadIdx.x % wg::WG / 32 * 16 + threadIdx.x % 32 / 8 + 4 * k;
-}
-
-// The accumulators of a consumer warp, rounded to bf16, stored as 16-byte
-// pieces: a lane's piece k of every slab goes to ``rows[k]`` (its row's
-// destination, null past the chunk) at the slab's columns, from ``col0``,
-// that lie below ``N``.
-template <int R>
-__device__ __forceinline__ void store_pieces(uint8_t* slab,
-                                             const float (&acc)[R],
-                                             bf16* const (&rows)[4], int col0,
-                                             int N) {
-  const int col = col0 + 8 * (threadIdx.x % 8);
-#pragma unroll
-  for (int s = 0; s < R / 32; ++s) {
-    to_slab(slab, s, acc);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (rows[k] != nullptr && col + 64 * s < N)
-        *reinterpret_cast<uint4*>(rows[k] + col + 64 * s) =
-            slab_piece(slab, k);
-    __syncwarp();
-  }
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-// One 16-byte piece of the f32 sum, in rank order 0 .. W-1, of ``world``
-// partials rounded to bf16, rank q's at ``src + q * slot`` (read through
-// L2); four ranks' loads at a time go out before their sums.  Stored to
-// ``dst``.  The sums run in the epilogue, where the live accumulators
-// leave about 70 registers, so a lane holds one piece at a time.
-__device__ __forceinline__ void sum_piece(bf16* dst, const bf16* src,
-                                          size_t slot, int world) {
-  float sum[8];
-  for (int q0 = 0; q0 < world; q0 += 4) {
-    uint4 raw[4];
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq)
-      if (q0 + qq < world)
-        raw[qq] =
-            __ldcg(reinterpret_cast<const uint4*>(src + (q0 + qq) * slot));
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq)
-      if (q0 + qq < world) {
-        float f[8];
-        unpack8(raw[qq], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          sum[e] = q0 + qq == 0 ? f[e] : sum[e] + f[e];
-      }
-  }
-  comm::store8(dst, sum);
-}
-
-// out = the sum of the W partials of ``src`` (W slots of ``elems``
-// elements, a multiple of 8) over block ``part`` of ``parts``'s share,
-// with the consumers' 128 C threads, a piece of 8 a thread at a time, the
-// next piece's prefetched into L2 (32-bit counts: a 64-bit division is a
-// call, and a call serializes the `wgmma`s).
-template <int C>
-__device__ __forceinline__ void reduce_partials(const bf16* src, bf16* out,
-                                                int world, unsigned elems,
-                                                int part, int parts) {
-  constexpr unsigned NT = C * wg::WG;
-  const unsigned units = elems / 8;
-  const unsigned share = (units + parts - 1) / (unsigned)parts;
-  const unsigned start = (unsigned)part * share;
-  const unsigned lo = start < units ? start : units;
-  const unsigned hi = units - lo < share ? units : lo + share;
-  for (unsigned i = lo + threadIdx.x; i < hi; i += NT) {
-    if (i + NT < hi)
-      for (int q = 0; q < world; ++q)
-        prefetch_l2(src + (size_t)q * elems + (size_t)(i + NT) * 8);
-    sum_piece(out + (size_t)i * 8, src + (size_t)i * 8, elems, world);
-  }
-}
 
 // `fused`: tile t is tile t % tpc of step s = t / tpc, whose chunk is (r +
 // 1 + s) mod W, m fastest.
@@ -419,7 +255,7 @@ struct FusedSched {
   // a block whose first tile is in its own chunk never waits for its peers
   // before signalling them.
   __device__ __forceinline__ void side(int i) {
-    enter(*p, entered, target, i);
+    wg::crew_enter(p->team, p->sig, entered, target, i);
     if (i < done) dl::notify(p->sig[chunk(i)] + dl::ARRIVAL_WORD + me);
   }
   __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
@@ -452,7 +288,8 @@ struct FusedSched {
     // After the block's last tile: once every block of every rank has
     // delivered its partial of the own chunk, the rank's blocks sum it.
     if (t + (int)gridDim.x >= world * tpc) {
-      consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target);
+      wg::consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target,
+                            tdt::WAIT_GEMM_RS_PARTIAL);
       reduce_partials<C>(reinterpret_cast<const bf16*>(p->rbuf[me]),
                          p->out + y * slot, world, (unsigned)slot,
                          blockIdx.x, gridDim.x);
@@ -478,7 +315,7 @@ struct LlSched {
   __device__ __forceinline__ bool pending(int) const { return false; }
   __device__ __forceinline__ void ready(int) {}
   __device__ __forceinline__ void side(int i) {
-    enter(*p, entered, target, i);
+    wg::crew_enter(p->team, p->sig, entered, target, i);
   }
   __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
                                         const float (&acc)[Tile::ACC]) {
@@ -505,7 +342,8 @@ struct LlSched {
     consumers_sync<C>();
     if ((int)threadIdx.x < world)
       dl::notify(p->sig[threadIdx.x] + dl::ARRIVAL_WORD + me);
-    consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target);
+    wg::consumers_wait<C>(p->sig[me] + dl::ARRIVAL_WORD, world, target,
+                          tdt::WAIT_GEMM_RS_PARTIAL);
     reduce_partials<C>(reinterpret_cast<const bf16*>(p->rbuf[me]),
                        p->out + y * slot, world, (unsigned)slot, blockIdx.x,
                        gridDim.x);

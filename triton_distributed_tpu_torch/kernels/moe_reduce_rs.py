@@ -12,17 +12,26 @@ over the ranks, (mc, n).
 - `moe_reduce_rs`: the staged golden, `grouped_matmul` (K8) of every
   rank's buckets, `moe_utils.combine_tokens`, then `reduce_scatter` (K16).
 - `moe_reduce_rs_fused` (K10): one cooperative launch over every rank of
-  ``csrc/moe_reduce_rs.cu``.  Per chunk, in the order (r + 1 + s) mod W:
-  the packed grouped GEMM over the chunk's occupied blocks
-  (`moe_utils.plan_chunks`), each tile rounded to the activations' dtype;
-  then each token's kept pairs (`moe_utils.combine_pairs`, ascending
-  expert order) weighted by the bf16-rounded combine weight and summed in
-  f32; the partial rounded to the activations' dtype and stored into slot
-  r of rank c's receive buffer; last, the W partials summed in f32 in
-  rank order.  With int8 weights (and their (E, n) scales) the buckets are
-  quantized per token and the GEMM is int8 with the dequant epilogue
-  (float(acc) * sa) * sw, as the JAX kernel's.  The plain version,
-  `moe_reduce_rs_fused_plain`, keeps the same roundings and orders.
+  ``csrc/moe_reduce_rs.cu``: the packed grouped GEMM of every chunk's
+  occupied rows (`moe_utils.plan_chunks`), each row rounded to the
+  activations' dtype into the chunk's packed stage; then, chunk by chunk
+  in the order (r + 1 + s) mod W, each token's kept pairs
+  (`moe_utils.combine_pairs`, ascending expert order) weighted by the
+  bf16-rounded combine weight and summed in f32, the partial rounded to
+  the activations' dtype and stored into slot r of rank c's receive
+  buffer; last, the W partials summed in f32 in rank order.  bf16 on
+  16-byte rows (`kernel_body`; every main-path call) runs the Hopper body:
+  K11's units (`allgather_group_gemm.unit_list`), each one expert's
+  column tile of 128 times up to four 64-row boxes of its live buckets, so
+  a rank loads each tile of its down shard once for every chunk's rows,
+  and only the counted rows are staged (`wgmma_stores`, the plain model of
+  its stores).  f32, int8 weights and bf16 off 16-byte rows run the first
+  body: chunk by chunk, the GEMM of the chunk's occupied blocks, a barrier
+  of the rank's blocks, the combine.  With int8 weights (and their (E, n)
+  scales) the buckets are quantized per token and the GEMM is int8 with
+  the dequant epilogue (float(acc) * sa) * sw, as the JAX kernel's.  The
+  plain version, `moe_reduce_rs_fused_plain`, keeps the same roundings and
+  orders.
 
 On a CPU tensor the wrappers compute the plain versions.
 """
@@ -36,6 +45,8 @@ import torch
 
 from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build, moe_utils
+from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
+    UNIT_ROWS, unit_list)
 from triton_distributed_tpu_torch.kernels.grouped_gemm import (
     grouped_matmul, packed_combine_reference, packed_matmul_reference)
 from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
@@ -47,6 +58,8 @@ from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"moe_reduce_rs": [_P] * 13 + [_I] * 11 + [
+    ctypes.c_uint64, ctypes.POINTER(_I), _P],
+               "moe_reduce_rs_wgmma": [_P] * 12 + [_I] * 9 + [
     ctypes.c_uint64, ctypes.POINTER(_I), _P]}
 
 
@@ -103,6 +116,51 @@ def moe_reduce_rs_fused_plain(buckets, expert_weights, plan, rows, weights,
                         for c in range(world)])
 
 
+def kernel_body(buckets, expert_weights) -> str:
+    """The K10 body a launch on these operands runs: "wgmma" for bf16
+    activations and weights on 16-byte rows (k and n multiples of 8, both
+    operands 16-byte aligned), "int8" for int8 weights (K7's tile), "mma"
+    for other bf16 (the `mma.sync` tile), "f32" (CUDA cores).  By operand
+    only; nothing falls back on a failure."""
+    if expert_weights.dtype == torch.int8:
+        return "int8"
+    if buckets.dtype != torch.bfloat16:
+        return "f32"
+    k, n = buckets.shape[-1], expert_weights.shape[-1]
+    aligned = (buckets.data_ptr() % 16 == 0
+               and expert_weights.data_ptr() % 16 == 0)
+    return "wgmma" if k % 8 == 0 and n % 8 == 0 and aligned else "mma"
+
+
+def wgmma_stores(counts, world: int, num_experts: int, cap: int, n: int,
+                 block: int) -> dict:
+    """A plain model of the Hopper body's stores into the packed stage, one
+    entry a stored row: for each unit of `unit_list` (its int4 entries
+    decoded as the kernel does) and each live box (row box i, chunk c), the
+    rows 64 i + j below ``counts[c, e]``, each to row ``base[c, e] + 64 i +
+    j`` of chunk c's stage (base: the expert's first packed block times
+    ``block``).  Returns 1-D int64 tensors "unit", "chunk", "expert",
+    "slot" (the bucket row), "row" (the stage row) and "col" (the column
+    tile of 128)."""
+    counts = counts.long()
+    units, ntiles = unit_list(counts, world, num_experts, cap, n)
+    units = units[:int(ntiles)].long()
+    _, off = moe_utils._block_offsets(counts, block)
+    boxes = torch.stack((units[:, 2], units[:, 2] >> 16, units[:, 3],
+                         units[:, 3] >> 16), 1) & 0xFFFF       # (T, 4)
+    live = boxes != 0xFFFF
+    t = live.nonzero()[:, 0]
+    code = boxes[live]
+    c, e = code & 7, units[t, 0]
+    slot = (code >> 3)[:, None] * UNIT_ROWS + torch.arange(UNIT_ROWS)
+    kept = slot < counts[c, e][:, None]
+    row = off[c, e][:, None] * block + slot
+    per_row = (lambda x: x[:, None].expand_as(slot)[kept])
+    return {"unit": per_row(t), "chunk": per_row(c), "expert": per_row(e),
+            "slot": slot[kept], "row": row[kept],
+            "col": per_row(units[t, 1])}
+
+
 def moe_reduce_rs_fused(buckets, expert_weights, plan: moe_utils.ChunkPlan,
                         ctx: MoEReduceRSContext, weight_scales=None):
     """buckets (W, W, E, cap, k_loc): rank r's activated buckets of every
@@ -144,21 +202,25 @@ def moe_reduce_rs_fused(buckets, expert_weights, plan: moe_utils.ChunkPlan,
     if buckets.device.type == "cpu":
         return moe_reduce_rs_fused_plain(buckets, expert_weights, plan, rows,
                                          weights, scales, weight_scales)
-    out = _launch(buckets, expert_weights, scales, weight_scales, plan,
-                  rows, weights, ctx, dtype)
+    if kernel_body(buckets, expert_weights) == "wgmma":
+        out = _launch_wgmma(buckets, expert_weights, plan, rows, weights, ctx)
+        moe_reduce_rs_fused.wgmma_launches += 1
+    else:
+        out = _launch(buckets, expert_weights, scales, weight_scales, plan,
+                      rows, weights, ctx, dtype)
     moe_reduce_rs_fused.launches += 1
     return out
 
 
 moe_reduce_rs_fused.launches = 0
+moe_reduce_rs_fused.wgmma_launches = 0
 
 
-def _launch(a, b, scales, w_scales, plan, rows, weights, ctx, dtype):
-    world, _, e, cap, k = a.shape
-    n = b.shape[3]
-    mc, topk = rows.shape[1:]
-    t_max, block = plan.num_blocks_static, plan.pack_block_size
-    dev = a.device
+def _check_launch(a, b, scales, dtype, named):
+    """Raise unless the launch's operands suit the kernels; ``named``:
+    (name, tensor or None) of every operand, each contiguous on a's
+    device."""
+    world, k = a.shape[0], a.shape[4]
     if not 2 <= world <= MAX_WORLD or dtype not in _build.DTYPE_CODES:
         raise ValueError(f"moe_reduce_rs_fused: world {world} (2 to "
                          f"{MAX_WORLD}), activations {dtype}")
@@ -168,19 +230,68 @@ def _launch(a, b, scales, w_scales, plan, rows, weights, ctx, dtype):
     if scales is None and b.dtype != dtype:
         raise ValueError(f"moe_reduce_rs_fused: weights {b.dtype}, "
                          f"activations {dtype}")
+    for nm, t in named:
+        if t is not None and (t.device != a.device or not t.is_contiguous()):
+            raise ValueError(f"moe_reduce_rs_fused: {nm} not contiguous on "
+                             f"{a.device}")
+
+
+def _instance(ctx, world, dtype, dev, int8, mc, n):
+    """The call's symmetric instance and its (W, mc, n) receive buffer: the
+    bf16 bodies share one (each block of either adds W to its rank's local
+    word a call, one arrival a chunk)."""
+    inst = symmetric_buffers("moe_reduce_rs", ctx.collective_id,
+                             "int8" if int8 else "fused", dtype, world, dev)
+    return inst, inst.buffer("rbuf", (world, mc, n), dtype)
+
+
+def _launch_wgmma(a, b, plan, rows, weights, ctx):
+    """One launch of the Hopper body of csrc/moe_reduce_rs.cu over every
+    rank."""
+    world, _, e, cap, k = a.shape
+    n = b.shape[3]
+    mc, topk = rows.shape[1:]
+    block = plan.pack_block_size
+    trows = plan.num_blocks_static * block
+    dev = a.device
+    counts = plan.counts.to(torch.int32).contiguous()
+    _, off = moe_utils._block_offsets(counts, block)
+    base = (off * block).to(torch.int32).contiguous()
+    units, ntiles = unit_list(counts, world, e, cap, n)
+    _check_launch(a, b, None, a.dtype, (
+        ("buckets", a), ("weights", b), ("rows", rows),
+        ("combine weights", weights)))
+    inst, rbuf = _instance(ctx, world, a.dtype, dev, False, mc, n)
+    # Each rank's packed stage of every chunk.
+    stage = torch.empty((world, world, trows, n), dtype=a.dtype, device=dev)
+    out = torch.empty((world, mc, n), dtype=a.dtype, device=dev)
+    blocks = ctypes.c_int(0)
+    lib = _build.load_library("moe_reduce_rs", _SIGNATURES)
+    rc = lib.moe_reduce_rs_wgmma(
+        a.data_ptr(), b.data_ptr(), units.data_ptr(), ntiles.data_ptr(),
+        counts.data_ptr(), base.data_ptr(), rows.data_ptr(),
+        weights.data_ptr(), stage.data_ptr(), out.data_ptr(),
+        inst.peers(rbuf), inst.signal_peers(), world, e, cap, k, n, mc,
+        trows, topk, units.shape[0], inst.epoch, ctypes.byref(blocks),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "moe_reduce_rs_fused (wgmma) kernel launch")
+    inst.advance(blocks.value)
+    return out
+
+
+def _launch(a, b, scales, w_scales, plan, rows, weights, ctx, dtype):
+    world, _, e, cap, k = a.shape
+    n = b.shape[3]
+    mc, topk = rows.shape[1:]
+    t_max, block = plan.num_blocks_static, plan.pack_block_size
+    dev = a.device
     tables = [t.to(torch.int32).contiguous() for t in (
         plan.block_expert, plan.block_slot, plan.n_blocks)]
-    for nm, t in (("buckets", a), ("weights", b), ("scales", scales),
-                  ("weight_scales", w_scales), ("rows", rows),
-                  ("combine weights", weights), *zip(("tables",) * 3,
-                                                     tables)):
-        if t is not None and (t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"moe_reduce_rs_fused: {nm} not contiguous on "
-                             f"{dev}")
-    inst = symmetric_buffers("moe_reduce_rs", ctx.collective_id,
-                             "int8" if scales is not None else "fused",
-                             dtype, world, dev)
-    rbuf = inst.buffer("rbuf", (world, mc, n), dtype)
+    _check_launch(a, b, scales, dtype, (
+        ("buckets", a), ("weights", b), ("scales", scales),
+        ("weight_scales", w_scales), ("rows", rows),
+        ("combine weights", weights), *zip(("tables",) * 3, tables)))
+    inst, rbuf = _instance(ctx, world, dtype, dev, scales is not None, mc, n)
     # Each rank's two packed stages (chunks alternate between them).
     stage = torch.empty((world, 2, t_max * block, n), dtype=dtype,
                         device=dev)
