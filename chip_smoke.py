@@ -297,6 +297,29 @@ K3_KV_LEN = (1, 15, 16, 17, 513, 1000, 1928, 2048)
 #: and of a decode batch of 8 slots (and a ragged count for K7's check).
 MLP_HIDDEN, MLP_FFN = 4096, 12288
 W8A8_ROWS = (2048, 8)
+#: K7's checks, label -> (m, k, n, out dtype): the W8A8 layer's gate_up (out
+#: bf16) and down (out f32) at its 2048 and 8 rows, world 4's down a rank
+#: (`TPMLP._forward_w8a8_tp`: 2048 rows x ffn / 4), then the edges: a ragged
+#: m on the 128-row tile, n off 16 (1000: the slab epilogue) and odd (999:
+#: by element), k off 128 (208), and a ragged 64-row k split.  The first
+#: five are timed (K7_TIMED).
+K7_SHAPES = {
+    "gate_up 2048": (2048, MLP_HIDDEN, 2 * MLP_FFN, torch.bfloat16),
+    "down 2048": (2048, MLP_FFN, MLP_HIDDEN, torch.float32),
+    "gate_up 8": (8, MLP_HIDDEN, 2 * MLP_FFN, torch.bfloat16),
+    "down 8": (8, MLP_FFN, MLP_HIDDEN, torch.float32),
+    "world-4 down 2048": (2048, MLP_FFN // 4, MLP_HIDDEN, torch.float32),
+    "ragged m": (300, MLP_HIDDEN, 1000, torch.bfloat16),
+    "odd n": (37, 1024, 999, torch.bfloat16),
+    "odd n f32": (130, 1024, 999, torch.float32),
+    "k off 128": (130, 208, 640, torch.bfloat16),
+    "ragged split": (33, 8192, 1000, torch.bfloat16),
+}
+K7_TIMED = tuple(K7_SHAPES)[:5]
+#: The wrappers on the int8 Hopper tile: every launch on it
+#: (``wgmma_launches`` == ``launches``), and no call transposes a weight
+#: (``transposes`` stays 0).
+W8A8_TILE_WRAPPERS = ("matmul_w8a8", "ag_group_gemm_w8a8")
 
 #: Qwen3-30B-A3B as `ModelConfig` fields, from its published config
 #: (huggingface.co/Qwen/Qwen3-30B-A3B, config.json): hidden 2048, 48
@@ -409,6 +432,12 @@ def kernel_ms(fn, key: str, iters: int):
     return us / 1e3 / iters if us else None
 
 
+def w8a8_tile_counts(wrapper) -> list[int]:
+    """A wrapper on the int8 Hopper tile's launches, launches on the tile,
+    and weight transposes."""
+    return [wrapper.launches, wrapper.wgmma_launches, wrapper.transposes]
+
+
 def wall_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -441,7 +470,8 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 #: breakdown (first match wins); the port's own kernels first.
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
-                      "w8a8_kernel", "grouped_tile_", "wgmma_grouped_",
+                      "w8a8_kernel", "w8a8_wgmma_", "grouped_tile_",
+                      "wgmma_grouped_",
                       "ag_gemm_", "gemm_rs_", "ag_group_gemm_",
                       "moe_reduce_rs_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
@@ -1470,8 +1500,10 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         ctx = AGGroupGEMMContext("tp", world, e)
         n = 2 * ffn // world
         if int8:
+            # Weights stored K-major, as `MoEMLP` stores them at world W.
             wq, ws = wts if wts else quantize_sym(
                 randn(world, e, h, n, dtype=f32), 2)
+            wq = wq.transpose(-1, -2).contiguous().transpose(-1, -2)
             out = ag_group_gemm_w8a8(a, wq, ws, ctx, counts=plan.counts)
             a_q, sa = quantize_sym(a, -1)
             return out, lambda: ag_group_gemm_w8a8_plain(
@@ -1545,6 +1577,7 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
             *TP_TOL[bf16], 0.1))
 
     # -- 1. kernels vs plain ---------------------------------------------
+    k11q0 = w8a8_tile_counts(ag_group_gemm_w8a8)
     print(f"[moe tp path] K11, K11-int8, K10 (bf16 and int8 weights) and "
           f"K13 against their plain versions; bf16 row bound {TP_TOL[bf16]} "
           f"with floor 0.1, the int8 GEMMs bit for bit; Qwen3-30B-A3B's "
@@ -1593,6 +1626,13 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
                                      "with its plain version")
             del runs
             torch.cuda.empty_cache()
+    got = [a - b for a, b in zip(w8a8_tile_counts(ag_group_gemm_w8a8),
+                                 k11q0)]
+    print(f"  ag_group_gemm_w8a8: {got[0]} launches, {got[1]} on the int8 "
+          f"Hopper tile, {got[2]} weight transposes")
+    if got[1] != got[0] or got[2]:
+        raise AssertionError("K11-int8 off the int8 Hopper tile, or a weight "
+                             "transposed")
     # K11's Hopper body on m64n128k16 against K8's m64n256k16 tile: by the
     # tile promise every row of a live row tile has K8's bits.
     for world in MOE_TP_WORLDS:
@@ -1865,11 +1905,38 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
             "shape": "prefill layer 0", "library_note": note.format(
                 "torch.matmul of the gathered buckets (E, W cap, h) with the "
                 "ranks' weights")}))
-        # K11-int8
-        ms = time_ms(lambda: ag_group_gemm_w8a8(
-            buckets, mlp8.gate_up_q, mlp8.gate_up_scale, ctx, counts=counts),
-            20)
+        # K11-int8 on layer 0's int8 weights (stored K-major by the layer):
+        # TP_REPEATS back-to-back calls, each held to the plain version bit
+        # for bit by a comparison queued behind it (so no output outlives
+        # its check); then the kernel's own ms from torch.profiler (the
+        # wrapper quantizes the buckets and builds the unit list: events
+        # around queued calls time that too, the call ms beside it).
         bq, sa = quantize_sym(buckets, -1)
+        ref8 = ag_group_gemm_w8a8_plain(bq, sa, mlp8.gate_up_q,
+                                        mlp8.gate_up_scale, bf16, counts)
+        before = w8a8_tile_counts(ag_group_gemm_w8a8)
+        flags = [torch.ne(ag_group_gemm_w8a8(
+            buckets, mlp8.gate_up_q, mlp8.gate_up_scale, ctx,
+            counts=counts), ref8).any() for _ in range(TP_REPEATS)]
+        torch.cuda.synchronize()
+        bad = int(torch.stack(flags).sum())
+        got = [a - b for a, b in zip(w8a8_tile_counts(ag_group_gemm_w8a8),
+                                     before)]
+        print(f"  ag_group_gemm_w8a8 (K11-int8) layer 0's buckets at world "
+              f"{w} with counts: {TP_REPEATS} back-to-back calls, {bad} differ "
+              f"from the plain version; launches {got[0]}, on the int8 "
+              f"Hopper tile {got[1]}, weight transposes {got[2]}")
+        if bad or got != [TP_REPEATS, TP_REPEATS, 0]:
+            raise AssertionError("K11-int8 differs from its plain version on "
+                                 "layer 0's buckets, or off the int8 tile")
+        del ref8, flags
+
+        def k11q():
+            return ag_group_gemm_w8a8(buckets, mlp8.gate_up_q,
+                                      mlp8.gate_up_scale, ctx, counts=counts)
+
+        call8 = time_ms(k11q, 20)
+        ms = kernel_ms(k11q, "ag_group_gemm_wgmma", 20) or call8
         plain = time_ms(lambda: ag_group_gemm_w8a8_plain(
             bq, sa, mlp8.gate_up_q, mlp8.gate_up_scale, bf16, counts), 2,
             warmup=1)
@@ -1884,11 +1951,13 @@ def moe_tp_path(dev, card: str, counted, expect, short, records,
         bms, by = moe_tp_bound("ag_group_gemm", w, counts, e_occ, cap, h,
                                n_gu, int8=True)
         print(f"[times] ag_group_gemm_w8a8 (K11-int8) the same buckets on "
-              f"layer 0's int8 weights: {ms:.4f} ms (bound {bms:.4f} ms by "
-              f"{by}, {bms / ms:.1%} of bound), plain (float64) {plain:.4f} "
-              f"ms, {w} x {e} torch._int_mm {lib8:.4f} ms; {card}")
+              f"layer 0's int8 weights: kernel {ms:.4f} ms, call {call8:.4f} "
+              f"ms (bound {bms:.4f} ms by {by}, {bms / ms:.1%} of bound), "
+              f"plain (float64) {plain:.4f} ms, {w} x {e} torch._int_mm "
+              f"{lib8:.4f} ms; {card}")
         records.append(("ag_group_gemm_w8a8", ms, plain, bms, by, None, {
             "shape": "prefill layer 0", "library_loop_ms": lib8,
+            "call_ms": call8,
             "library_note": f"no single PyTorch call computes it; "
             f"library_loop_ms is a loop of {w} x {e} torch._int_mm calls "
             "(no epilogue, no gather)"}))
@@ -4092,7 +4161,7 @@ def main() -> int:
     from triton_distributed_tpu_torch.kernels.matmul import (
         matmul, matmul_reference)
     from triton_distributed_tpu_torch.kernels.quantized import (
-        matmul_w8a8, matmul_w8a8_reference, quantize_sym)
+        matmul_w8a8, matmul_w8a8_reference, plan_w8a8, quantize_sym)
     from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
     from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP, mlp_w8a8
     from triton_distributed_tpu_torch.serving import (
@@ -4334,33 +4403,40 @@ def main() -> int:
                                  "decode")
     del kq, vq, ksq, vsq, dense, pools
 
-    # K7 at the Qwen3-8B MLP shapes: activations quantized per row from
-    # bf16, weights per output channel from N(0, 1/hidden) bf16 draws.
-    # Against the exact plain version: f32 out bit-identical, bf16 out
-    # equal after the cast (int32 accumulation is exact and the epilogue
-    # multiplies in the same order).
-    w8 = {}
-    for nm, (k, n) in (("gate_up", (MLP_HIDDEN, 2 * MLP_FFN)),
-                       ("down", (MLP_FFN, MLP_HIDDEN))):
-        w8[nm] = quantize_sym(randn(k, n) * k ** -0.5, 0)
+    # K7 at every shape of K7_SHAPES: activations quantized per row from
+    # bf16, weights per output channel from N(0, 1/k) bf16 draws and stored
+    # K-major as the layers store them (read in place, no transpose a
+    # call).  TP_REPEATS back-to-back calls at each, on four activation
+    # sets in turn, queued before any check: every output bit for bit the
+    # exact plain version (int32 accumulation is exact and the epilogue
+    # multiplies in the same order, whatever the tile or k split), every
+    # launch on the int8 Hopper tile.
     w8_rows = {}
-    for m in W8A8_ROWS + (37,):
-        for nm, (b_q, sb) in w8.items():
-            a_q, sa = quantize_sym(randn(m, b_q.shape[0]), 1)
-            w8_rows[(m, nm)] = (a_q, b_q, sa, sb)
-            for out_dtype in (torch.float32, torch.bfloat16):
-                got = matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
-                want = matmul_w8a8_reference(a_q, b_q, sa, sb,
-                                             out_dtype=out_dtype)
-                torch.cuda.synchronize()
-                same = torch.equal(got, want)
-                print(f"  matmul_w8a8 {nm} ({m}x{b_q.shape[0]})@"
-                      f"({b_q.shape[0]}x{b_q.shape[1]}) out {out_dtype}: "
-                      f"{'bit-identical' if same else 'DIFFER'} to the exact "
-                      "plain version")
-                if not same:
-                    raise AssertionError("matmul_w8a8 differs from its plain "
-                                         "version")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, (m, k, n, out_dtype) in K7_SHAPES.items():
+        b_q, sb = quantize_sym(randn(k, n) * k ** -0.5, 0)
+        b_q = b_q.t().contiguous().t()
+        sets = [quantize_sym(randn(m, k), 1) for _ in range(4)]
+        w8_rows[label] = (sets[0][0], b_q, sets[0][1], sb, out_dtype)
+        before = w8a8_tile_counts(matmul_w8a8)
+        outs = [matmul_w8a8(sets[i % 4][0], b_q, sets[i % 4][1], sb,
+                            out_dtype=out_dtype) for i in range(TP_REPEATS)]
+        torch.cuda.synchronize()
+        got = [a - b for a, b in zip(w8a8_tile_counts(matmul_w8a8), before)]
+        plains = [matmul_w8a8_reference(a, b_q, sa, sb, out_dtype=out_dtype)
+                  for a, sa in sets]
+        bad = sum(not torch.equal(o, plains[i % 4])
+                  for i, o in enumerate(outs))
+        plan = plan_w8a8(m, n, k, sms)
+        print(f"  matmul_w8a8 {label} ({m}x{k})@({k}x{n}) out {out_dtype}, "
+              f"tile {plan.rows}x{plan.tn}, k in {plan.split} range(s): "
+              f"{TP_REPEATS} back-to-back calls, {bad} differ from the exact "
+              f"plain version; launches {got[0]}, on the wgmma tile "
+              f"{got[1]}, weight transposes {got[2]}")
+        if bad or got != [TP_REPEATS, TP_REPEATS, 0]:
+            raise AssertionError(f"matmul_w8a8 {label}: differs from its "
+                                 "plain version or off the int8 tile")
+        del outs, plains, sets
 
     # K4 (dq) and K5 (dk, dv): the flash backward on K1's out and lse and a
     # random cotangent, against the plain version on the same inputs, held
@@ -4565,18 +4641,31 @@ def main() -> int:
                 "reduce_scatter_torus": reduce_scatter_torus,
                 "ag_gemm_torus": ag_gemm_torus}
     total_launches = dict.fromkeys(KERNELS, 0)
+    tile_totals = {nm: [0, 0, 0] for nm in W8A8_TILE_WRAPPERS}
 
     def counted(fn):
         """Run ``fn`` with every kernel's launch count set to 0 just before
         it, add the counts read just after to the totals of the main
-        paths, and return them."""
+        paths, and return them.  Every launch of a W8A8_TILE_WRAPPERS
+        kernel must be on the int8 Hopper tile, with no weight
+        transposed."""
         for _, wrapper, attr, _ in KERNELS.values():
             setattr(wrappers[wrapper], attr, 0)
+        for nm in W8A8_TILE_WRAPPERS:
+            wrappers[nm].wgmma_launches = wrappers[nm].transposes = 0
         fn()
         got = {nm: getattr(wrappers[wrapper], attr)
                for nm, (_, wrapper, attr, _) in KERNELS.items()}
         for nm, n in got.items():
             total_launches[nm] += n
+        for nm in W8A8_TILE_WRAPPERS:
+            n, on_tile, transposed = w8a8_tile_counts(wrappers[nm])
+            tile_totals[nm] = [a + b for a, b in zip(tile_totals[nm], (
+                n, on_tile, transposed))]
+            if on_tile != n or transposed:
+                raise AssertionError(
+                    f"{nm}: {n} launches, {on_tile} on the int8 Hopper tile, "
+                    f"{transposed} weight transposes")
         return got
 
     def expect(**nonzero):
@@ -5090,46 +5179,63 @@ def main() -> int:
     records.append(("flash_decode_paged_int8", ms, plain, bms, by, lib))
     del k3q_pools
 
-    # K7 at the W8A8 layer path's shapes (its 2048 and 8 rows, gate_up out
-    # bf16 and down out f32, as the layer calls it).  Yardstick: one
-    # torch._int_mm (cuBLASLt int8) plus the same epilogue; _int_mm takes
-    # more than 16 rows, so the 8-row calls are padded to 32 (the pad made
-    # beforehand, not timed).  The record is gate_up at 2048 rows.
+    # K7 at its main paths' shapes (K7_TIMED), weights K-major as the layers
+    # keep them: the kernel's own device ms from torch.profiler (the call's
+    # event ms beside it: at 8 rows the wrapper's host work nears the
+    # kernel's time).  Yardstick: one torch._int_mm (cuBLASLt int8, on the
+    # same K-major weights) plus the same epilogue; _int_mm takes more than
+    # 16 rows, so the 8-row calls are padded to 32 (the pad made
+    # beforehand, not timed).  The record is gate_up at 2048 rows, with
+    # every timed shape beside it.
     k7_rows = {}
-    for m in W8A8_ROWS:
-        for nm, out_dtype in (("gate_up", torch.bfloat16),
-                              ("down", torch.float32)):
-            a_q, b_q, sa, sb = w8_rows[(m, nm)]
-            kk, n = b_q.shape
-            ms = time_ms(lambda: matmul_w8a8(a_q, b_q, sa, sb,
-                                             out_dtype=out_dtype), 20)
-            plain = time_ms(lambda: matmul_w8a8_reference(
-                a_q, b_q, sa, sb, out_dtype=out_dtype), 2, warmup=1)
-            mp = max(m, 32)
-            a_p = torch.zeros((mp, kk), dtype=torch.int8, device=dev)
-            a_p[:m] = a_q
-            sa_p = torch.ones(mp, device=dev)
-            sa_p[:m] = sa
-            lib = time_ms(lambda: (torch._int_mm(a_p, b_q).float()
-                                   * sa_p[:, None] * sb[None, :]
-                                   ).to(out_dtype), 20)
-            bms, by = bound(m * kk + kk * n + 4 * (m + n)
-                            + m * n * torch.finfo(out_dtype).bits // 8,
-                            2 * m * n * kk, PEAK_INT8_OPS)
-            k7_rows[(m, nm)] = (ms, plain, bms, by, lib)
-            print(f"[times] matmul_w8a8 {nm} ({m}x{kk})@({kk}x{n}) out "
-                  f"{out_dtype}: {ms:.4f} ms ({2 * m * n * kk / ms / 1e9:.1f}"
-                  f" TOP/s; bound {bms:.4f} ms by {by}, {bms / ms:.1%} of "
-                  f"bound), plain (float64) {plain:.4f} ms, _int_mm"
-                  f"{' on 32 padded rows' if mp != m else ''} + epilogue "
-                  f"{lib:.4f} ms; {card}")
-    records.append(("matmul_w8a8",) + k7_rows[(2048, "gate_up")])
+    for label in K7_TIMED:
+        a_q, b_q, sa, sb, out_dtype = w8_rows[label]
+        m, kk = a_q.shape
+        n = b_q.shape[1]
+
+        def k7():
+            return matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
+
+        call = time_ms(k7, 20)
+        ms = kernel_ms(k7, "w8a8_wgmma", 20) or call
+        plain = time_ms(lambda: matmul_w8a8_reference(
+            a_q, b_q, sa, sb, out_dtype=out_dtype), 2, warmup=1)
+        mp = max(m, 32)
+        a_p = torch.zeros((mp, kk), dtype=torch.int8, device=dev)
+        a_p[:m] = a_q
+        sa_p = torch.ones(mp, device=dev)
+        sa_p[:m] = sa
+        lib = time_ms(lambda: (torch._int_mm(a_p, b_q).float()
+                               * sa_p[:, None] * sb[None, :]
+                               ).to(out_dtype), 20)
+        bms, by = bound(m * kk + kk * n + 4 * (m + n)
+                        + m * n * torch.finfo(out_dtype).bits // 8,
+                        2 * m * n * kk, PEAK_INT8_OPS)
+        plan = plan_w8a8(m, n, kk, sms)
+        k7_rows[label] = (ms, plain, bms, by, lib, call, plan)
+        print(f"[times] matmul_w8a8 {label} ({m}x{kk})@({kk}x{n}) out "
+              f"{out_dtype}, tile {plan.rows}x{plan.tn}, k in {plan.split} "
+              f"range(s): kernel {ms:.4f} ms, call {call:.4f} ms "
+              f"({2 * m * n * kk / ms / 1e9:.1f} TOP/s; bound {bms:.4f} ms by "
+              f"{by}, {bms / ms:.1%} of bound), plain (float64) "
+              f"{plain:.4f} ms, _int_mm"
+              f"{' on 32 padded rows' if mp != m else ''} + epilogue "
+              f"{lib:.4f} ms; {card}")
+    ms, plain, bms, by, lib, call, _ = k7_rows["gate_up 2048"]
+    records.append(("matmul_w8a8", ms, plain, bms, by, lib, {
+        "shape": "TPMLP gate_up, 2048 rows", "call_ms": call,
+        "library_note": "torch._int_mm + the epilogue",
+        "shapes": {label: {"ms": r[0], "call_ms": r[5], "plain_ms": r[1],
+                           "bound_ms": r[2], "bound_by": r[3],
+                           "library_ms": r[4], "tile": [r[6].rows, r[6].tn],
+                           "k_split": r[6].split}
+                   for label, r in k7_rows.items()}}))
     with torch.inference_mode():
         for m, x in mlp_x.items():
             print(f"[times] TPMLP w8a8 layer on {m} rows: "
                   f"{time_ms(lambda: mlp_q(x), 10):.4f} ms, bf16 xla layer "
                   f"(cuBLAS) {time_ms(lambda: mlp_f(x), 10):.4f} ms; {card}")
-    del mlp_f, mlp_q, qparams, w8, w8_rows
+    del mlp_f, mlp_q, qparams, w8_rows
 
     # K6 at the ag_gemm path's shapes; yardstick torch.matmul (cuBLAS, bf16
     # out, f32 accumulation).  The record is 2048 rows.
@@ -5347,6 +5453,10 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     grid_path(dev, card, counted, expect, short, records, errs)
 
+    for nm, (n, on_tile, transposed) in tile_totals.items():
+        print(f"[int8 tile] {nm}: {n} launches on the main paths, {on_tile} "
+              f"of them on the int8 Hopper tile, {transposed} weight "
+              "transposes")
     kernels = []
     for nm, ms, plain, bms, by, lib, *extra in records:
         lib_name, _, _, repl = KERNELS[nm]

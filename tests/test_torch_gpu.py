@@ -704,29 +704,69 @@ def test_flash_decode_row_alone_matches_batch(cuda, quant, paged):
         assert torch.equal(alone[1], batch[1][i:i + 1]), f"row {i} lse"
 
 
+@pytest.mark.parametrize("layout", ["k_major", "kn"])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [
-    (8, 4096, 512),       # a decode batch
-    (300, 1024, 640),     # ragged m, several tiles
-    (37, 208, 136),       # ragged m and n, k not a multiple of 64
-    (130, 64, 100),       # n not a multiple of 16: byte loads of b
+    (8, 4096, 512),       # a decode batch, k split
+    (300, 1024, 640),     # ragged m, several 128-row tiles
+    (37, 208, 136),       # ragged m and n, k not a multiple of 128
+    (130, 64, 100),       # n not a multiple of 16
+    (33, 8192, 999),      # odd n, a ragged 64-row k split
+    (8, 12288, 4096),     # the 8-row down projection: k in 8 ranges
     (1, 16, 1),
 ])
-def test_matmul_w8a8_kernel(cuda, out_dtype, m, k, n):
-    """K7 against its exact plain version: equal bit for bit."""
+def test_matmul_w8a8_kernel(cuda, out_dtype, m, k, n, layout):
+    """K7 against its exact plain version: equal bit for bit, on the int8
+    Hopper tile, over 3 back-to-back calls; b read in place when stored
+    K-major, through one counted copy a call when (k, n) contiguous."""
     gen = torch.Generator(device=cuda).manual_seed(m * 7 + n)
     a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
                       dtype=torch.int8)
     b = torch.randint(-127, 128, (k, n), generator=gen, device=cuda,
                       dtype=torch.int8)
+    if layout == "k_major":
+        b = b.t().contiguous().t()
+    copies = 3 * (not b.t().is_contiguous())  # (k, 1) is K-major too
     sa = torch.rand(m, generator=gen, device=cuda) / 100
     sb = torch.rand(n, generator=gen, device=cuda) / 100
-    before = matmul_w8a8.launches
-    out = matmul_w8a8(a, b, sa, sb, out_dtype=out_dtype)
-    assert matmul_w8a8.launches == before + 1
+    before = (matmul_w8a8.launches, matmul_w8a8.wgmma_launches,
+              matmul_w8a8.transposes)
+    outs = [matmul_w8a8(a, b, sa, sb, out_dtype=out_dtype) for _ in range(3)]
+    assert (matmul_w8a8.launches, matmul_w8a8.wgmma_launches,
+            matmul_w8a8.transposes) == (before[0] + 3, before[1] + 3,
+                                        before[2] + copies)
     want = matmul_w8a8_reference(a, b, sa, sb, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert out.dtype == out_dtype and torch.equal(out, want)
+    for out in outs:
+        assert out.dtype == out_dtype and torch.equal(out, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 24576), (2048, 3072, 4096)])
+def test_matmul_w8a8_kernel_every_plan(cuda, m, k, n):
+    """K7 gives the same bits on every tile and k split the planner can
+    choose (int32 sums are exact in any order): each (tile, split) launched
+    through `quantized._launch` against the plain version."""
+    from triton_distributed_tpu_torch.kernels import quantized
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    bt = torch.randint(-127, 128, (n, k), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sa = torch.rand(m, generator=gen, device=cuda) / 100
+    sb = torch.rand(n, generator=gen, device=cuda) / 100
+    want = matmul_w8a8_reference(a, bt.t(), sa, sb)
+    stages = -(-k // quantized.K_STAGE)
+    for rows, tn in quantized.W8A8_TILES:
+        for split in (1, 2, 3, 8):
+            per = -(-stages // split)
+            if (split - 1) * per >= stages:
+                continue
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=cuda)
+            quantized._launch(a, bt, sa, sb, out,
+                              quantized.W8A8Plan(rows, tn, split, per))
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (rows, tn, split)
 
 
 def test_int8_kernels_reject_unsupported_inputs(cuda):
@@ -758,9 +798,11 @@ def test_w8a8_mlp_kernel_matches_plain(cuda):
     mlp.init_params(torch.Generator(device=cuda).manual_seed(0))
     x = _randn(torch.Generator(device=cuda).manual_seed(1), torch.bfloat16,
                cuda, 37, 256)
-    before = matmul_w8a8.launches
+    before = (matmul_w8a8.launches, matmul_w8a8.transposes)
     got = mlp(x)
-    assert matmul_w8a8.launches == before + 2
+    # Both weights stored K-major: read in place, no copy.
+    assert (matmul_w8a8.launches, matmul_w8a8.transposes) == (
+        before[0] + 2, before[1])
     want = mlp_w8a8(x, mlp.gate_up_q, mlp.gate_up_scale, mlp.down_q,
                     mlp.down_scale, matmul=matmul_w8a8_reference)
     torch.cuda.synchronize()
@@ -1706,34 +1748,50 @@ def test_ag_group_gemm_wgmma_under_faults(cuda, tmp_path, monkeypatch):
     assert all(torch.equal(out, want) for out in outs)
 
 
-#: (world, experts, capacity (a multiple of 32), k, n).
+#: (world, experts, capacity (a multiple of 32), k, n): world 8 (eight live
+#: boxes an expert, two units), cap 160 (three row boxes, the last partly
+#: past cap), k 64 (half a stage), k 208 (a stage and a part), n 100 (off
+#: 16-byte rows) and 200 (a partial column tile).
 AG_GROUP_W8A8_CASES = [(2, 8, 32, 256, 384), (4, 4, 64, 128, 96),
-                       (8, 4, 32, 64, 64), (4, 3, 160, 64, 100)]
+                       (8, 4, 32, 64, 64), (4, 3, 160, 64, 100),
+                       (4, 4, 96, 208, 200)]
 
 
+@pytest.mark.parametrize("layout", ["k_major", "kn"])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("world,e,cap,k,n", AG_GROUP_W8A8_CASES)
-def test_ag_group_gemm_w8a8_kernel(cuda, out_dtype, world, e, cap, k, n):
+def test_ag_group_gemm_w8a8_kernel(cuda, out_dtype, world, e, cap, k, n,
+                                   layout):
     """K11-int8 bit for bit against its plain version (the wrapper on CPU
-    copies), with counts, over 3 back-to-back calls; one launch a call."""
+    copies), with counts (a zero count, a full bucket), over 3 back-to-back
+    calls; one launch a call, each on the int8 Hopper tile; weights read in
+    place when stored K-major, through one counted copy a call when (k, n)
+    contiguous."""
     from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
         AGGroupGEMMContext, ag_group_gemm_w8a8)
 
     gen = torch.Generator(device=cuda).manual_seed(world * 10 + cap + n)
     ctx = AGGroupGEMMContext("tp", world, e)
-    before = ag_group_gemm_w8a8.launches
+    before = (ag_group_gemm_w8a8.launches, ag_group_gemm_w8a8.wgmma_launches,
+              ag_group_gemm_w8a8.transposes)
     for _ in range(3):
         a = _randn(gen, torch.bfloat16, cuda, world, e, cap, k)
         wq, ws = quantize_sym(_randn(gen, torch.float32, cuda, world, e, k,
                                      n), 2)
+        if layout == "k_major":
+            wq = wq.transpose(-1, -2).contiguous().transpose(-1, -2)
         counts = torch.randint(0, cap + 1, (world, e), generator=gen,
                                device=cuda)
+        counts[0, 0], counts[-1, -1] = 0, cap
         out = ag_group_gemm_w8a8(a, wq, ws, ctx, counts=counts,
                                  out_dtype=out_dtype)
         ref = ag_group_gemm_w8a8(a.cpu(), wq.cpu(), ws.cpu(), ctx,
                                  counts=counts.cpu(), out_dtype=out_dtype)
         assert torch.equal(out.cpu(), ref)
-    assert ag_group_gemm_w8a8.launches == before + 3
+    assert (ag_group_gemm_w8a8.launches, ag_group_gemm_w8a8.wgmma_launches,
+            ag_group_gemm_w8a8.transposes) == (
+                before[0] + 3, before[1] + 3,
+                before[2] + 3 * (layout == "kn"))
 
 
 #: (world, mc, experts, topk, capacity, k, n, dtype, routing case); bf16

@@ -42,8 +42,8 @@ quantized per row on the fly, rows padded to 32 (`round_up_rows` of int8),
 the per-row scales gathered outside the kernel (the rank-stacked tensor is
 the gathered one, as JAX gathers them in XLA), b_q (W, k, n_loc) int8
 with per-column scales (W, n_loc), out (W, W*m, n_loc) in x's dtype: one
-cooperative launch of ``csrc/ag_gemm_w8a8.cu`` running K7's int8 tile
-(`quantized.emit_matmul_w8a8`) on each chunk as it arrives.  It has only
+cooperative launch of ``csrc/ag_gemm_w8a8.cu`` running the first int8
+tile (``csrc/w8a8_body.cuh``, `quantized.emit_matmul_w8a8`) on each chunk as it arrives.  It has only
 the ring (JAX asserts ``method in ("auto", "fused")``); at world 1 it is
 `matmul_w8a8` (K7) on the quantized rows.
 

@@ -16,18 +16,22 @@ On the card each call is one cooperative launch over every rank of
 (``ag_group_gemm_w8a8``), on the row tiles that hold tokens only: with
 ``counts``, a row tile (`grouped_gemm.row_tile`) that starts at or past an
 expert's count computes nothing and writes zeros, as the JAX ``count_of``
-does.  bf16 on 16-byte rows (`kernel_body`; every main-path call) runs the
-Hopper body: the crew of each block forwards the ring in pieces of
-`RING_PIECE_EXPERTS` experts, and the blocks walk a list of units, each one
-expert's column tile of 128 times up to four 64-row boxes of its live
-buckets (`unit_list`, built from the counts on the device), so a rank
-loads each tile of its weights once for every chunk's rows.  f32, bf16 off
-16-byte rows and the int8 form run the first body: the ring of K12
-carrying one bucket tensor a step and the grouped GEMM of each chunk as it
-arrives.  The int8 path quantizes the buckets per
-token (`quantized.quantize_sym`), carries int8 through the ring, and
-gathers the per-token scales outside the kernel (here: the rank-stacked
-tensor is the gathered one), as JAX gathers them in XLA.  On a CPU tensor
+does.  bf16 on 16-byte rows (`kernel_body`; every main-path call) and every
+int8 call run the Hopper body: the crew of each block forwards the ring in
+pieces of `RING_PIECE_EXPERTS` experts, and the blocks walk a list of
+units, each one expert's column tile of 128 times up to four 64-row boxes
+of its live buckets (`unit_list`, built from the counts on the device), so
+a rank loads each tile of its weights once for every chunk's rows.  f32
+and bf16 off 16-byte rows run the first body: the ring of K12 carrying one
+bucket tensor a step and the grouped GEMM of each chunk as it arrives.
+The int8 path quantizes the buckets per token (`quantized.quantize_sym`),
+carries int8 through the ring, and gathers the per-token scales outside
+the kernel (here: the rank-stacked tensor is the gathered one), as JAX
+gathers them in XLA; it reads the weights K-major, (W, E, n, k), as the
+`wgmma` instruction takes 8-bit operands: in place when the (W, E, k, n)
+argument is the transpose of such a tensor (how `MoEMLP` stores them),
+else through one copy a call (``ag_group_gemm_w8a8.transposes``).  On a CPU
+tensor
 the wrappers compute the plain versions, `ag_group_gemm_plain` and
 `ag_group_gemm_w8a8_plain`.  The kernels run at world 2 to 8; the MoE
 layer never calls them at world 1 (it takes its ``xla`` path there, as the
@@ -46,7 +50,7 @@ from triton_distributed_tpu_torch import collective_ids as cids
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.grouped_gemm import (
     WGMMA_BOX_ROWS, grouped_matmul_reference,
-    grouped_matmul_w8a8_counts_reference, grouped_matmul_w8a8_reference,
+    grouped_matmul_w8a8_reference,
     row_tile, zero_past_counts)
 from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 from triton_distributed_tpu_torch.language.core import symmetric_buffers
@@ -54,12 +58,15 @@ from triton_distributed_tpu_torch.parallel.mesh import MAX_WORLD
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"ag_group_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _I, _I, _I, _I, ctypes.c_uint64,
-                                 ctypes.POINTER(_I), _P],
+_SIGNATURES = {"ag_group_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, ctypes.c_uint64, ctypes.POINTER(_I), _P],
                "ag_group_gemm_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _I, _I, _I, ctypes.c_uint64,
-                                       ctypes.POINTER(_I), _P]}
+                                       ctypes.POINTER(_I), _P],
+               "ag_group_gemm_w8a8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _I, _I, _I,
+                                      ctypes.c_uint64, ctypes.POINTER(_I),
+                                      _P]}
 
 #: The most experts the kernels take (their per-chunk tile table lives in
 #: shared memory).
@@ -169,17 +176,17 @@ def ag_group_gemm_w8a8_plain(buckets_q, scales, expert_weights_q, w_scales,
                              out_dtype, counts=None):
     """The plain version of the int8 kernel on quantized buckets (W, E,
     cap, k) int8 with their scales (W, E, cap): exact products, then
-    (float(acc) * scale) * w_scale, zero in the 128-row tiles past
-    ``counts`` (`grouped_matmul_w8a8_counts_reference`)."""
-    world = buckets_q.shape[0]
-    return torch.stack([torch.stack([
+    (float(acc) * scale) * w_scale (`grouped_matmul_w8a8_reference`), zero
+    in the 64-row boxes past ``counts`` (the Hopper body's row tile,
+    `grouped_gemm.row_tile(.., "wgmma")`)."""
+    world, _, cap, _ = buckets_q.shape
+    out = torch.stack([torch.stack([
         grouped_matmul_w8a8_reference(
             buckets_q[c], expert_weights_q[r], scales[c], w_scales[r],
-            out_dtype) if counts is None
-        else grouped_matmul_w8a8_counts_reference(
-            buckets_q[c], expert_weights_q[r], scales[c], w_scales[r],
-            counts[c], out_dtype)
-        for c in range(world)]) for r in range(world)])
+            out_dtype) for c in range(world)]) for r in range(world)])
+    if counts is None:
+        return out
+    return zero_past_counts(out, counts, row_tile(cap, torch.int8, "wgmma"))
 
 
 def ag_group_gemm(buckets, expert_weights, ctx: AGGroupGEMMContext,
@@ -201,11 +208,11 @@ def ag_group_gemm(buckets, expert_weights, ctx: AGGroupGEMMContext,
                          f"{expert_weights.dtype}; want both bfloat16 or "
                          "both float32")
     if kernel_body(buckets, expert_weights) == "wgmma":
-        out = _launch_wgmma(buckets, expert_weights, counts, ctx)
+        out = _launch_wgmma(buckets, expert_weights, counts, ctx,
+                            buckets.dtype)
         ag_group_gemm.wgmma_launches += 1
     else:
-        out = _launch(buckets, expert_weights, None, None, counts, ctx,
-                      buckets.dtype)
+        out = _launch(buckets, expert_weights, counts, ctx)
     ag_group_gemm.launches += 1
     return out
 
@@ -223,8 +230,11 @@ def ag_group_gemm_w8a8(buckets, expert_weights_q, w_scales,
     quantize_params`, column-sharded), int32 accumulation, out (W, W, E,
     cap, n) in ``out_dtype`` (default the buckets' dtype).  cap must be a
     multiple of 32 (`MoEMLP.capacity` aligns w8a8 buckets so), k a
-    multiple of 16.  Each launch of K11-int8 adds one to
-    ``ag_group_gemm_w8a8.launches``."""
+    multiple of 16.  The kernel reads the weights K-major: in place when
+    ``expert_weights_q.transpose(-1, -2)`` is contiguous, else through one
+    copy, which adds one to ``ag_group_gemm_w8a8.transposes``.  Each launch
+    of K11-int8 (on the Hopper body, every launch) adds one to
+    ``ag_group_gemm_w8a8.launches`` and ``.wgmma_launches``."""
     _check_shapes(buckets, expert_weights_q, counts, ctx)
     world, e, cap, k = buckets.shape
     n = expert_weights_q.shape[3]
@@ -246,13 +256,20 @@ def ag_group_gemm_w8a8(buckets, expert_weights_q, w_scales,
     if k % 16 or out_dtype not in _build.DTYPE_CODES:
         raise ValueError(f"ag_group_gemm_w8a8: k={k} must be a multiple of "
                          f"16 and out {out_dtype} bfloat16 or float32")
-    out = _launch(buckets_q, expert_weights_q, scales, w_scales, counts, ctx,
-                  out_dtype)
+    bt = expert_weights_q.transpose(-1, -2)
+    if not bt.is_contiguous():
+        ag_group_gemm_w8a8.transposes += 1
+        bt = bt.contiguous()
+    out = _launch_wgmma(buckets_q, bt, counts, ctx, out_dtype, scales,
+                        w_scales)
     ag_group_gemm_w8a8.launches += 1
+    ag_group_gemm_w8a8.wgmma_launches += 1
     return out
 
 
 ag_group_gemm_w8a8.launches = 0
+ag_group_gemm_w8a8.wgmma_launches = 0
+ag_group_gemm_w8a8.transposes = 0
 
 
 def _check_shapes(buckets, w, counts, ctx):
@@ -279,13 +296,19 @@ def _check_launch(a, b, scales, w_scales, counts):
                              f"{a.device}")
 
 
-def _launch_wgmma(a, b, counts, ctx):
+def _launch_wgmma(a, b, counts, ctx, out_dtype, scales=None,
+                  w_scales=None):
     """One launch of the Hopper body of csrc/ag_group_gemm.cu over every
-    rank."""
+    rank: bf16 a (W, E, cap, k) and b (W, E, k, n), or, with the scales,
+    int8 a and b given K-major as (W, E, n, k)."""
     world, e, cap, k = a.shape
-    n = b.shape[3]
+    int8 = scales is not None
+    n = b.shape[2] if int8 else b.shape[3]
     dev = a.device
-    _check_launch(a, b, None, None, counts)
+    _check_launch(a, b, scales, w_scales, counts)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("ag_group_gemm: buckets and weights must be 16-byte "
+                         "aligned")
     live = None if counts is None else counts.clamp(0, cap).to(
         torch.int32).contiguous()
     units, ntiles = unit_list(
@@ -295,50 +318,52 @@ def _launch_wgmma(a, b, counts, ctx):
     inst = symmetric_buffers("ag_group_gemm", ctx.collective_id, "wgmma",
                              a.dtype, world, dev, words=2 + world * pieces)
     gathered = inst.buffer("gathered", (world, e, cap, k), a.dtype)
-    out = torch.empty((world, world, e, cap, n), dtype=a.dtype, device=dev)
+    out = torch.empty((world, world, e, cap, n), dtype=out_dtype, device=dev)
     blocks = ctypes.c_int(0)
     lib = _build.load_library("ag_group_gemm", _SIGNATURES)
-    rc = lib.ag_group_gemm_wgmma(
-        a.data_ptr(), b.data_ptr(), units.data_ptr(), ntiles.data_ptr(),
-        None if live is None else live.data_ptr(), out.data_ptr(),
-        inst.peers(gathered), inst.signal_peers(), world, e, cap, n, k,
-        units.shape[0], RING_PIECE_EXPERTS, inst.epoch, ctypes.byref(blocks),
-        torch.cuda.current_stream(dev).cuda_stream)
+    common = (units.data_ptr(), ntiles.data_ptr(),
+              None if live is None else live.data_ptr(), out.data_ptr(),
+              inst.peers(gathered), inst.signal_peers(), world, e, cap, n, k,
+              units.shape[0], RING_PIECE_EXPERTS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if int8:
+        rc = lib.ag_group_gemm_w8a8(
+            a.data_ptr(), b.data_ptr(), scales.data_ptr(),
+            w_scales.data_ptr(), *common, _build.DTYPE_CODES[out_dtype],
+            inst.epoch, ctypes.byref(blocks), stream)
+    else:
+        rc = lib.ag_group_gemm_wgmma(a.data_ptr(), b.data_ptr(), *common,
+                                     inst.epoch, ctypes.byref(blocks), stream)
     _build.check(lib, rc, "ag_group_gemm (wgmma) kernel launch")
     inst.advance(blocks.value)
     return out
 
 
-def _launch(a, b, scales, w_scales, counts, ctx, out_dtype):
+def _launch(a, b, counts, ctx):
     """One launch of the first body of csrc/ag_group_gemm.cu over every
-    rank (int8 when ``scales`` is given)."""
+    rank (f32, or bf16 off 16-byte rows)."""
     world, e, cap, k = a.shape
     n = b.shape[3]
     dev = a.device
-    _check_launch(a, b, scales, w_scales, counts)
-    int8 = scales is not None
+    _check_launch(a, b, None, None, counts)
     # Routing metadata for the kernel: per chunk, the row tiles (of the
     # kernel's tile) that hold a token before each expert, and their total.
-    bm = row_tile(cap, torch.int8 if int8 else a.dtype)
+    bm = row_tile(cap, a.dtype)
     live = torch.full((world, e), cap, device=dev) if counts is None else (
         counts.long().clamp(0, cap))
     live = (live + bm - 1) // bm
     tile_start = torch.cat([live.new_zeros((world, 1)), live.cumsum(1)],
                            dim=1).to(torch.int32)
-    inst = symmetric_buffers("ag_group_gemm", ctx.collective_id,
-                             "int8" if int8 else "ring", a.dtype, world, dev)
+    inst = symmetric_buffers("ag_group_gemm", ctx.collective_id, "ring",
+                             a.dtype, world, dev)
     gathered = inst.buffer("gathered", (world, e, cap, k), a.dtype)
-    out = torch.empty((world, world, e, cap, n), dtype=out_dtype, device=dev)
+    out = torch.empty((world, world, e, cap, n), dtype=a.dtype, device=dev)
     blocks = ctypes.c_int(0)
     lib = _build.load_library("ag_group_gemm", _SIGNATURES)
     rc = lib.ag_group_gemm(
-        a.data_ptr(), b.data_ptr(),
-        None if scales is None else scales.data_ptr(),
-        None if w_scales is None else w_scales.data_ptr(),
-        tile_start.data_ptr(), out.data_ptr(),
-        inst.peers(gathered), inst.signal_peers(), world, int(int8),
-        _build.DTYPE_CODES[a.dtype] if not int8 else -1,
-        _build.DTYPE_CODES[out_dtype], e, cap, n, k, inst.epoch,
+        a.data_ptr(), b.data_ptr(), tile_start.data_ptr(), out.data_ptr(),
+        inst.peers(gathered), inst.signal_peers(), world,
+        _build.DTYPE_CODES[a.dtype], e, cap, n, k, inst.epoch,
         ctypes.byref(blocks), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "ag_group_gemm kernel launch")
     inst.advance(blocks.value)

@@ -21,7 +21,7 @@
 // every rank's blocks (`dl.cuh`; blockIdx.y is the rank); the ring is K12's
 // (`comm_body.cuh` `emit_ag_ring`) on int8 chunks, half the bytes of bf16;
 // on each held chunk the P blocks of a rank stride over its 128 x 128
-// output tiles and run K7's int8 tile (`w8a8_body.cuh` `tdt::w8a8::tile`,
+// output tiles and run the first int8 tile (`w8a8_body.cuh` `tdt::w8a8::tile`,
 // `mma.sync` m16n8k32, the dequant epilogue in the TPU kernel's order), so
 // the result is bit-identical to an exact plain product with the same
 // epilogue, whatever the chunk order.

@@ -23,7 +23,9 @@
 // ring's copies (3 x 33.5 MB a rank) are copies inside the same HBM.
 //
 // The Hopper body: bf16 operands on 16-byte rows (k and n multiples of 8,
-// every pointer 16-byte aligned: every main-path call).  One cooperative
+// every pointer 16-byte aligned: every main-path call), and every int8 call
+// (K11-int8: k a multiple of 16, cap of 32, any n) on the tile's int8 form.
+// One cooperative
 // launch holds every rank's blocks (`dl.cuh`; blockIdx.y is the rank), P =
 // 132 / W persistent blocks a rank, one an SM (about 225 KB of dynamic
 // shared memory), on the tile of `wgmma_tile.cuh` (K6/K8/K12/K14's).
@@ -87,9 +89,18 @@
 //   `grouped_gemm.row_tile(.., "wgmma")` is 64 at every capacity.
 // Every box sums k in one order on m64n128k16, so by the tile promise an
 // element has K8's bits for the same bucket row and weights.
+// - int8 (`Int8Ops`): the buckets are int8 rows of k bytes, so the ring
+//   moves half the bytes; the weights are stored K-major, (R, E, n, k) read
+//   as (k, n, R E) (`wgmma` has no transpose for 8-bit types; the layer
+//   keeps them so once); the products are m64n128k32 into int32, and the
+//   epilogue (`wg::dequant_box`) multiplies each by its row's token scale
+//   (the gathered (W, E, cap), read outside the kernel as JAX gathers them
+//   in XLA) and its column's scale (sb_r (E, n)), then stores bf16 on
+//   16-byte rows as `store_box` does, f32 and other rows by fragment pairs
+//   (`wg::store_frag`).  Exact, so equal to the plain version bit for bit.
 //
-// f32 operands (CUDA cores), bf16 off 16-byte rows (`gemm_tile.cuh`'s
-// `mma.sync` tile) and the int8 form keep the first body: the ring of K12
+// f32 operands (CUDA cores) and bf16 off 16-byte rows (`gemm_tile.cuh`'s
+// `mma.sync` tile) keep the first body: the ring of K12
 // (`comm_body.cuh` `emit_ag_ring`) run by the whole block, each chunk
 // forwarded before it is computed; on each held chunk the P blocks of a
 // rank stride over the chunk's occupied tiles only: per chunk, the
@@ -98,9 +109,8 @@
 // L, column tile j / L) of its expert, found by binary search.  Rows of the
 // row tiles past an expert's count compute nothing and are written as
 // zeros.  The tile is K8's (`gemm_tile.cuh`: 16, 64 or 128 rows by cap, f32
-// on the CUDA cores) or, for int8, K7's (`w8a8_body.cuh`, 128 rows,
-// (float(acc) * sa) * sb).  A failed tensor-map encode, attribute or
-// launch returns its error code; no call falls back to another body.
+// on the CUDA cores).  A failed tensor-map encode, attribute or launch
+// returns its error code; no call falls back to another body.
 
 #include <algorithm>
 
@@ -264,13 +274,18 @@ int run_bf16(const void* a, const void* b, const void* tile_start, void* out,
 }
 
 
-// ---- the Hopper body: bf16 on 16-byte rows ---------------------------------
+// ---- the Hopper body: bf16 on 16-byte rows, and int8 ----------------------
 
 namespace wg = tdt::wgmma;
 namespace comm = tdt::comm;
 
-//: Two consumer warpgroups of two 64-row boxes on m64n128k16, four stages.
-using UnitTile = wg::Tile<2, 4, 128, 2>;
+//: Two consumer warpgroups of two 64-row boxes on m64n128k16 (bf16) or
+//: m64n128k32 (int8), four stages; both forms have the same stage bytes.
+template <class Ops>
+using UnitTileOf = wg::Tile<2, 4, 128, 2, Ops>;
+using UnitTile = UnitTileOf<wg::Bf16Ops>;
+static_assert(UnitTileOf<wg::Int8Ops>::SMEM_BYTES == UnitTile::SMEM_BYTES,
+              "one staging layout for both forms");
 //: Boxes a unit, and the code of an empty slot.
 constexpr int UNIT_BOXES = UnitTile::BM / wg::WG_ROWS;
 constexpr unsigned NO_BOX = 0xFFFF;
@@ -280,17 +295,22 @@ constexpr int CREW_THREADS = 96, CREW_BARRIER = 1;
 
 struct WgArgs {
   CUtensorMap ta;                 // buckets (R, E, cap, k) as (k, cap, E R)
-  CUtensorMap tb;                 // b (R, E, k, n) as (n, k, R E)
+  CUtensorMap tb;                 // b (R, E, k, n) as (n, k, R E); int8: its
+                                  // K-major (R, E, n, k) as (k, n, R E)
   CUtensorMap tg[dl::MAX_RANKS];  // rank r's gathered as (k, cap, E W)
   const int4* units;   // {e, column tile, boxes 0-1, boxes 2-3} a unit
   const int* ntiles;   // the units in the list
   const int* counts;   // (W, E) tokens a bucket, or null (every row live)
-  const bf16* a;       // (R, E, cap, k): the launched ranks' buckets
-  bf16* out;           // (R, W, E, cap, n)
+  const char* a;       // (R, E, cap, k): the launched ranks' buckets
+  void* out;           // (R, W, E, cap, n): bf16, or bf16 / f32 for int8
+  const float* sa;     // int8: (W, E, cap), every chunk's per-token scales
+  const float* sb;     // int8: (R, E, n)
   dl::Symm<char> gathered;  // rank r's (W, E, cap, k)
   dl::Symm<u64> sig;   // rank r's 2 + W pieces signal words
   dl::Team team;
   int e, cap, n, k;
+  int es, out_es;      // bytes of a bucket element (2 or 1) and of an out one
+  int vec;             // bf16 out on 16-byte rows: 16-byte stores
   int epp, pieces;     // experts a piece of the ring, pieces a chunk
   u64 epoch;           // the instance's sum of P before this call
 };
@@ -389,10 +409,10 @@ __device__ __forceinline__ void k11_crew(const WgArgs& p, uint8_t* stage,
   const int me = dl::rank(t), y = blockIdx.y;
   const int part = blockIdx.x, parts = gridDim.x;
   const u64 target = p.epoch + gridDim.x;
-  const size_t bucket = (size_t)p.cap * p.k * sizeof(bf16);
+  const size_t bucket = (size_t)p.cap * p.k * p.es;
   const size_t chunk = bucket * p.e;
   const int right = dl::peer_id(t, me + 1);
-  const char* shard = reinterpret_cast<const char*>(p.a) + y * chunk;
+  const char* shard = p.a + y * chunk;
   const char* mine = p.gathered[me];
   char* theirs = p.gathered[right];
   const int w = c.tid / 32, lane = c.tid % 32;
@@ -458,14 +478,14 @@ __device__ __forceinline__ void k11_crew(const WgArgs& p, uint8_t* stage,
   if (c.tid != 0) return;
   const int rt = (p.cap + wg::WG_ROWS - 1) / wg::WG_ROWS;
   const int boxes = t.world * p.e * rt;
-  char* out = reinterpret_cast<char*>(
-      p.out + (size_t)y * t.world * p.e * p.cap * p.n);
+  char* out = static_cast<char*>(p.out) +
+              (size_t)y * t.world * p.e * p.cap * p.n * p.out_es;
   for (int j = part; j < boxes; j += parts) {
     const int ce = j / rt, r0 = j % rt * wg::WG_ROWS;
     if (__ldg(p.counts + ce) > r0) continue;
-    const unsigned bytes = (unsigned)(min(wg::WG_ROWS, p.cap - r0) * p.n *
-                                      (int)sizeof(bf16));
-    char* o = out + ((size_t)ce * p.cap + r0) * p.n * sizeof(bf16);
+    const unsigned bytes =
+        (unsigned)(min(wg::WG_ROWS, p.cap - r0) * p.n * p.out_es);
+    char* o = out + ((size_t)ce * p.cap + r0) * p.n * p.out_es;
     for (unsigned off = 0; off < bytes; off += RING_BUF)
       tdt::bulk_store(o + off, stage, min((unsigned)RING_BUF, bytes - off));
   }
@@ -473,15 +493,17 @@ __device__ __forceinline__ void k11_crew(const WgArgs& p, uint8_t* stage,
   tdt::bulk_wait_all();
 }
 
-// Box accumulators ``acc`` (one m64n128k16 fragment of consumer warpgroup
-// lanes) as bf16 rows [row0, row0 + 64) x columns [col0, col0 + 128) of
-// the row-major (M, N) ``o``; rows past M and columns past N dropped (N a
-// multiple of 8).  A row's 8-column group lies in the 4 lanes of a quad,
-// a pair each: for each 4 groups the quad trades pairs (a 4 x 4 transpose
-// by two `shfl_xor` steps, selects element by element), so each lane
-// stores a whole group, 16 bytes, and 4 lanes 64 contiguous bytes a row.
+// A box's accumulator values ``val(i)`` (one m64n128 fragment of consumer
+// warpgroup lanes: the accumulators, or their int8 dequantization) as bf16
+// rows [row0, row0 + 64) x columns [col0, col0 + 128) of the row-major (M,
+// N) ``o``; rows past M and columns past N dropped (N a multiple of 8).  A
+// row's 8-column group lies in the 4 lanes of a quad, a pair each: for
+// each 4 groups the quad trades pairs (a 4 x 4 transpose by two `shfl_xor`
+// steps, selects element by element), so each lane stores a whole group,
+// 16 bytes, and 4 lanes 64 contiguous bytes a row.
+template <class F>
 __device__ __forceinline__ void store_box(bf16* o, int M, int N, int row0,
-                                          int col0, const float (&acc)[64]) {
+                                          int col0, const F& val) {
   const int warp = threadIdx.x % wg::WG / 32, lane = threadIdx.x % 32;
   const int q = lane % 4, r = row0 + warp * 16 + lane / 4;
   auto pack = [](float x, float y) {
@@ -493,10 +515,10 @@ __device__ __forceinline__ void store_box(bf16* o, int M, int N, int row0,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = 16 * b + 2 * h;  // group 4 b + j: acc[i + 4 j], + 1
-      unsigned v0 = pack(acc[i], acc[i + 1]);
-      unsigned v1 = pack(acc[i + 4], acc[i + 5]);
-      unsigned v2 = pack(acc[i + 8], acc[i + 9]);
-      unsigned v3 = pack(acc[i + 12], acc[i + 13]);
+      unsigned v0 = pack(val(i), val(i + 1));
+      unsigned v1 = pack(val(i + 4), val(i + 5));
+      unsigned v2 = pack(val(i + 8), val(i + 9));
+      unsigned v3 = pack(val(i + 12), val(i + 13));
       unsigned t0 = q & 1 ? v0 : v1, t1 = q & 1 ? v2 : v3;
       t0 = __shfl_xor_sync(0xFFFFFFFFu, t0, 1);
       t1 = __shfl_xor_sync(0xFFFFFFFFu, t1, 1);
@@ -526,9 +548,12 @@ __device__ __forceinline__ void store_box(bf16* o, int M, int N, int row0,
   }
 }
 
-// The unit list as the tile's schedule.  The producer thread runs at 40
+// The unit list as the tile's schedule, for bf16 (`Bf16Ops`, out bf16) or
+// int8 (`Int8Ops`, out bf16 or f32).  The producer thread runs at 40
 // registers, so it keeps the last unit's entry and what it has waited for.
+template <class Ops, typename TO>
 struct UnitSched {
+  using Tile = UnitTileOf<Ops>;
   const WgArgs* p;
   uint8_t* stage;  // the crew's staging
   int at_t;       // the last unit located
@@ -559,8 +584,8 @@ struct UnitSched {
   }
   __device__ __forceinline__ wg::At at(int t) {
     locate(t);
-    return {&p->ta, 0, 0, u.y * UnitTile::TN, (int)blockIdx.y * p->e + u.x,
-            (p->k + wg::BK - 1) / wg::BK, live()};
+    return {&p->ta, 0, 0, u.y * Tile::TN, (int)blockIdx.y * p->e + u.x,
+            (p->k + Tile::KS - 1) / Tile::KS, live()};
   }
   __device__ __forceinline__ bool pending(int t) {
     locate(t);
@@ -590,63 +615,88 @@ struct UnitSched {
       const unsigned b = unit_box(u, s);
       if (b == NO_BOX) break;
       const int c = b & 7;
-      wg::tma_load_3d(dst + s * UnitTile::BOX_BYTES,
+      wg::tma_load_3d(dst + s * Tile::BOX_BYTES,
                       c == (int)blockIdx.y ? &p->ta : &p->tg[blockIdx.y], bar,
-                      kt * wg::BK, (int)(b >> 3) * wg::WG_ROWS,
+                      kt * Tile::KS, (int)(b >> 3) * wg::WG_ROWS,
                       c * p->e + u.x);
     }
   }
   __device__ __forceinline__ void side(int i) {
     k11_crew(*p, stage, comm::Crew{i, CREW_THREADS, CREW_BARRIER});
   }
-  // Warpgroup wgi's boxes wgi and 2 + wgi, where live: rows below cap of
-  // chunk c's bucket e in this rank's out.
+  // Box ``b`` of the unit, accumulators ``acc``: rows below cap of chunk
+  // c's bucket e in this rank's out; int8 dequantized with the chunk's
+  // token scales and this rank's column scales of expert e.
+  __device__ __forceinline__ void store_one(
+      unsigned b, int col, typename Tile::Acc (&acc)[Tile::ACC / 2]) {
+    const int c = b & 7, row0 = (int)(b >> 3) * wg::WG_ROWS;
+    const size_t bucket = ((size_t)blockIdx.y * p->team.world + c) * p->e +
+                          u.x;
+    TO* o = static_cast<TO*>(p->out) + bucket * p->cap * p->n;
+    if constexpr (std::is_same<typename Tile::Acc, float>::value) {
+      store_box(o, p->cap, p->n, row0, col, [&](int i) { return acc[i]; });
+    } else {
+      wg::dequant_box(acc, p->sa + ((size_t)c * p->e + u.x) * p->cap,
+                      p->cap, row0,
+                      p->sb + ((size_t)blockIdx.y * p->e + u.x) * p->n, col,
+                      p->n);
+      const auto val = [&](int i) { return __int_as_float(acc[i]); };
+      if constexpr (std::is_same<TO, bf16>::value) {
+        if (p->vec) {
+          store_box(o, p->cap, p->n, row0, col, val);
+          return;
+        }
+      }
+      wg::store_frag<Tile::ACC / 2>(o, p->cap, p->n, row0, col, val);
+    }
+  }
+  // Warpgroup wgi's boxes wgi and 2 + wgi, where live.
   __device__ __forceinline__ void store(int t, const wg::At& w, int wgi,
-                                        const float (&acc)[UnitTile::ACC]) {
+                                        typename Tile::Acc (&acc)[Tile::ACC]) {
     locate(t);
-    const size_t rank = (size_t)blockIdx.y * p->team.world;
-    using Half = const float(&)[UnitTile::ACC / 2];
+    using Half = typename Tile::Acc(&)[Tile::ACC / 2];
     const unsigned b0 = unit_box(u, wgi), b1 = unit_box(u, 2 + wgi);
-    if (b0 != NO_BOX)
-      store_box(p->out + ((rank + (b0 & 7)) * p->e + u.x) * p->cap * p->n,
-                p->cap, p->n, (int)(b0 >> 3) * wg::WG_ROWS, w.col,
-                reinterpret_cast<Half>(acc[0]));
+    if (b0 != NO_BOX) store_one(b0, w.col, reinterpret_cast<Half>(acc[0]));
     if (b1 != NO_BOX)
-      store_box(p->out + ((rank + (b1 & 7)) * p->e + u.x) * p->cap * p->n,
-                p->cap, p->n, (int)(b1 >> 3) * wg::WG_ROWS, w.col,
-                reinterpret_cast<Half>(acc[UnitTile::ACC / 2]));
+      store_one(b1, w.col, reinterpret_cast<Half>(acc[Tile::ACC / 2]));
   }
 };
 
 // Compiled for 384 threads (168 registers a thread at entry, so the
 // consumers' `setmaxnreg` rises from there, as K12's) and launched with
 // UnitTile::NT.
+template <class Ops, typename TO>
 __global__ void __launch_bounds__(3 * wg::WG, 1)
     ag_group_gemm_wgmma_kernel(const __grid_constant__ WgArgs p) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* stage = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem) + UnitTile::SMEM_BYTES + 127) &
       ~uintptr_t(127));
-  UnitSched sched{&p, stage, -1, make_int4(0, 0, 0, 0), -1, 0u};
-  UnitTile::run(smem, &p.tb, __ldg(p.ntiles), sched);
+  UnitSched<Ops, TO> sched{&p, stage, -1, make_int4(0, 0, 0, 0), -1, 0u};
+  UnitTileOf<Ops>::run(smem, &p.tb, __ldg(p.ntiles), sched);
 }
 
 // Encode the maps, then one cooperative launch: P blocks a rank, as many as
 // the list can have units (``tmax``), at most as many as can be resident
 // together with every other rank's (one an SM).
+template <class Ops, typename TO>
 int launch_wgmma(WgArgs& p, const void* b, void* const* gathered, int tmax,
                  int* blocks, cudaStream_t s) {
-  const int w = p.team.world;
-  int rc = wg::encode_3d(&p.ta, p.a, p.k, p.cap, (uint64_t)p.e * w, wg::BK,
-                         wg::WG_ROWS);
+  const int w = p.team.world, es = p.es;
+  constexpr int KS = Ops::K_STAGE;
+  int rc = wg::encode_3d(&p.ta, p.a, p.k, p.cap, (uint64_t)p.e * w, KS,
+                         wg::WG_ROWS, es);
   if (rc == 0)
-    rc = wg::encode_3d(&p.tb, b, p.n, p.k, (uint64_t)w * p.e, wg::BOX_N,
-                       wg::BK);
+    rc = Ops::B_K_MAJOR
+             ? wg::encode_3d(&p.tb, b, p.k, p.n, (uint64_t)w * p.e, KS,
+                             wg::BOX_N, es)
+             : wg::encode_3d(&p.tb, b, p.n, p.k, (uint64_t)w * p.e, wg::BOX_N,
+                             KS, es);
   for (int r = 0; r < w && rc == 0; ++r)
     rc = wg::encode_3d(&p.tg[r], gathered[r], p.k, p.cap, (uint64_t)p.e * w,
-                       wg::BK, wg::WG_ROWS);
+                       KS, wg::WG_ROWS, es);
   if (rc != 0) return rc;
-  auto* fn = ag_group_gemm_wgmma_kernel;
+  auto* fn = ag_group_gemm_wgmma_kernel<Ops, TO>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (attr != cudaSuccess) return (int)attr;
@@ -670,48 +720,73 @@ int launch_wgmma(WgArgs& p, const void* b, void* const* gathered, int tmax,
 }  // namespace
 
 // a (world, E, cap, k) and b (world, E, k, n): every rank's buckets and
-// weight shard, in ``in_dtype`` (tdt::DTYPE_*), or int8 when ``int8`` (then
-// sa (world, E, cap) and sb (world, E, n) f32 scales); tile_start (world,
-// E + 1) int32; out (world, world, E, cap, n) in ``out_dtype`` (a float
-// input's own type); ``gathered`` and ``sig``: host tables of ``world``
-// device pointers, rank r's gathered (world, E, cap, k) buffer and its
-// dl::SIGNAL_WORDS u64 counters; all contiguous.  ``epoch``: the
-// instance's sum of blocks a rank over its earlier calls; the blocks a rank
-// of this launch go to ``*blocks``.  Returns a cudaError_t code.
-extern "C" int ag_group_gemm(const void* a, const void* b, const void* sa,
-                             const void* sb, const void* tile_start,
-                             void* out, void* const* gathered,
-                             void* const* sig, int world, int int8,
-                             int in_dtype, int out_dtype, int e, int cap,
-                             int n, int k, unsigned long long epoch,
-                             int* blocks, void* stream) {
+// weight shard, in ``dtype`` (tdt::DTYPE_*; out the same); tile_start
+// (world, E + 1) int32; out (world, world, E, cap, n); ``gathered`` and
+// ``sig``: host tables of ``world`` device pointers, rank r's gathered
+// (world, E, cap, k) buffer and its dl::SIGNAL_WORDS u64 counters; all
+// contiguous.  ``epoch``: the instance's sum of blocks a rank over its
+// earlier calls; the blocks a rank of this launch go to ``*blocks``.
+// Returns a cudaError_t code.
+extern "C" int ag_group_gemm(const void* a, const void* b,
+                             const void* tile_start, void* out,
+                             void* const* gathered, void* const* sig,
+                             int world, int dtype, int e, int cap, int n,
+                             int k, unsigned long long epoch, int* blocks,
+                             void* stream) {
   *blocks = 0;
   if (world < 2 || world > dl::MAX_RANKS || e < 1 || cap < 1 || n < 1 ||
-      k < 1 || tile_start == nullptr ||
-      (int8 && (sa == nullptr || sb == nullptr || k % 16)))
+      k < 1 || tile_start == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int8) {
-    if (out_dtype == tdt::DTYPE_BF16)
-      return run<body::Int8<bf16>>(a, b, sa, sb, tile_start, out, gathered,
-                                   sig, world, e, cap, n, k, epoch, blocks, s);
-    if (out_dtype == tdt::DTYPE_F32)
-      return run<body::Int8<float>>(a, b, sa, sb, tile_start, out, gathered,
-                                    sig, world, e, cap, n, k, epoch, blocks,
-                                    s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (out_dtype != in_dtype) return (int)cudaErrorInvalidValue;
-  if (in_dtype == tdt::DTYPE_BF16)
+  if (dtype == tdt::DTYPE_BF16)
     return run_bf16(a, b, tile_start, out, gathered, sig, world, e, cap, n,
                     k, epoch, blocks, s);
-  if (in_dtype == tdt::DTYPE_F32)
+  if (dtype == tdt::DTYPE_F32)
     return run<body::Float<gemm::F32Tile, float>>(
         a, b, nullptr, nullptr, tile_start, out, gathered, sig, world, e,
         cap, n, k, epoch, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
+namespace {
+
+// The Hopper body's arguments common to both forms, checked; 0 or a
+// cudaError_t code.
+int wg_args(WgArgs& p, const void* a, const void* b, const void* units,
+            const void* ntiles, const void* counts, void* out,
+            void* const* gathered, void* const* sig, int world, int e,
+            int cap, int n, int k, int tmax, int epp,
+            unsigned long long epoch) {
+  if (world < 2 || world > dl::MAX_RANKS || e < 1 || cap < 1 || n < 1 ||
+      k < 1 || tmax < 1 || epp < 1 || units == nullptr || ntiles == nullptr)
+    return (int)cudaErrorInvalidValue;
+  uintptr_t align = reinterpret_cast<uintptr_t>(a) |
+                    reinterpret_cast<uintptr_t>(b) |
+                    reinterpret_cast<uintptr_t>(units) |
+                    reinterpret_cast<uintptr_t>(out);
+  for (int r = 0; r < world; ++r) {
+    p.gathered.ptr[r] = static_cast<char*>(gathered[r]);
+    p.sig.ptr[r] = static_cast<u64*>(sig[r]);
+    align |= reinterpret_cast<uintptr_t>(gathered[r]);
+  }
+  if (align % 16 != 0) return (int)cudaErrorInvalidValue;
+  p.units = static_cast<const int4*>(units);
+  p.ntiles = static_cast<const int*>(ntiles);
+  p.counts = static_cast<const int*>(counts);
+  p.a = static_cast<const char*>(a);
+  p.out = out;
+  p.team = dl::Team{world, 0};
+  p.e = e;
+  p.cap = cap;
+  p.n = n;
+  p.k = k;
+  p.epp = epp;
+  p.pieces = (e + epp - 1) / epp;
+  p.epoch = epoch;
+  return 0;
+}
+
+}  // namespace
 
 // The Hopper body (bf16 on 16-byte rows): a (world, E, cap, k) and b
 // (world, E, k, n), every rank's buckets and weight shard; ``units``
@@ -733,34 +808,51 @@ extern "C" int ag_group_gemm_wgmma(const void* a, const void* b,
                                    unsigned long long epoch, int* blocks,
                                    void* stream) {
   *blocks = 0;
-  if (world < 2 || world > dl::MAX_RANKS || e < 1 || cap < 1 || n < 1 ||
-      k < 1 || tmax < 1 || epp < 1 || units == nullptr || ntiles == nullptr)
-    return (int)cudaErrorInvalidValue;
-  uintptr_t align = reinterpret_cast<uintptr_t>(a) |
-                    reinterpret_cast<uintptr_t>(b) |
-                    reinterpret_cast<uintptr_t>(units) |
-                    reinterpret_cast<uintptr_t>(out);
   WgArgs p{};
-  for (int r = 0; r < world; ++r) {
-    p.gathered.ptr[r] = static_cast<char*>(gathered[r]);
-    p.sig.ptr[r] = static_cast<u64*>(sig[r]);
-    align |= reinterpret_cast<uintptr_t>(gathered[r]);
-  }
-  if (k % 8 != 0 || n % 8 != 0 || align % 16 != 0)
+  const int rc = wg_args(p, a, b, units, ntiles, counts, out, gathered, sig,
+                         world, e, cap, n, k, tmax, epp, epoch);
+  if (rc != 0) return rc;
+  if (k % 8 != 0 || n % 8 != 0) return (int)cudaErrorInvalidValue;
+  p.es = p.out_es = 2;
+  p.vec = 1;
+  return launch_wgmma<wg::Bf16Ops, bf16>(p, b, gathered, tmax, blocks,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+// K11-int8 on the Hopper body: a (world, E, cap, k) int8 buckets; bt
+// (world, E, n, k) int8, every rank's weight shard K-major (the transpose of
+// the JAX layout's (E, k, n) a rank); sa (world, E, cap) f32, every chunk's
+// per-token scales; sb (world, E, n) f32; out (world, world, E, cap, n) in
+// ``out_dtype`` (bf16 or f32); the rest as `ag_group_gemm_wgmma`, with k a
+// multiple of 16 and cap of 32 (any n).  Returns a cudaError_t code.
+extern "C" int ag_group_gemm_w8a8(const void* a, const void* bt,
+                                  const void* sa, const void* sb,
+                                  const void* units, const void* ntiles,
+                                  const void* counts, void* out,
+                                  void* const* gathered, void* const* sig,
+                                  int world, int e, int cap, int n, int k,
+                                  int tmax, int epp, int out_dtype,
+                                  unsigned long long epoch, int* blocks,
+                                  void* stream) {
+  *blocks = 0;
+  WgArgs p{};
+  const int rc = wg_args(p, a, bt, units, ntiles, counts, out, gathered, sig,
+                         world, e, cap, n, k, tmax, epp, epoch);
+  if (rc != 0) return rc;
+  if (k % 16 != 0 || cap % 32 != 0 || sa == nullptr || sb == nullptr)
     return (int)cudaErrorInvalidValue;
-  p.units = static_cast<const int4*>(units);
-  p.ntiles = static_cast<const int*>(ntiles);
-  p.counts = static_cast<const int*>(counts);
-  p.a = static_cast<const bf16*>(a);
-  p.out = static_cast<bf16*>(out);
-  p.team = dl::Team{world, 0};
-  p.e = e;
-  p.cap = cap;
-  p.n = n;
-  p.k = k;
-  p.epp = epp;
-  p.pieces = (e + epp - 1) / epp;
-  p.epoch = epoch;
-  return launch_wgmma(p, b, gathered, tmax, blocks,
-                      static_cast<cudaStream_t>(stream));
+  p.sa = static_cast<const float*>(sa);
+  p.sb = static_cast<const float*>(sb);
+  p.es = 1;
+  p.vec = n % 8 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == tdt::DTYPE_BF16) {
+    p.out_es = 2;
+    return launch_wgmma<wg::Int8Ops, bf16>(p, bt, gathered, tmax, blocks, s);
+  }
+  if (out_dtype == tdt::DTYPE_F32) {
+    p.out_es = 4;
+    return launch_wgmma<wg::Int8Ops, float>(p, bt, gathered, tmax, blocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

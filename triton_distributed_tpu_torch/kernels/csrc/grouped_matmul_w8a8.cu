@@ -16,7 +16,8 @@
 // shapes.  A decode step's gate_up (128 experts, 32-row int8 buckets,
 // b 128 x 2048 x 1536) moves 402 MB for 1.6 GOP (0.120 ms at 3.35 TB/s).
 //
-// Design: K7's body (csrc/w8a8_body.cuh) with the group in blockIdx.z.
+// Design: the first int8 tile (csrc/w8a8_body.cuh) with the group in
+// blockIdx.z.
 
 #include "w8a8_body.cuh"
 

@@ -88,7 +88,7 @@
 //    activations' type); int8 accumulates in int32 and dequantizes with
 //    the per-token and per-channel scales (float(acc) * sa) * sw.  The tile
 //    is K8's (`gemm_tile.cuh`, 16/64/128 rows by B; f32 on the CUDA cores)
-//    or K7's (`w8a8_body.cuh`).
+//    or the first int8 tile (`w8a8_body.cuh`).
 // 2. the rank's blocks wait for each other (`dl::barrier_rank`): the
 //    stage is whole.
 // 3. the combine: each token's <= topk kept pairs, in ascending expert

@@ -1,7 +1,7 @@
-// The GEMM tiles of the fused MoE kernels (K11 and its int8 form in
+// The GEMM tiles of the fused MoE kernels' first bodies (K11 in
 // ag_group_gemm.cu, K10 in moe_reduce_rs.cu) behind one interface: `Float`
 // wraps a bf16 or f32 tile of `gemm_tile.cuh` (the K6/K8 body), `Int8` the
-// int8 tile of `w8a8_body.cuh` (the K7/K9 body) with its dequant epilogue.
+// int8 tile of `w8a8_body.cuh` (the K9 body) with its dequant epilogue.
 // `run` computes the BM x BN tile at (m0, n0) of out (M, N) = a (M, K) @
 // b (K, N), in TO; sa (M,) and sb (N,) are the int8 form's scales, unread
 // by `Float`.  A caller syncs the block before each tile.

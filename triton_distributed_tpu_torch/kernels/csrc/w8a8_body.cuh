@@ -1,15 +1,16 @@
-// The int8 GEMM tile: int8 x int8 -> int32 on the tensor cores, then the
-// rank-1 f32 dequant epilogue out[m, n] = (float(acc[m, n]) * sa[m]) *
+// The first int8 GEMM tile: int8 x int8 -> int32 on the tensor cores, then
+// the rank-1 f32 dequant epilogue out[m, n] = (float(acc[m, n]) * sa[m]) *
 // sb[n], in bf16 or f32.  `tdt::w8a8::tile` computes one BM x BN tile of
 // out at (m0, n0); it is the port of quantized.py `emit_matmul_w8a8`
 // (:161), the form a block of a persistent or cooperative kernel calls:
-// K11's int8 form (ag_group_gemm.cu), K10 with int8 weights
-// (moe_reduce_rs.cu) and K13 (ag_gemm_w8a8.cu) call it per tile.
-// `w8a8_kernel` runs it once a block: K7 (matmul_w8a8.cu, one matrix) and
-// K9 (grouped_matmul_w8a8.cu, one matrix a group: group blockIdx.z reads
-// a + z*M*K, b + z*K*N, sa + z*M, sb + z*N and writes out + z*M*N).  A
-// caller that runs a second tile in the same block syncs the block first
-// (`__syncthreads()`): the shared buffers of one tile are the next one's.
+// K10 with int8 weights (moe_reduce_rs.cu) and K13 (ag_gemm_w8a8.cu) call
+// it per tile.  `w8a8_kernel` runs it once a block: K9
+// (grouped_matmul_w8a8.cu, one matrix a group: group blockIdx.z reads a +
+// z*M*K, b + z*K*N, sa + z*M, sb + z*N and writes out + z*M*N).  K7 and
+// K11-int8 left it for the int8 form of the Hopper tile (`wgmma_tile.cuh`
+// `Int8Ops`, weights K-major).  A caller that runs a second tile in the
+// same block syncs the block first (`__syncthreads()`): the shared buffers
+// of one tile are the next one's.
 //
 // Design (a first kernel that is right, on the tensor cores):
 // - One block of 8 warps computes a 128 x 128 tile of out; each warp a
@@ -24,9 +25,8 @@
 //   so each b tile is transposed in shared memory after it lands: 4 x 4
 //   byte blocks through registers with byte permutes, into a k-contiguous
 //   tile whose rows are padded by 16 bytes so the fragment loads of a warp
-//   fall in distinct banks.  A later perf change may instead store the
-//   weights k-major once, when `TPMLP.quantize_params` runs, and feed
-//   `wgmma` from TMA; the public layout stays the JAX one either way.
+//   fall in distinct banks.  (The Hopper tile's int8 form reads weights
+//   stored K-major by the layers and needs no transpose.)
 // - Ragged m and n are predicated: rows of a past m and the k tail load as
 //   zeros, warps whose rows are all past m skip their products (m = 8 in a
 //   decode batch), and stores past m or n are dropped.  n not a multiple

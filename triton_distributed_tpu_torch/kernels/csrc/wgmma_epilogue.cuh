@@ -1,6 +1,7 @@
 // The epilogue of the `wgmma` tile's consumers, shared by the bodies that
 // send a tile's rows somewhere other than a plain output (K14 `gemm_rs.cu`,
-// K10 `moe_reduce_rs.cu`): the consumers' own named barrier and waits, the
+// K10 `moe_reduce_rs.cu`) and by K7 (`matmul_w8a8.cu`, its dequantized
+// bf16 rows): the consumers' own named barrier and waits, the
 // crew's entry barrier that opens the consumers' remote stores, the rows
 // rounded to bf16 and stored as 16-byte pieces through a slab of shared
 // memory a warp, and the rank-order sum of W bf16 partials run by the
@@ -59,11 +60,12 @@ __device__ __forceinline__ void wait_entered(uint64_t* entered, bool& open) {
 //
 // A consumer warp holds 16 rows of its warpgroup's 64 as `wgmma`
 // fragments (row lane / 4 and + 8, columns 8 j + 2 (lane % 4) and + 1).
-// Stored as they are, each instruction writes 8 pieces of 4 bytes.  So a
-// warp rounds its accumulators to bf16 into a slab of shared memory beside
-// the ring, 64 columns at a time (16 rows of 128 bytes, the 16-byte chunk j
-// of row i at j ^ (i % 8): no bank conflict either way), and reads them back
-// as 16-byte pieces of a row, 8 lanes a row: 128 contiguous bytes a row.
+// Stored as they are, each instruction writes 8 pieces of 4 bytes (8 of f32).
+// So a warp writes its accumulators, rounded to the output type, into a slab
+// of shared memory beside the ring, 128 bytes of a row at a time (64 bf16
+// or 32 f32 columns; 16 rows, the 16-byte chunk j of row i at j ^ (i % 8):
+// no bank conflict either way), and reads them back as 16-byte pieces of a
+// row, 8 lanes a row: 128 contiguous bytes a row.
 
 //: A warp's slab.
 constexpr int SLAB_BYTES = 16 * 128;
@@ -78,27 +80,37 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
   }
 }
 
-// Columns [64 s, 64 s + 64) of a consumer warp's accumulators, rounded to
-// bf16, into its slab.
-template <int R>
-__device__ __forceinline__ void to_slab(uint8_t* slab, int s,
-                                        const float (&acc)[R]) {
+// The columns a slab holds: 128 bytes of a row in TO.
+template <typename TO>
+constexpr int SLAB_COLS = 128 / (int)sizeof(TO);
+
+// Columns [SLAB_COLS s, + SLAB_COLS) of a consumer warp's accumulator
+// values (``val(i)``, the accumulator itself or its dequantized value),
+// rounded to TO (bf16 or f32), into its slab.
+template <typename TO, class F>
+__device__ __forceinline__ void to_slab(uint8_t* slab, int s, const F& val) {
+  constexpr int GROUPS = SLAB_COLS<TO> / 8;  // 8-column groups a slab
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const int j = 8 * s + jj;
+  for (int jj = 0; jj < GROUPS; ++jj) {
+    const int j = GROUPS * s + jj;
+    // The pair's bytes in the row: its 16-byte chunk and offset in it.
+    const int b = (8 * jj + 2 * (lane % 4)) * (int)sizeof(TO);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = lane / 4 + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(
-          slab + i * 128 + (jj ^ (i % 8)) * 16 + (lane % 4) * 4) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      uint8_t* q = slab + i * 128 + ((b / 16) ^ (i % 8)) * 16 + b % 16;
+      const float x = val(4 * j + 2 * h), y = val(4 * j + 2 * h + 1);
+      if constexpr (std::is_same<TO, float>::value)
+        *reinterpret_cast<float2*>(q) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(q) = __floats2bfloat162_rn(x, y);
     }
   }
 }
 
 // A lane's piece k (0 .. 3) of its warp's slab: row lane / 8 + 4 k of the
-// warp's 16, columns 8 (lane % 8) .. + 8 of the slab's 64.
+// warp's 16, bytes 16 (lane % 8) .. + 16 of the row's 128.
 __device__ __forceinline__ uint4 slab_piece(const uint8_t* slab, int k) {
   const int lane = threadIdx.x % 32, i = lane / 8 + 4 * k, c = lane % 8;
   return *reinterpret_cast<const uint4*>(slab + i * 128 + (c ^ (i % 8)) * 16);
@@ -110,27 +122,38 @@ __device__ __forceinline__ int piece_row(int k) {
   return threadIdx.x % WG / 32 * 16 + threadIdx.x % 32 / 8 + 4 * k;
 }
 
-// The accumulators of a consumer warp, rounded to bf16, stored as 16-byte
-// pieces: a lane's piece k of every slab goes to ``rows[k]`` (its row's
-// destination, null past the chunk) at the slab's columns, from ``col0``,
-// that lie below ``N``.
+// The R accumulator values (``val(i)``) of a consumer warp, rounded to TO,
+// stored as 16-byte pieces: a lane's piece k of every slab goes to
+// ``rows[k]`` (its row's destination, 16-byte aligned, null past the chunk)
+// at the slab's columns, from ``col0``, that lie below ``N`` (a multiple of
+// 16 / sizeof(TO)).
+template <int R, typename TO, class F>
+__device__ __forceinline__ void store_pieces_of(uint8_t* slab, const F& val,
+                                                TO* const (&rows)[4],
+                                                int col0, int N) {
+  constexpr int COLS = SLAB_COLS<TO>;
+  const int col = col0 + 16 / (int)sizeof(TO) * (threadIdx.x % 8);
+#pragma unroll
+  for (int s = 0; s < 2 * R / COLS; ++s) {
+    to_slab<TO>(slab, s, val);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (rows[k] != nullptr && col + COLS * s < N)
+        *reinterpret_cast<uint4*>(rows[k] + col + COLS * s) =
+            slab_piece(slab, k);
+    __syncwarp();
+  }
+}
+
+// `store_pieces_of` the f32 accumulators themselves.
 template <int R>
 __device__ __forceinline__ void store_pieces(uint8_t* slab,
                                              const float (&acc)[R],
                                              bf16* const (&rows)[4], int col0,
                                              int N) {
-  const int col = col0 + 8 * (threadIdx.x % 8);
-#pragma unroll
-  for (int s = 0; s < R / 32; ++s) {
-    to_slab(slab, s, acc);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (rows[k] != nullptr && col + 64 * s < N)
-        *reinterpret_cast<uint4*>(rows[k] + col + 64 * s) =
-            slab_piece(slab, k);
-    __syncwarp();
-  }
+  store_pieces_of<R, bf16>(slab, [&](int i) { return acc[i]; }, rows, col0,
+                           N);
 }
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {

@@ -18,8 +18,7 @@ here: `emit_grouped_matmul` / `emit_grouped_matmul_w8a8` with ``count_of``
 `emit_packed_combine_matmul` (the packed block schedule, the tile rounded
 to the activations' dtype, then the top-k weighted combine) in
 ``csrc/moe_reduce_rs.cu``.  Their plain versions are here:
-`grouped_matmul_counts_reference`, `grouped_matmul_w8a8_counts_reference`,
-`packed_matmul_reference` and `packed_combine_reference`; `row_tile` says
+`grouped_matmul_counts_reference`, `packed_matmul_reference` and `packed_combine_reference`; `row_tile` says
 which rows a count-skipping tile covers.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
@@ -168,16 +167,14 @@ WGMMA_BOX_ROWS = 64
 def row_tile(rows: int, dtype, body: str = "mma") -> int:
     """Rows of the tile that the count-skipping device forms run on
     buckets of ``rows`` rows of ``dtype``: the bf16 tile that fits them (16,
-    64 or 128, `gemm_tile.cuh`), 64 for f32, 128 for int8
-    (`w8a8_body.cuh`); on K11's Hopper body (``body="wgmma"``, bf16 on
-    16-byte rows: `allgather_group_gemm.kernel_body`) one 64-row box at
-    every capacity (16, 64, 96, 128: a 16-row bucket is one box, a 96-row
-    one two).  A tile starting at or past an expert's count is skipped; a
-    tile that holds it computes in full."""
+    64 or 128, `gemm_tile.cuh`), 64 for f32; on K11's Hopper body
+    (``body="wgmma"``: bf16 on 16-byte rows, `allgather_group_gemm.
+    kernel_body`, and every int8 call) one 64-row box at every capacity
+    (16, 64, 96, 128: a 16-row bucket is one box, a 96-row one two).  A tile
+    starting at or past an expert's count is skipped; a tile that holds it
+    computes in full."""
     if body == "wgmma":
         return WGMMA_BOX_ROWS
-    if dtype == torch.int8:
-        return 128
     if dtype == torch.float32:
         return 64
     return 16 if rows <= 16 else 64 if rows <= 64 else 128
@@ -199,16 +196,6 @@ def grouped_matmul_counts_reference(a, b, counts, out_dtype=None):
     ``counts`` (E,)."""
     out = grouped_matmul_reference(a, b, out_dtype)
     return zero_past_counts(out, counts, row_tile(a.shape[1], a.dtype))
-
-
-def grouped_matmul_w8a8_counts_reference(a_q, b_q, scale_a, scale_b, counts,
-                                         out_dtype=torch.bfloat16):
-    """The plain version of `emit_grouped_matmul_w8a8` with ``count_of``:
-    `grouped_matmul_w8a8_reference`, zero in the 128-row tiles past
-    ``counts`` (E,)."""
-    out = grouped_matmul_w8a8_reference(a_q, b_q, scale_a, scale_b,
-                                        out_dtype)
-    return zero_past_counts(out, counts, row_tile(a_q.shape[1], torch.int8))
 
 
 def packed_matmul_reference(a, b, block_expert, block_slot, n_blocks,

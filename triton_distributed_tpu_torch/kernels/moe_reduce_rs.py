@@ -119,7 +119,7 @@ def moe_reduce_rs_fused_plain(buckets, expert_weights, plan, rows, weights,
 def kernel_body(buckets, expert_weights) -> str:
     """The K10 body a launch on these operands runs: "wgmma" for bf16
     activations and weights on 16-byte rows (k and n multiples of 8, both
-    operands 16-byte aligned), "int8" for int8 weights (K7's tile), "mma"
+    operands 16-byte aligned), "int8" for int8 weights (``w8a8_body.cuh``'s tile), "mma"
     for other bf16 (the `mma.sync` tile), "f32" (CUDA cores).  By operand
     only; nothing falls back on a failure."""
     if expert_weights.dtype == torch.int8:

@@ -4,25 +4,32 @@ Port of `triton_distributed_tpu/kernels/quantized.py`: `quantize_sym`
 (plain tensor code, as the JAX package leaves it to XLA), `matmul_w8a8`
 (the Pallas `_w8a8_kernel`, here the hand-written CUDA kernel
 ``csrc/matmul_w8a8.cu``) and `matmul_quantized`.  The TPU block sizes
-(`Int8MatmulConfig`) do not carry over: the CUDA kernel has one tile.
-That tile is also `emit_matmul_w8a8` (JAX :161), the in-kernel form:
-``csrc/w8a8_body.cuh`` ``tdt::w8a8::tile``, a device function that one
-block of a cooperative launch calls on any (row, column) tile, and that
-K7's and K9's kernels call once a block; the fused int8 collectives (K11's
-int8 form, K10 with int8 weights, K13) run it per tile.  Its plain
-version is `matmul_w8a8_reference`.
+(`Int8MatmulConfig`) do not carry over: the CUDA kernel runs the int8 form
+of the Hopper tile (``csrc/wgmma_tile.cuh`` `Int8Ops`: TMA and `wgmma`
+m64nNk32 on int8, int32 accumulation), with its tile and k split chosen by
+`plan_w8a8` from the shape.  `wgmma` takes 8-bit operands K-major only, so
+the kernel reads b as (n, k): b_q (k, n) given as the transpose of a
+contiguous (n, k) tensor (how `TPMLP` stores its int8 weights, once) is
+read in place, any other b_q costs one transposed copy a call, counted in
+``matmul_w8a8.transposes``.  `emit_matmul_w8a8` (JAX :161), the in-kernel
+form, is still ``csrc/w8a8_body.cuh`` ``tdt::w8a8::tile`` (an `mma.sync`
+tile that K9, K10 with int8 weights and K13 run); its plain version is
+`matmul_w8a8_reference`.
 
 The int32 accumulator is dequantized with one rank-1 scaling, ``acc *
 (scale_a ⊗ scale_b)``.  On a CUDA tensor `matmul_w8a8` launches the kernel
 or raises; on a CPU tensor it computes the plain version,
 `matmul_w8a8_reference`, which accumulates exactly (in float64: every
 partial sum is an integer below 2**53) and applies the same epilogue in the
-same order, so kernel and plain version agree bit for bit.
+same order, so kernel and plain version agree bit for bit, whatever the
+tile or the k split (int32 sums are exact in any order).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -30,7 +37,83 @@ from triton_distributed_tpu_torch.kernels import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P, _P]}
+
+#: SMs of an H100 SXM: the planner's default (the wrapper passes the card's
+#: own count).
+H100_SMS = 132
+#: k of a ring stage of the int8 tile: one 128-byte swizzled row.
+K_STAGE = 128
+#: The kernel's tiles, (rows, columns): 128 x 256 above 64 rows, 64 x 256
+#: and 64 x 128 for decode batches (``csrc/matmul_w8a8.cu``).
+W8A8_TILES = ((128, 256), (64, 256), (64, 128))
+#: The most k ranges of a split, and the fewest ring stages a range of a
+#: split keeps (so that the ring fills).
+MAX_SPLIT, MIN_SPLIT_STAGES = 16, 4
+#: The planner's model of the card (an H100 SXM at 700 W, from the chip runs
+#: of `scripts/torch_w8a8_ab.py`): one block's TMA stream of weights (the
+#: 8-row down projection unsplit, 16 blocks: ~110 GB/s each), the stream of
+#: every block together (the 8-row gate_up, 96 blocks: ~3.2 TB/s), the int8
+#: tensor-core peak, the time of a split's epilogue kernel, and a unit's
+#: time outside its k loop (the ring's fill, the epilogue) in ring stages.
+SM_BYTES_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S = 110e9, 3.2e12, 1979e12
+SPLIT_EPILOGUE_S = 3e-6
+UNIT_OVERHEAD_STAGES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class W8A8Plan:
+    """K7's launch: tiles of ``rows`` x ``tn``, k in ``split`` ranges of
+    ``per`` ring stages of `K_STAGE` (the last range may be shorter)."""
+
+    rows: int
+    tn: int
+    split: int
+    per: int
+
+    def k_ranges(self, k: int) -> list[tuple[int, int]]:
+        """The k range [k0, k1) of each split, in order."""
+        step = self.per * K_STAGE
+        return [(s * step, min(k, (s + 1) * step)) for s in range(self.split)]
+
+
+@functools.lru_cache(maxsize=256)
+def plan_w8a8(m: int, n: int, k: int, sms: int = H100_SMS) -> W8A8Plan:
+    """The tile and k split of K7 for an (m, k) @ (k, n) product on ``sms``
+    SMs: 64-row tiles up to 64 rows, 128-row above; then the tile width and
+    split whose modelled time is least: the longest of the waves of units
+    (tile x k range) at one block's stream (a unit's stages of a and b,
+    plus `UNIT_OVERHEAD_STAGES`), every byte at the whole card's stream (the
+    operands, the output and a split's int32 partials stored and read back)
+    and the products at the int8 peak, plus a split's epilogue kernel.  Ties
+    go to fewer ranges, then wider tiles.  Int32 sums are exact, so no plan
+    changes a bit of the result."""
+    stages = -(-k // K_STAGE)
+    rows = 64 if m <= 64 else 128
+    floor = max((m * k + n * k + 2 * m * n) / HBM_BYTES_PER_S,
+                2 * m * n * k / INT8_OPS_PER_S)
+    best = None
+    for r, tn in W8A8_TILES:
+        if r != rows:
+            continue
+        count = -(-m // r) * -(-n // tn)
+        for split in range(1, MAX_SPLIT + 1):
+            per = -(-stages // split)
+            if split > 1 and per < MIN_SPLIT_STAGES:
+                break
+            if (split - 1) * per >= stages:  # a range would be empty
+                continue
+            unit = (per + UNIT_OVERHEAD_STAGES) * (r + tn) * K_STAGE
+            waves = -(-count * split // sms) * unit / SM_BYTES_PER_S
+            t = max(waves, floor)
+            if split > 1:
+                t = max(t, floor + 8 * split * m * n / HBM_BYTES_PER_S)
+                t += SPLIT_EPILOGUE_S
+            key = (t, split, -tn)
+            if best is None or key < best[0]:
+                best = (key, W8A8Plan(r, tn, split, per))
+    return best[1]
 
 
 def quantize_sym(x, axis: int):
@@ -65,9 +148,13 @@ def matmul_w8a8(a_q, b_q, scale_a, scale_b, out_dtype=torch.bfloat16):
     token); scale_b: (n,) f32 per column (per output channel).  Returns
     (m, n) in ``out_dtype`` (bf16 or f32).
 
-    The kernel takes contiguous, 16-byte aligned int8 operands with k a
-    positive multiple of 16 and contiguous f32 scales; anything else
-    raises.  Each kernel launch adds one to ``matmul_w8a8.launches``."""
+    The kernel takes a contiguous, 16-byte aligned a_q with k a positive
+    multiple of 16, contiguous f32 scales, and reads b_q K-major: in place
+    when b_q is the transpose of a contiguous (n, k) tensor (``b_q.t()`` is
+    contiguous), else through one transposed copy, which adds one to
+    ``matmul_w8a8.transposes``; anything else raises.  Each kernel launch
+    adds one to ``matmul_w8a8.launches`` and, on the Hopper tile (every
+    launch), to ``matmul_w8a8.wgmma_launches``."""
     if a_q.device.type == "cpu":
         return matmul_w8a8_reference(a_q, b_q, scale_a, scale_b, out_dtype)
     _check(a_q, b_q, scale_a, scale_b, out_dtype)
@@ -75,17 +162,50 @@ def matmul_w8a8(a_q, b_q, scale_a, scale_b, out_dtype=torch.bfloat16):
     n = b_q.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
     if out.numel():
-        lib = _build.load_library("matmul_w8a8", _SIGNATURES)
-        rc = lib.matmul_w8a8(
-            a_q.data_ptr(), b_q.data_ptr(), scale_a.data_ptr(),
-            scale_b.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[out_dtype],
-            m, n, k, torch.cuda.current_stream(a_q.device).cuda_stream)
-        _build.check(lib, rc, "matmul_w8a8 kernel launch")
-        matmul_w8a8.launches += 1
+        _launch(a_q, k_major(b_q), scale_a, scale_b, out,
+                plan_w8a8(m, n, k, _sms(a_q.device)))
     return out
 
 
 matmul_w8a8.launches = 0
+matmul_w8a8.wgmma_launches = 0
+matmul_w8a8.transposes = 0
+
+
+def k_major(b_q):
+    """b_q (k, n)'s K-major form, (n, k) contiguous: ``b_q.t()`` itself
+    when b_q is stored so, else one copy (``matmul_w8a8.transposes``)."""
+    bt = b_q.t()
+    if bt.is_contiguous():
+        return bt
+    matmul_w8a8.transposes += 1
+    return bt.contiguous()
+
+
+def _launch(a_q, bt, scale_a, scale_b, out, plan: W8A8Plan):
+    """One launch of csrc/matmul_w8a8.cu on a_q (m, k) and bt (n, k), both
+    contiguous, into ``out`` (m, n) by ``plan``."""
+    m, k = a_q.shape
+    n = bt.shape[0]
+    if bt.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("matmul_w8a8: b and out must be 16-byte aligned")
+    # A k split's int32 partial sums, (split, m, n): every element written.
+    ws = (torch.empty(plan.split * m * n, dtype=torch.int32,
+                      device=a_q.device) if plan.split > 1 else None)
+    lib = _build.load_library("matmul_w8a8", _SIGNATURES)
+    rc = lib.matmul_w8a8(
+        a_q.data_ptr(), bt.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
+        out.data_ptr(), _build.DTYPE_CODES[out.dtype], m, n, k, plan.rows,
+        plan.tn, plan.split, plan.per, None if ws is None else ws.data_ptr(),
+        torch.cuda.current_stream(a_q.device).cuda_stream)
+    _build.check(lib, rc, "matmul_w8a8 kernel launch")
+    matmul_w8a8.launches += 1
+    matmul_w8a8.wgmma_launches += 1
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def matmul_quantized(a, b):
@@ -113,9 +233,9 @@ def _check(a_q, b_q, scale_a, scale_b, out_dtype):
         if t.dtype != torch.int8 or t.device != a_q.device:
             raise ValueError(f"matmul_w8a8: {nm} is {t.dtype} on {t.device}, "
                              f"want int8 on {a_q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"matmul_w8a8: {nm} is not contiguous and "
-                             "16-byte aligned")
+    if not a_q.is_contiguous() or a_q.data_ptr() % 16:
+        raise ValueError("matmul_w8a8: a_q is not contiguous and 16-byte "
+                         "aligned")
     for nm, t, size in (("scale_a", scale_a, m), ("scale_b", scale_b, n)):
         if (t.dtype != torch.float32 or t.shape != (size,)
                 or t.device != a_q.device or not t.is_contiguous()):

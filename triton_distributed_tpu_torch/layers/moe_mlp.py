@@ -37,7 +37,11 @@ Weights, in the JAX package's global layout at `load_jax_params`:
 ``router`` (hidden, E) f32 whatever the model's dtype, ``gate_up`` (E,
 hidden, 2 ffn) as each rank's [gate_r | up_r] in rank order, ``down`` (E,
 ffn, hidden); in ``w8a8`` mode ``gate_up_q``, ``gate_up_scale`` (E, 2 ffn),
-``down_q``, ``down_scale`` (E, hidden).
+``down_q``, ``down_scale`` (E, hidden).  At world W the int8 ``gate_up_q``
+(W, E, hidden, 2 ffn_loc) is stored K-major once, as the transposed view of
+a contiguous (W, E, 2 ffn_loc, hidden) tensor (`tp_attn.weight_k_major`),
+which K11-int8's `wgmma` reads in place; ``down_q`` feeds K10 with int8
+weights and stays (k, n).
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from triton_distributed_tpu_torch.kernels.quantized import quantize_sym
 from triton_distributed_tpu_torch.kernels.reduce_scatter import (
     sum_in_rank_order)
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    jax_layout, normal_init_, require_ported, tp_layout, weight)
+    jax_layout, normal_init_, require_ported, tp_layout, weight,
+    weight_k_major)
 from triton_distributed_tpu_torch.layers.tp_mlp import gated_silu
 
 MODES = ("xla", "fused", "w8a8")
@@ -128,8 +133,9 @@ class MoEMLP(nn.Module):
         ranks = (world_size,) if world_size > 1 else ()
         self.router = weight(hidden, e, dtype=torch.float32, device=device)
         if mode == "w8a8":
-            self.gate_up_q = weight(*ranks, e, hidden, 2 * f,
-                                    dtype=torch.int8, device=device)
+            # At world W K11-int8 reads gate_up_q K-major: stored so once.
+            self.gate_up_q = (weight_k_major if world_size > 1 else weight)(
+                *ranks, e, hidden, 2 * f, dtype=torch.int8, device=device)
             self.gate_up_scale = weight(*ranks, e, 2 * f,
                                         dtype=torch.float32, device=device)
             self.down_q = weight(*ranks, e, f, hidden, dtype=torch.int8,
@@ -185,13 +191,16 @@ class MoEMLP(nn.Module):
     @staticmethod
     def dequantize_params(params, dtype=torch.bfloat16):
         """The float view of w8a8 parameters (either layout): q * scale in
-        f32, cast to ``dtype``."""
+        f32, cast to ``dtype``, contiguous (the int8 weights may be stored
+        K-major)."""
         return {
             "router": params["router"],
             "gate_up": (params["gate_up_q"].float()
-                        * params["gate_up_scale"].unsqueeze(-2)).to(dtype),
+                        * params["gate_up_scale"].unsqueeze(-2)).to(
+                            dtype, memory_format=torch.contiguous_format),
             "down": (params["down_q"].float()
-                     * params["down_scale"].unsqueeze(-2)).to(dtype),
+                     * params["down_scale"].unsqueeze(-2)).to(
+                         dtype, memory_format=torch.contiguous_format),
         }
 
     def params(self):

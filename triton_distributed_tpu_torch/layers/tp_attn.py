@@ -82,6 +82,17 @@ def weight(*shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def weight_k_major(*shape, dtype, device) -> nn.Parameter:
+    """`weight` of ``shape`` (..., k, n) stored K-major: the transposed
+    view of a contiguous (..., n, k) tensor, so the JAX layout's shape and
+    values with the layout the int8 `wgmma` kernels read in place, and no
+    weight held twice."""
+    *lead, k, n = shape
+    return nn.Parameter(torch.empty((*lead, n, k), dtype=dtype,
+                                    device=device).transpose(-1, -2),
+                        requires_grad=False)
+
+
 #: Leaves sharded by columns (their last axis) and by rows (their
 #: second-to-last axis) at world W; every other leaf is replicated.
 COLUMN_SHARDED = ("wqkv", "gate_up", "gate_up_q", "gate_up_scale")

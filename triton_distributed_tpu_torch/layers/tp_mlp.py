@@ -27,6 +27,15 @@ quantized per row, `matmul_w8a8` (K7) a rank out in f32, then the f32 sum
 over the ranks, cast to x's dtype.  Training at world > 1 raises
 `NotImplementedError` naming its kernels.
 
+The int8 weights that K7 reads (``gate_up_q`` and ``down_q`` at world 1,
+``down_q`` at world W) are stored K-major once, as the transposed views of
+contiguous (..., n, k) tensors (`tp_attn.weight_k_major`): K7's `wgmma`
+takes 8-bit operands K-major only, and reads them in place, with no copy
+a call.  Their names, shapes and values are the JAX layout's, so
+`quantize_params`, `load_quantized` and ``state_dict`` carry the JAX
+package's arrays unchanged.  ``gate_up_q`` at world W feeds K13, which
+reads (k, n), and stays so.
+
 ``fused_ar`` (JAX `_fwd_fused_ar` :167) takes x replicated, (M, hidden) at
 every world: each rank's gate_up and down products are library products
 (JAX computes them with ``jnp.dot``, outside Pallas), the partial rounded
@@ -53,7 +62,8 @@ from triton_distributed_tpu_torch.kernels.quantized import (
 from triton_distributed_tpu_torch.kernels.reduce_scatter import (
     sum_in_rank_order)
 from triton_distributed_tpu_torch.layers.tp_attn import (
-    collective_method, normal_init_, require_ported, tp_layout, weight)
+    collective_method, normal_init_, require_ported, tp_layout, weight,
+    weight_k_major)
 
 MODES = ("xla", "fused", "fused_ar", "w8a8")
 
@@ -108,12 +118,12 @@ class TPMLP(nn.Module):
         f = ffn // world_size
         ranks = (world_size,) if world_size > 1 else ()
         if mode == "w8a8":
-            self.gate_up_q = weight(*ranks, hidden, 2 * f, dtype=torch.int8,
-                                    device=device)
+            self.gate_up_q = (weight_k_major if world_size == 1 else weight)(
+                *ranks, hidden, 2 * f, dtype=torch.int8, device=device)
             self.gate_up_scale = weight(*ranks, 2 * f, dtype=torch.float32,
                                         device=device)
-            self.down_q = weight(*ranks, f, hidden, dtype=torch.int8,
-                                 device=device)
+            self.down_q = weight_k_major(*ranks, f, hidden, dtype=torch.int8,
+                                         device=device)
             self.down_scale = weight(*ranks, hidden, dtype=torch.float32,
                                      device=device)
         else:
