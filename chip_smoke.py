@@ -299,16 +299,21 @@ MLP_HIDDEN, MLP_FFN = 4096, 12288
 W8A8_ROWS = (2048, 8)
 #: K7's checks, label -> (m, k, n, out dtype): the W8A8 layer's gate_up (out
 #: bf16) and down (out f32) at its 2048 and 8 rows, world 4's down a rank
-#: (`TPMLP._forward_w8a8_tp`: 2048 rows x ffn / 4), then the edges: a ragged
-#: m on the 128-row tile, n off 16 (1000: the slab epilogue) and odd (999:
-#: by element), k off 128 (208), and a ragged 64-row k split.  The first
-#: five are timed (K7_TIMED).
+#: (`TPMLP._forward_w8a8_tp`: 2048 rows x ffn / 4), then the edges: the
+#: 2048-row shapes in the other out dtype, both projections at a ragged 37
+#: rows in either, a ragged m on the 128-row tile, n off 16 (1000: the slab
+#: epilogue) and odd (999: by element), k off 128 (208), and a ragged 64-row
+#: k split.  The first five are timed (K7_TIMED).
 K7_SHAPES = {
     "gate_up 2048": (2048, MLP_HIDDEN, 2 * MLP_FFN, torch.bfloat16),
     "down 2048": (2048, MLP_FFN, MLP_HIDDEN, torch.float32),
     "gate_up 8": (8, MLP_HIDDEN, 2 * MLP_FFN, torch.bfloat16),
     "down 8": (8, MLP_FFN, MLP_HIDDEN, torch.float32),
     "world-4 down 2048": (2048, MLP_FFN // 4, MLP_HIDDEN, torch.float32),
+    "gate_up 2048 f32": (2048, MLP_HIDDEN, 2 * MLP_FFN, torch.float32),
+    "down 2048 bf16": (2048, MLP_FFN, MLP_HIDDEN, torch.bfloat16),
+    "gate_up 37": (37, MLP_HIDDEN, 2 * MLP_FFN, torch.float32),
+    "down 37": (37, MLP_FFN, MLP_HIDDEN, torch.bfloat16),
     "ragged m": (300, MLP_HIDDEN, 1000, torch.bfloat16),
     "odd n": (37, 1024, 999, torch.bfloat16),
     "odd n f32": (130, 1024, 999, torch.float32),
@@ -470,7 +475,8 @@ def attention_pairs(sq: int, sk: int, causal: bool, kv_offset: int) -> int:
 #: breakdown (first match wins); the port's own kernels first.
 KERNEL_KINDS = (
     ("port kernels", ("flash_fwd_", "bwd_dq_", "bwd_dkv_", "decode_kernel",
-                      "w8a8_kernel", "w8a8_wgmma_", "grouped_tile_",
+                      "w8a8_kernel", "w8a8_wgmma_", "w8a8_split_",
+                      "grouped_tile_",
                       "wgmma_grouped_",
                       "ag_gemm_", "gemm_rs_", "ag_group_gemm_",
                       "moe_reduce_rs_")),
@@ -5180,12 +5186,12 @@ def main() -> int:
     del k3q_pools
 
     # K7 at its main paths' shapes (K7_TIMED), weights K-major as the layers
-    # keep them: the kernel's own device ms from torch.profiler (the call's
-    # event ms beside it: at 8 rows the wrapper's host work nears the
-    # kernel's time).  Yardstick: one torch._int_mm (cuBLASLt int8, on the
-    # same K-major weights) plus the same epilogue; _int_mm takes more than
-    # 16 rows, so the 8-row calls are padded to 32 (the pad made
-    # beforehand, not timed).  The record is gate_up at 2048 rows, with
+    # keep them: the kernel's own device ms from torch.profiler, with a k
+    # split's epilogue kernel (the call's event ms beside it: at 8 rows the
+    # wrapper's host work nears the kernel's time).  Yardstick: one
+    # torch._int_mm (cuBLASLt int8, on the same K-major weights) plus the
+    # same epilogue; _int_mm takes more than 16 rows, so the 8-row calls
+    # are padded to 32 (the pad made beforehand, not timed).  The record is gate_up at 2048 rows, with
     # every timed shape beside it.
     k7_rows = {}
     for label in K7_TIMED:
@@ -5197,7 +5203,7 @@ def main() -> int:
             return matmul_w8a8(a_q, b_q, sa, sb, out_dtype=out_dtype)
 
         call = time_ms(k7, 20)
-        ms = kernel_ms(k7, "w8a8_wgmma", 20) or call
+        ms = kernel_ms(k7, "w8a8_", 20) or call
         plain = time_ms(lambda: matmul_w8a8_reference(
             a_q, b_q, sa, sb, out_dtype=out_dtype), 2, warmup=1)
         mp = max(m, 32)

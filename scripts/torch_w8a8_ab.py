@@ -40,6 +40,8 @@ measures:
 ``--variants`` times this tree's K7 at its shapes by variant (default: all,
 in the order below, then ``base`` again), each with its ptxas report:
 - ``base``: the kernel as it is;
+- ``wide``: decode batches on a 64 x 256 tile of 5 stages, not 64 x 128 of
+  8 (the planner's split unchanged);
 - ``frag``: the epilogue stores fragment pairs, not 16-byte row pieces
   through the slabs;
 - ``stages3``: three stages of the 128 x 256 tile's ring, not four;
@@ -51,11 +53,10 @@ The variants not cut are held to the plain version bit for bit.  Each is
 built from a copy of the sources in a temporary directory (one ``nvcc``);
 the repository is not touched.
 
-``--plans`` times K7 at its shapes on every tile of its row count and k
-split up to 16 ranges (the planner's search, each launched through
-`quantized._launch`, each held to the plain version bit for bit), beside
-the plan `quantized.plan_w8a8` picks: the data its model of the card
-(`SM_BYTES_PER_S`, `HBM_BYTES_PER_S`, `SPLIT_EPILOGUE_S`) was fitted to.
+``--plans`` times K7 at its shapes on the tile of its row count at every k
+split up to `PLAN_SPLITS` ranges of at least `quantized.MIN_SPLIT_STAGES`
+stages (each launched through `quantized._launch`, each held to the plain
+version bit for bit), beside the plan `quantized.plan_w8a8` picks.
 
 Every line carries the card's name and power limit.
 """
@@ -63,6 +64,7 @@ Every line carries the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -99,6 +101,8 @@ VARIANTS = {
     "base": [],
     "frag": [("  p.slabs = N % (out_dtype == tdt::DTYPE_BF16 ? 8 : 4) == 0;",
               "  p.slabs = 0;")],
+    "wide": [("using Tile64 = wg::Tile<1, 8, 128, 1, Int8Ops>;",
+              "using Tile64 = wg::Tile<1, 5, 256, 1, Int8Ops>;")],
     "stages3": [("using Tile128 = wg::Tile<2, 4, 256, 1, Int8Ops>;",
                  "using Tile128 = wg::Tile<2, 3, 256, 1, Int8Ops>;")],
     "l2none": [(L2_PROMOTION, "CU_TENSOR_MAP_L2_PROMOTION_NONE",
@@ -112,6 +116,8 @@ VARIANTS = {
                  "      store_partial(")],
 }
 CUT = ("loadonly", "nostore")
+#: `--plans`: the most k ranges tried.
+PLAN_SPLITS = 16
 
 
 def bound_ms(m: int, k: int, n: int, out_bytes: int) -> tuple[float, str]:
@@ -396,25 +402,22 @@ def plans() -> int:
         want = quantized.matmul_w8a8_reference(a_q, b_q, sa, sb, dt)
         res = {"shape": label, "card": name_of,
                "chosen": [chosen.rows, chosen.tn, chosen.split]}
-        for rows, tn in quantized.W8A8_TILES:
-            if rows != chosen.rows:
+        for split in range(1, PLAN_SPLITS + 1):
+            per = -(-stages // split)
+            if (split - 1) * per >= stages or (
+                    split > 1 and per < quantized.MIN_SPLIT_STAGES):
                 continue
-            for split in range(1, quantized.MAX_SPLIT + 1):
-                per = -(-stages // split)
-                if (split - 1) * per >= stages or (
-                        split > 1 and per < quantized.MIN_SPLIT_STAGES):
-                    continue
-                plan = quantized.W8A8Plan(rows, tn, split, per)
-                out = torch.empty((m, n), dtype=dt, device="cuda")
+            plan = dataclasses.replace(chosen, split=split, per=per)
+            out = torch.empty((m, n), dtype=dt, device="cuda")
 
-                def k7():
-                    quantized._launch(a_q, b_q.t(), sa, sb, out, plan)
+            def k7():
+                quantized._launch(a_q, b_q.t(), sa, sb, out, plan)
 
-                ms = device_split(k7, "w8a8", REPS)[0]
-                k7()
-                if not torch.equal(out, want):
-                    raise AssertionError(f"{label} {plan}: differs")
-                res[f"{rows}x{tn} split {split}"] = ms
+            ms = device_split(k7, "w8a8", REPS)[0]
+            k7()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{label} {plan}: differs")
+            res[f"{plan.rows}x{plan.tn} split {split}"] = ms
         print(json.dumps(res), flush=True)
     return 0
 

@@ -712,7 +712,7 @@ def test_flash_decode_row_alone_matches_batch(cuda, quant, paged):
     (37, 208, 136),       # ragged m and n, k not a multiple of 128
     (130, 64, 100),       # n not a multiple of 16
     (33, 8192, 999),      # odd n, a ragged 64-row k split
-    (8, 12288, 4096),     # the 8-row down projection: k in 8 ranges
+    (8, 12288, 4096),     # the 8-row down projection: k in 4 ranges
     (1, 16, 1),
 ])
 def test_matmul_w8a8_kernel(cuda, out_dtype, m, k, n, layout):

@@ -20,7 +20,7 @@ from triton_distributed_tpu_torch.kernels.allgather_group_gemm import (
 from triton_distributed_tpu_torch.kernels.grouped_gemm import (
     grouped_matmul_w8a8_reference)
 from triton_distributed_tpu_torch.kernels.quantized import (
-    H100_SMS, K_STAGE, W8A8_TILES, k_major, matmul_w8a8,
+    H100_SMS, K_STAGE, MIN_SPLIT_STAGES, W8A8_TILES, k_major, matmul_w8a8,
     matmul_w8a8_reference, plan_w8a8, quantize_sym)
 from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
@@ -36,12 +36,20 @@ PLAN_SHAPES = [(2048, 4096, 24576), (2048, 12288, 4096), (8, 4096, 24576),
 
 @pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
 def test_plan_w8a8_tiles_and_k_ranges(m, k, n):
-    """Every shape gets one of the kernel's tiles (64 rows up to 64, 128
-    above), and its k ranges cover [0, k) exactly once, in order, none
-    empty, none past the stages a range holds."""
+    """Every shape gets one of the kernel's tiles (64 x 128 up to 64 rows,
+    128 x 256 above), k is split only when the tiles fill less than a wave
+    of SMs, into units within one wave and ranges of at least
+    `MIN_SPLIT_STAGES`, and the k ranges cover [0, k) exactly once, in
+    order, none empty, none past the stages a range holds."""
     plan = plan_w8a8(m, n, k)
-    assert (plan.rows, plan.tn) in W8A8_TILES
-    assert plan.rows == (64 if m <= 64 else 128)
+    assert (plan.rows, plan.tn) == W8A8_TILES[0 if m > 64 else 1]
+    tiles = -(-m // plan.rows) * -(-n // plan.tn)
+    if plan.split > 1:
+        assert tiles * plan.split <= H100_SMS
+        assert plan.per >= MIN_SPLIT_STAGES
+    else:
+        assert (tiles * 2 > H100_SMS
+                or -(-k // K_STAGE) < 2 * MIN_SPLIT_STAGES)
     ranges = plan.k_ranges(k)
     assert len(ranges) == plan.split
     assert ranges[0][0] == 0 and ranges[-1][1] == k
@@ -53,14 +61,12 @@ def test_plan_w8a8_tiles_and_k_ranges(m, k, n):
 
 
 def test_plan_w8a8_splits_the_decode_weight_stream():
-    """The prefill shapes keep k whole; the 8-row down projection, whose
-    column tiles are far fewer than the SMs, splits k, into no more units
-    than one wave."""
-    for m, k, n in PLAN_SHAPES[:2] + PLAN_SHAPES[4:5]:
+    """The prefill shapes and the 8-row gate_up (192 column tiles) keep k
+    whole; the 8-row down projection, 32 column tiles of 128, splits k in
+    4 ranges of 24 stages: 128 units, one wave."""
+    for m, k, n in PLAN_SHAPES[:3] + PLAN_SHAPES[4:5]:
         assert plan_w8a8(m, n, k).split == 1
-    plan = plan_w8a8(8, 4096, 12288)
-    assert plan.split > 1
-    assert -(-4096 // plan.tn) * plan.split <= H100_SMS
+    assert plan_w8a8(8, 4096, 12288) == quantized.W8A8Plan(64, 128, 4, 24)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])

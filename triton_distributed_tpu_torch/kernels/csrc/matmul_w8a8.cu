@@ -26,13 +26,13 @@
 // the shape (`quantized.plan_w8a8`, a planner in Python the CPU tests hold);
 // int32 sums are exact, so neither changes a bit:
 // - `rows` 128 (two consumer warpgroups, 128 x 256 tiles, 4 stages of 48
-//   KB) above 64 rows; 64 (one warpgroup, 64 x 256 or 64 x 128 tiles, 5 or
-//   8 stages) for decode batches, whose cost is the stream of b.
+//   KB) above 64 rows; 64 (one warpgroup, 64 x 128 tiles, 8 stages) for
+//   decode batches, whose cost is the stream of b.
 // - A k split of `split` ranges of `per` stages: each (split, tile) unit's
 //   consumers store their int32 sums into the split's slice of a workspace
 //   (split, M, N), and a second kernel (`split_epilogue`) sums each
 //   element's slices in split order (exact) and runs the epilogue.  It
-//   spreads the 8-row down projection's 16 column tiles of 256 over 128
+//   spreads the 8-row down projection's 32 column tiles of 128 over 128
 //   units on 132 SMs.  (Sums added in place by `red.global.add`, the last
 //   block of a tile found by a counter and two fences, doing the epilogue,
 //   took 2.5-3.5x the split's loads at 8 rows, with 1.4 KB spilled in the
@@ -59,10 +59,9 @@ namespace wg = tdt::wgmma;
 using bf16 = __nv_bfloat16;
 using wg::Int8Ops;
 
-//: The three tiles: 128 x 256 (prefill), 64 x 256 and 64 x 128 (decode).
+//: The two tiles: 128 x 256 (prefill) and 64 x 128 (decode).
 using Tile128 = wg::Tile<2, 4, 256, 1, Int8Ops>;
-using Tile64 = wg::Tile<1, 5, 256, 1, Int8Ops>;
-using Tile64n = wg::Tile<1, 8, 128, 1, Int8Ops>;
+using Tile64 = wg::Tile<1, 8, 128, 1, Int8Ops>;
 
 struct Args {
   CUtensorMap ta;   // a (M, K) as (k, m, 1)
@@ -213,12 +212,10 @@ int launch_tile(Args& p, const void* a, const void* b, int K, cudaStream_t s) {
 }
 
 template <typename TO>
-int dispatch(Args& p, const void* a, const void* b, int K, int rows, int tn,
+int dispatch(Args& p, const void* a, const void* b, int K, int rows,
              cudaStream_t s) {
-  if (rows == 128 && tn == 256)
-    return launch_tile<Tile128, TO>(p, a, b, K, s);
-  if (rows == 64 && tn == 256) return launch_tile<Tile64, TO>(p, a, b, K, s);
-  if (rows == 64 && tn == 128) return launch_tile<Tile64n, TO>(p, a, b, K, s);
+  if (rows == 128) return launch_tile<Tile128, TO>(p, a, b, K, s);
+  if (rows == 64) return launch_tile<Tile64, TO>(p, a, b, K, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -227,12 +224,12 @@ int dispatch(Args& p, const void* a, const void* b, int K, int rows, int tn,
 // a (M, K) int8 row-major; bt (N, K) int8 row-major (b's K-major form); sa
 // (M,) and sb (N,) f32; out (M, N) in out_dtype (tdt::DTYPE_*); a, bt and
 // out 16-byte aligned, K a positive multiple of 16.  The plan
-// (`quantized.plan_w8a8`): a tile of ``rows`` x ``tn`` and k in ``split``
-// ranges of ``per`` stages of 128; with split > 1, ws (split, M, N) int32
-// scratch.  Returns a cudaError_t code.
+// (`quantized.plan_w8a8`): the tile of ``rows`` (128 x 256 or 64 x 128)
+// and k in ``split`` ranges of ``per`` stages of 128; with split > 1, ws
+// (split, M, N) int32 scratch.  Returns a cudaError_t code.
 extern "C" int matmul_w8a8(const void* a, const void* bt, const void* sa,
                            const void* sb, void* out, int out_dtype, int M,
-                           int N, int K, int rows, int tn, int split, int per,
+                           int N, int K, int rows, int split, int per,
                            void* ws, void* stream) {
   if (M == 0 || N == 0) return 0;
   const int nk = (K + Int8Ops::K_STAGE - 1) / Int8Ops::K_STAGE;
@@ -256,8 +253,8 @@ extern "C" int matmul_w8a8(const void* a, const void* bt, const void* sa,
   p.slabs = N % (out_dtype == tdt::DTYPE_BF16 ? 8 : 4) == 0;  // 16-B rows
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == tdt::DTYPE_BF16)
-    return dispatch<bf16>(p, a, bt, K, rows, tn, s);
+    return dispatch<bf16>(p, a, bt, K, rows, s);
   if (out_dtype == tdt::DTYPE_F32)
-    return dispatch<float>(p, a, bt, K, rows, tn, s);
+    return dispatch<float>(p, a, bt, K, rows, s);
   return (int)cudaErrorInvalidValue;
 }

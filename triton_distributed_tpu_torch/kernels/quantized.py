@@ -38,28 +38,19 @@ from triton_distributed_tpu_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"matmul_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P, _P]}
+                               _I, _P, _P]}
 
 #: SMs of an H100 SXM: the planner's default (the wrapper passes the card's
 #: own count).
 H100_SMS = 132
 #: k of a ring stage of the int8 tile: one 128-byte swizzled row.
 K_STAGE = 128
-#: The kernel's tiles, (rows, columns): 128 x 256 above 64 rows, 64 x 256
-#: and 64 x 128 for decode batches (``csrc/matmul_w8a8.cu``).
-W8A8_TILES = ((128, 256), (64, 256), (64, 128))
-#: The most k ranges of a split, and the fewest ring stages a range of a
-#: split keeps (so that the ring fills).
-MAX_SPLIT, MIN_SPLIT_STAGES = 16, 4
-#: The planner's model of the card (an H100 SXM at 700 W, from the chip runs
-#: of `scripts/torch_w8a8_ab.py`): one block's TMA stream of weights (the
-#: 8-row down projection unsplit, 16 blocks: ~110 GB/s each), the stream of
-#: every block together (the 8-row gate_up, 96 blocks: ~3.2 TB/s), the int8
-#: tensor-core peak, the time of a split's epilogue kernel, and a unit's
-#: time outside its k loop (the ring's fill, the epilogue) in ring stages.
-SM_BYTES_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S = 110e9, 3.2e12, 1979e12
-SPLIT_EPILOGUE_S = 3e-6
-UNIT_OVERHEAD_STAGES = 2
+#: The kernel's tiles, (rows, columns): 128 x 256 above 64 rows, 64 x 128
+#: for decode batches (``csrc/matmul_w8a8.cu``).
+W8A8_TILES = ((128, 256), (64, 128))
+#: The fewest ring stages a range of a k split keeps (so that the ring
+#: fills).
+MIN_SPLIT_STAGES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,39 +72,16 @@ class W8A8Plan:
 @functools.lru_cache(maxsize=256)
 def plan_w8a8(m: int, n: int, k: int, sms: int = H100_SMS) -> W8A8Plan:
     """The tile and k split of K7 for an (m, k) @ (k, n) product on ``sms``
-    SMs: 64-row tiles up to 64 rows, 128-row above; then the tile width and
-    split whose modelled time is least: the longest of the waves of units
-    (tile x k range) at one block's stream (a unit's stages of a and b,
-    plus `UNIT_OVERHEAD_STAGES`), every byte at the whole card's stream (the
-    operands, the output and a split's int32 partials stored and read back)
-    and the products at the int8 peak, plus a split's epilogue kernel.  Ties
-    go to fewer ranges, then wider tiles.  Int32 sums are exact, so no plan
-    changes a bit of the result."""
+    SMs: the 64 x 128 tile up to 64 rows, 128 x 256 above.  When the tiles
+    fill less than a wave of SMs, k is split into as many ranges as keep
+    the units within one wave, each of at least `MIN_SPLIT_STAGES` stages.
+    Int32 sums are exact, so no plan changes a bit of the result."""
+    rows, tn = W8A8_TILES[1] if m <= 64 else W8A8_TILES[0]
     stages = -(-k // K_STAGE)
-    rows = 64 if m <= 64 else 128
-    floor = max((m * k + n * k + 2 * m * n) / HBM_BYTES_PER_S,
-                2 * m * n * k / INT8_OPS_PER_S)
-    best = None
-    for r, tn in W8A8_TILES:
-        if r != rows:
-            continue
-        count = -(-m // r) * -(-n // tn)
-        for split in range(1, MAX_SPLIT + 1):
-            per = -(-stages // split)
-            if split > 1 and per < MIN_SPLIT_STAGES:
-                break
-            if (split - 1) * per >= stages:  # a range would be empty
-                continue
-            unit = (per + UNIT_OVERHEAD_STAGES) * (r + tn) * K_STAGE
-            waves = -(-count * split // sms) * unit / SM_BYTES_PER_S
-            t = max(waves, floor)
-            if split > 1:
-                t = max(t, floor + 8 * split * m * n / HBM_BYTES_PER_S)
-                t += SPLIT_EPILOGUE_S
-            key = (t, split, -tn)
-            if best is None or key < best[0]:
-                best = (key, W8A8Plan(r, tn, split, per))
-    return best[1]
+    tiles = -(-m // rows) * -(-n // tn)
+    split = max(1, min(sms // tiles, stages // MIN_SPLIT_STAGES))
+    per = -(-stages // split)
+    return W8A8Plan(rows, tn, -(-stages // per), per)
 
 
 def quantize_sym(x, axis: int):
@@ -196,7 +164,7 @@ def _launch(a_q, bt, scale_a, scale_b, out, plan: W8A8Plan):
     rc = lib.matmul_w8a8(
         a_q.data_ptr(), bt.data_ptr(), scale_a.data_ptr(), scale_b.data_ptr(),
         out.data_ptr(), _build.DTYPE_CODES[out.dtype], m, n, k, plan.rows,
-        plan.tn, plan.split, plan.per, None if ws is None else ws.data_ptr(),
+        plan.split, plan.per, None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(a_q.device).cuda_stream)
     _build.check(lib, rc, "matmul_w8a8 kernel launch")
     matmul_w8a8.launches += 1
